@@ -1,0 +1,45 @@
+"""Static-shape batching (the port's copy of the JAX package's
+``engine/batching.py``).
+
+Datasets whose size is not a multiple of the batch size are padded with
+zero-weight samples (``mask``) instead of a ragged final batch, so every
+client slot and every evaluation batch has one shape.  Rows are gathered
+with numpy fancy indexing, which gives the same bytes as the JAX package's
+native gather.
+"""
+
+import numpy as np
+
+from ..data.collection import ArrayDataset
+
+
+def make_epoch_batches(dataset: ArrayDataset, batch_size: int) -> dict:
+    """``{"input": [n, B, ...], "target": [n, B], "mask": [n, B]}`` in
+    dataset order (the SPMD session's evaluation batches)."""
+    n = len(dataset)
+    if n <= 0:
+        raise ValueError("empty dataset")
+    order = np.arange(n)
+    n_batches = max(1, (n + batch_size - 1) // batch_size)
+    pad = n_batches * batch_size - n
+    order = np.concatenate([order, np.zeros(pad, dtype=order.dtype)])
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(pad, np.float32)])
+    return {
+        "input": dataset.inputs[order].reshape(
+            n_batches, batch_size, *dataset.inputs.shape[1:]
+        ),
+        "target": dataset.targets[order].reshape(n_batches, batch_size),
+        "mask": mask.reshape(n_batches, batch_size),
+    }
+
+
+def fixed_size_partition(indices: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Pad or truncate an index set to exactly ``size``: ``(indices, mask)``."""
+    n = len(indices)
+    if n >= size:
+        return indices[:size], np.ones(size, np.float32)
+    pad = np.zeros(size - n, dtype=indices.dtype if n else np.int64)
+    if n:
+        pad = np.full(size - n, indices[0], dtype=indices.dtype)
+    mask = np.concatenate([np.ones(n, np.float32), np.zeros(size - n, np.float32)])
+    return np.concatenate([indices, pad]), mask

@@ -1,0 +1,100 @@
+"""Model registry + ModelContext (the port's ``models/registry.py``).
+
+A :class:`ModelContext` bundles an ``nn.Module`` with functions over
+parameter dicts (``init`` / ``apply`` / ``loss``), which are what the
+engine and the session pass around.  ``apply`` runs the module through
+``torch.func.functional_call``, so the same module serves the f32 master
+parameters, a client's bf16 copy, or views into a flat vector.
+"""
+
+import dataclasses
+from collections.abc import Callable, Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..data.collection import DatasetCollection
+from ..ml_type import MachineLearningPhase as Phase
+
+global_model_factory: dict[str, Callable[..., "ModelContext"]] = {}
+
+
+def register_model(*names: str):
+    def deco(fn):
+        for name in names:
+            global_model_factory[name.lower()] = fn
+        return fn
+
+    return deco
+
+
+@dataclasses.dataclass
+class ModelContext:
+    name: str
+    module: nn.Module  # holds ``init_weights(generator)``; lives on ``device``
+    num_classes: int
+    device: torch.device
+    compute_dtype: torch.dtype = torch.float32
+
+    def init(self, seed: int) -> dict[str, torch.Tensor]:
+        """Fresh f32 parameters from ``seed`` (drawn on the CPU with a
+        ``torch.Generator``, so a seed gives the same weights on any
+        device)."""
+        self.module.init_weights(torch.Generator().manual_seed(seed))
+        return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
+
+    def apply(self, params: Mapping[str, torch.Tensor], inputs, train: bool = False):
+        self.module.train(train)
+        return torch.func.functional_call(self.module, dict(params), (inputs,))
+
+    def _cast_for_compute(self, tree):
+        """Floating tensors in the compute dtype (the identity, without a
+        copy, where they already are)."""
+        if self.compute_dtype == torch.float32:
+            return tree
+        if isinstance(tree, torch.Tensor):
+            return tree.to(self.compute_dtype) if tree.is_floating_point() else tree
+        return {k: self._cast_for_compute(v) for k, v in tree.items()}
+
+    def loss(self, params, batch: dict, train: bool = False):
+        """Masked mean softmax cross-entropy + accuracy counts.  ``batch`` =
+        ``{"input", "target", "mask"}``; padded samples weigh 0."""
+        logits = self.apply(
+            self._cast_for_compute(params),
+            self._cast_for_compute(batch["input"]),
+            train=train,
+        )
+        return masked_ce_loss(logits, batch["target"], batch["mask"])
+
+
+def masked_ce_loss(logits, targets, mask):
+    """f32 ``log_softmax`` cross-entropy, masked mean, plus the summed
+    per-sample terms the engine reduces."""
+    mask = mask.to(torch.float32)
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    count = mask.sum()
+    loss = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    correct = ((logits.argmax(dim=-1) == targets) * mask).sum()
+    return loss, {"loss_sum": nll * mask, "correct": correct, "count": count}
+
+
+def create_model_context(
+    model_name: str,
+    dataset_collection: DatasetCollection,
+    device: torch.device,
+    **model_kwargs,
+) -> ModelContext:
+    factory = global_model_factory.get(model_name.lower())
+    if factory is None:
+        raise NotImplementedError(
+            f"model {model_name!r} is not ported yet; ported: {sorted(global_model_factory)}"
+        )
+    return factory(dataset_collection=dataset_collection, device=device, **model_kwargs)
+
+
+def example_batch(dc: DatasetCollection) -> np.ndarray:
+    phase = Phase.Training if dc.has_dataset(Phase.Training) else Phase.Test
+    return dc.get_dataset(phase).inputs[:1]

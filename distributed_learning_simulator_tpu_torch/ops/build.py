@@ -1,0 +1,105 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
+own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
+``_kernel_build/`` (listed in ``.gitignore``; nothing prebuilt is
+committed).  The library's file name carries a hash of its source and of
+the compiler flags, so an edited kernel is never served by a stale build.
+:func:`build` starts one ``nvcc`` per missing library, all at once, and
+waits for them together; :func:`load` builds one library if needed and
+returns it as a :class:`ctypes.CDLL`.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
+BUILD_DIR = os.path.join(PACKAGE_DIR, "_kernel_build")
+
+NVCC_FLAGS = (
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+)
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a kernel source."""
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(home, "bin", "nvcc")
+    if os.path.isfile(candidate):
+        return candidate
+    raise KernelBuildError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin)")
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
+
+
+def library_path(name: str) -> str:
+    digest = hashlib.sha256()
+    with open(source_path(name), "rb") as f:
+        digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+
+
+def build(names) -> dict[str, str]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` process each, all started together.  Returns each compiled
+    library's ``ptxas`` report (registers, shared memory, spills); raises
+    :class:`KernelBuildError` naming every source that failed."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    pending = {}
+    for name in names:
+        target = library_path(name)
+        if os.path.isfile(target):
+            continue
+        tmp = f"{target}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        pending[name] = (proc, tmp, target)
+    reports, failures = {}, []
+    for name, (proc, tmp, target) in pending.items():
+        output, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
+            continue
+        os.replace(tmp, target)
+        reports[name] = output
+    if failures:
+        raise KernelBuildError("nvcc failed for " + "\n".join(failures))
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, compiled on first use."""
+    with _lock:
+        lib = _loaded.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            _loaded[name] = lib
+        return lib

@@ -1,0 +1,247 @@
+"""Short-sequence attention in the packed-QKV projection layout.
+
+The port of ``ops/short_attention.py`` (kernels K4 and K5): the CUDA
+kernels are ``csrc/short_attention.cu``.  The input is the packed
+``[B, S, 3·H·Dh]`` output of one QKV projection (Q rows, then K, then V,
+heads side by side); the output is ``[B, S, H·Dh]``, ready for the output
+projection.  Scores and softmax are f32, the probabilities are rounded to
+the input dtype before ``P·V`` (as the TPU kernel casts ``p``), keys with
+``kv_mask <= 0`` score ``-1e30``.
+
+:func:`short_attention_fwd` and :func:`short_attention_bwd` launch the
+kernels for CUDA tensors and raise on anything they do not take; for CPU
+tensors they compute :func:`short_attention_fwd_plain` and
+:func:`short_attention_bwd_plain`, the same functions in plain PyTorch.
+:class:`ShortAttentionFunction` joins the two for autograd.  The forward
+saves the per-row log-sum-exp; the backward forms
+``delta = rowsum(dP ⊙ P)`` as the TPU kernel does.
+"""
+
+import ctypes
+
+import torch
+
+from . import build
+
+_NEG_INF = -1e30
+MAX_SHORT_T = 1024  # hand-off point to the long-sequence kernels
+#: the JAX gate's working-set bound, kept so both packages route the same
+#: shapes to this kernel
+_VMEM_BUDGET = 13 * 1024 * 1024
+
+#: launches of the forward / backward kernels since last set to 0
+fwd_launches = 0
+bwd_launches = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_bound = None
+
+
+def short_eligible(s: int, d_model: int, num_heads: int, itemsize: int = 2) -> bool:
+    """Does this kernel serve a ``[B, S, 3·d_model]`` packed projection?
+    The JAX package's shape rules: head dim 64 or 128, ``d_model`` a
+    multiple of 128, ``S <= 1024`` and its working-set bound."""
+    if d_model % num_heads:
+        return False
+    dh = d_model // num_heads
+    if dh not in (64, 128) or d_model % 128:
+        return False
+    if s > MAX_SHORT_T:
+        return False
+    rows = max((s + 15) // 16 * 16, 128)
+    working = 4 * d_model * rows * itemsize + 4 * rows * rows * 4
+    return working <= _VMEM_BUDGET
+
+
+def _library():
+    global _bound
+    if _bound is None:
+        lib = build.load("short_attention")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.short_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.short_attention_fwd.restype = i
+        lib.short_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+        lib.short_attention_bwd.restype = i
+        _bound = lib
+    return _bound
+
+
+def _split_heads(qkv: torch.Tensor, num_heads: int):
+    """f32 ``q, k, v`` as ``[B, H, S, Dh]`` views of the packed rows."""
+    b, s, width = qkv.shape
+    dh = width // 3 // num_heads
+    x = qkv.float().view(b, s, 3, num_heads, dh).permute(2, 0, 3, 1, 4)
+    return x[0], x[1], x[2]
+
+
+def _masked_logits(q, k, kv_mask, scale):
+    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    if kv_mask is not None:
+        logits = torch.where(kv_mask[:, None, None, :] > 0, logits, _NEG_INF)
+    return logits
+
+
+def short_attention_fwd_plain(qkv, num_heads: int, kv_mask=None):
+    """Plain PyTorch forward: ``(out [B, S, H·Dh], lse [B, H, S] f32)``."""
+    b, s, width = qkv.shape
+    dh = width // 3 // num_heads
+    q, k, v = _split_heads(qkv, num_heads)
+    logits = _masked_logits(q, k, kv_mask, dh**-0.5)
+    lse = torch.logsumexp(logits, dim=-1)
+    p = torch.exp(logits - lse[..., None]).to(qkv.dtype).float()
+    out = torch.matmul(p, v).permute(0, 2, 1, 3).reshape(b, s, width // 3)
+    return out.to(qkv.dtype), lse
+
+
+def short_attention_bwd_plain(qkv, dout, lse, num_heads: int, kv_mask=None):
+    """Plain PyTorch backward: ``d(qkv)`` in the packed layout."""
+    b, s, width = qkv.shape
+    dh = width // 3 // num_heads
+    scale = dh**-0.5
+    q, k, v = _split_heads(qkv, num_heads)
+    do = dout.float().view(b, s, num_heads, dh).permute(0, 2, 1, 3)
+    p = torch.exp(_masked_logits(q, k, kv_mask, scale) - lse[..., None])
+    dv = torch.matmul(p.to(qkv.dtype).float().transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - torch.sum(dp * p, dim=-1, keepdim=True))
+    ds = (ds * scale).to(qkv.dtype).float()
+    dq = torch.matmul(ds, k)
+    dk = torch.matmul(ds.transpose(-1, -2), q)
+    dqkv = torch.stack([dq, dk, dv], dim=0).permute(1, 3, 0, 2, 4)
+    return dqkv.reshape(b, s, width).to(qkv.dtype)
+
+
+def _check(qkv, num_heads, kv_mask, dout=None, lse=None):
+    if qkv.dim() != 3 or qkv.shape[2] % 3 or (qkv.shape[2] // 3) % num_heads:
+        raise ValueError(f"qkv must be [B, S, 3·H·Dh], got {tuple(qkv.shape)}")
+    b, s, width = qkv.shape
+    dh = width // 3 // num_heads
+    if qkv.dtype not in _DTYPE_CODES:
+        raise TypeError(f"short_attention takes f32 or bf16, got {qkv.dtype}")
+    if dh not in (64, 128):
+        raise ValueError(f"short_attention takes head dim 64 or 128, got {dh}")
+    if not 0 < s <= MAX_SHORT_T:
+        raise ValueError(f"short_attention takes 0 < S <= {MAX_SHORT_T}, got {s}")
+    operands = [("qkv", qkv)]
+    if kv_mask is not None:
+        if kv_mask.shape != (b, s) or kv_mask.dtype != torch.float32:
+            raise ValueError("kv_mask must be f32 [B, S]")
+        operands.append(("kv_mask", kv_mask))
+    if dout is not None:
+        if dout.shape != (b, s, width // 3) or dout.dtype != qkv.dtype:
+            raise ValueError("dout must match the forward output")
+        operands.append(("dout", dout))
+    if lse is not None:
+        if lse.shape != (b, num_heads, s) or lse.dtype != torch.float32:
+            raise ValueError("lse must be f32 [B, H, S]")
+        operands.append(("lse", lse))
+    for name, t in operands:
+        if t.device != qkv.device:
+            raise ValueError(f"{name} on {t.device} but qkv on {qkv.device}")
+        if qkv.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if qkv.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"short_attention runs on cuda or cpu, not {qkv.device}")
+    return b, s, dh
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
+    """Forward over the packed projection: ``(out, lse)``."""
+    global fwd_launches
+    b, s, dh = _check(qkv, num_heads, kv_mask)
+    if qkv.device.type == "cpu":
+        return short_attention_fwd_plain(qkv, num_heads, kv_mask)
+    out = torch.empty(b, s, num_heads * dh, dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty(b, num_heads, s, dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _library().short_attention_fwd(
+            _DTYPE_CODES[qkv.dtype],
+            qkv.data_ptr(),
+            _ptr(kv_mask),
+            out.data_ptr(),
+            lse.data_ptr(),
+            b,
+            s,
+            num_heads,
+            dh,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"short_attention forward launch failed: CUDA error {err}")
+    fwd_launches += 1
+    return out, lse
+
+
+def short_attention_bwd(qkv, dout, lse, num_heads: int, kv_mask=None):
+    """Backward: ``d(qkv)`` from the forward's input, ``lse`` and ``dout``."""
+    global bwd_launches
+    b, s, dh = _check(qkv, num_heads, kv_mask, dout, lse)
+    if qkv.device.type == "cpu":
+        return short_attention_bwd_plain(qkv, dout, lse, num_heads, kv_mask)
+    dqkv = torch.empty_like(qkv)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(qkv.device):
+        err = _library().short_attention_bwd(
+            _DTYPE_CODES[qkv.dtype],
+            qkv.data_ptr(),
+            _ptr(kv_mask),
+            dout.data_ptr(),
+            lse.data_ptr(),
+            delta.data_ptr(),
+            dqkv.data_ptr(),
+            b,
+            s,
+            num_heads,
+            dh,
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"short_attention backward launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return dqkv
+
+
+class ShortAttentionFunction(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient (the
+    TPU package's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, kv_mask, num_heads):
+        out, lse = short_attention_fwd(qkv, num_heads, kv_mask)
+        ctx.save_for_backward(qkv, kv_mask, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, kv_mask, lse = ctx.saved_tensors
+        dqkv = short_attention_bwd(
+            qkv, dout.contiguous(), lse, ctx.num_heads, kv_mask
+        )
+        return dqkv, None, None
+
+
+def short_attention(qkv, num_heads: int, kv_mask=None):
+    """``softmax(QKᵀ·Dh^-0.5)V`` over a packed ``[B, S, 3·H·Dh]``
+    projection, returning ``[B, S, H·Dh]``.  ``kv_mask``: optional
+    ``[B, S]`` key-padding mask (> 0 = attend).  Callers gate with
+    :func:`short_eligible`."""
+    if kv_mask is not None:
+        kv_mask = kv_mask.to(torch.float32).contiguous()
+    return ShortAttentionFunction.apply(qkv.contiguous(), kv_mask, num_heads)
+
+
+__all__ = [
+    "MAX_SHORT_T",
+    "ShortAttentionFunction",
+    "short_attention",
+    "short_attention_bwd",
+    "short_attention_bwd_plain",
+    "short_attention_fwd",
+    "short_attention_fwd_plain",
+    "short_eligible",
+]

@@ -1,0 +1,307 @@
+"""FedAvg rounds on one device (the port's ``parallel/spmd.py``).
+
+The JAX session compiles a whole round into one program over a
+``("clients", ...)`` mesh.  Here the clients axis is a Python loop on one
+GPU, in chunks of ``client_chunk`` clients, with the JAX round's data flow:
+
+1. cast the f32 master to the compute dtype once per round (bf16 under
+   ``use_amp``; the identity in f32);
+2. train each client of a chunk from that copy, in place in its row of a
+   preallocated ``[mb, D]`` buffer in the compute dtype (the momentum
+   trace lives in the same dtype);
+3. call kernel K1 once per chunk: ``w[chunk] @ rows`` accumulated in f32
+   into a ``[D]`` vector;
+4. divide by the total weight and keep the result as the f32 master.
+
+The port aggregates through K1 in f32 and bf16 alike; the JAX package's f32
+per-leaf epilogue computes the same function.  Each round then evaluates
+the master on the test set and writes a row of ``server/round_record.json``
+with the JAX session's keys.
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import DistributedTrainingConfig
+from ..engine.batching import fixed_size_partition, make_epoch_batches
+from ..engine.engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
+from ..ml_type import MachineLearningPhase as Phase
+from ..models.convert import from_jax, to_jax
+from ..ops.pytree import flat_stack_weighted_sum
+from ..utils.logging import get_logger
+from ..utils.selection import select_workers
+
+#: algorithm_kwargs this session reads; any other key raises
+SUPPORTED_ALGORITHM_KWARGS = frozenset(
+    {"client_chunk", "global_model_path", "random_client_number", "round_horizon"}
+)
+
+
+def _client_phase_indices(config, practitioners, phase):
+    """Worker-ordered per-client index arrays for one dataset phase."""
+    indices = []
+    for practitioner in sorted(practitioners, key=lambda p: p.worker_id):
+        sampled = practitioner.get_sampler(config.dataset_name).sample(
+            practitioner.practitioner_id
+        )
+        indices.append(np.asarray(sampled.get(phase, []), np.int64))
+    return indices
+
+
+def _stack_slot_batches(dataset, per_client_indices, n_slots, batch_size):
+    """Pad every client's index set to ``n_batches × batch_size`` (mask 0 on
+    padding), add zero-weight padding slots up to ``n_slots``, and reshape
+    to ``[C, n_batches, B, ...]``.  Returns (data, n_batches)."""
+    max_size = max((len(i) for i in per_client_indices), default=0)
+    n_batches = max(1, (max_size + batch_size - 1) // batch_size)
+    slot_size = n_batches * batch_size
+    inputs, targets, masks = [], [], []
+    for idx in per_client_indices:
+        padded, mask = fixed_size_partition(idx, slot_size)
+        inputs.append(dataset.inputs[padded])
+        targets.append(dataset.targets[padded])
+        masks.append(mask)
+    while len(inputs) < n_slots:
+        inputs.append(np.zeros_like(inputs[0]))
+        targets.append(np.zeros_like(targets[0]))
+        masks.append(np.zeros_like(masks[0]))
+
+    def stack(parts, extra_shape):
+        return np.stack(parts).reshape(n_slots, n_batches, batch_size, *extra_shape)
+
+    data = {
+        "input": stack(inputs, dataset.inputs.shape[1:]),
+        "target": stack(targets, ()),
+        "mask": stack(masks, ()),
+    }
+    return data, n_batches
+
+
+def stack_client_data(config, dataset_collection, practitioners, n_slots):
+    """Per-client training data ``[C, n_batches, B, ...]`` (host numpy);
+    returns (data, dataset_sizes, n_batches)."""
+    train = dataset_collection.get_dataset(Phase.Training)
+    per_client_indices = _client_phase_indices(config, practitioners, Phase.Training)
+    sizes = [len(idx) for idx in per_client_indices]
+    data, n_batches = _stack_slot_batches(train, per_client_indices, n_slots, config.batch_size)
+    dataset_sizes = np.asarray(sizes + [0] * (n_slots - len(sizes)), np.float32)
+    return data, dataset_sizes, n_batches
+
+
+def stack_client_val_data(config, dataset_collection, practitioners, n_slots):
+    """Per-client VALIDATION batches ``[C, n_batches, B, ...]``, or None when
+    the phase is absent or empty: the substrate of the iid best-epoch upload
+    policy.  Clients with an empty split get all-masked batches, tie at
+    accuracy 0 every epoch, and so upload their final epoch."""
+    if not dataset_collection.has_dataset(Phase.Validation):
+        return None
+    val = dataset_collection.get_dataset(Phase.Validation)
+    if int(np.asarray(val.inputs).shape[0]) == 0:
+        return None
+    per_client_indices = _client_phase_indices(config, practitioners, Phase.Validation)
+    if max((len(i) for i in per_client_indices), default=0) == 0:
+        return None
+    data, _ = _stack_slot_batches(val, per_client_indices, n_slots, config.batch_size)
+    return data
+
+
+def scan_local_epochs(
+    engine: ComputeEngine, epochs: int, params: torch.Tensor, data, counts, val_data=None
+) -> dict[str, torch.Tensor]:
+    """One client's local training, in place on the flat ``params`` (which
+    start as the round's global copy): ``epochs`` of SGD with a fresh
+    optimizer state.  With ``val_data`` (the iid best-epoch policy) the
+    params left behind are the epoch with the best validation accuracy,
+    ``>=`` so a later epoch wins ties; the choice stays on the device.
+    Returns the summed training metrics."""
+    opt_state = engine.init_opt_state(params)
+    summed = None
+    best = best_acc = None
+    if val_data is not None:
+        best = params.clone()
+        best_acc = torch.full((), -1.0, device=params.device)
+    for _ in range(epochs):
+        metrics = engine.train_epoch(params, opt_state, data, counts)
+        summed = metrics if summed is None else {k: summed[k] + metrics[k] for k in summed}
+        if val_data is not None:
+            val = engine.evaluate(engine.layout.split(params), val_data)
+            acc = val["correct"] / torch.clamp(val["count"], min=1.0)
+            better = acc >= best_acc
+            best = torch.where(better, params, best)
+            best_acc = torch.where(better, acc, best_acc)
+    if best is not None:
+        params.copy_(best)
+    return summed
+
+
+class SpmdFedAvgSession:
+    """FedAvg rounds with the clients as a chunked loop on one device."""
+
+    def __init__(
+        self,
+        config: DistributedTrainingConfig,
+        dataset_collection,
+        model_ctx,
+        engine: ComputeEngine,
+        practitioners,
+    ) -> None:
+        unsupported = sorted(set(config.algorithm_kwargs) - SUPPORTED_ALGORITHM_KWARGS)
+        if unsupported or int(config.algorithm_kwargs.get("round_horizon", 1) or 1) != 1:
+            raise NotImplementedError(
+                f"algorithm_kwargs {unsupported or ['round_horizon > 1']} are not"
+                " ported yet (ROADMAP.md, port: round machinery)"
+            )
+        self.config = config
+        self.model_ctx = model_ctx
+        self.engine = engine
+        self.device = model_ctx.device
+        self.n_slots = config.worker_number
+        self.client_chunk = int(config.algorithm_kwargs.get("client_chunk", 0) or 0)
+        self._stat: dict[int, dict] = {}
+
+        host, self._dataset_sizes, _ = stack_client_data(
+            config, dataset_collection, practitioners, self.n_slots
+        )
+        self._counts = host["mask"].sum(axis=-1).tolist()  # [C][n_batches], on the host
+        self._data = self._to_device(host)
+        self._val_data = None
+        if config.dataset_sampling == "iid" and config.epoch > 1:
+            val = stack_client_val_data(config, dataset_collection, practitioners, self.n_slots)
+            if val is not None:
+                self._val_data = self._to_device(val)
+        test = dataset_collection.get_dataset(Phase.Test)
+        self._eval_batches = self._to_device(make_epoch_batches(test, config.batch_size))
+
+    def _to_device(self, batches: dict) -> dict[str, torch.Tensor]:
+        """Host batches on the device, inputs stored in the compute dtype
+        once (the JAX session's hoisted cast), targets as int64."""
+        return {
+            "input": torch.from_numpy(batches["input"]).to(
+                self.device, self.model_ctx.compute_dtype
+            ),
+            "target": torch.from_numpy(batches["target"]).to(self.device, torch.int64),
+            "mask": torch.from_numpy(batches["mask"]).to(self.device, torch.float32),
+        }
+
+    def chunk_size(self) -> int:
+        """Clients per aggregation chunk: ``client_chunk`` (8 when unset,
+        the JAX session's accelerator default), lowered to a divisor of
+        the slot count."""
+        mb = self.client_chunk if self.client_chunk > 0 else 8
+        mb = max(1, min(mb, self.n_slots))
+        while self.n_slots % mb:
+            mb -= 1
+        return mb
+
+    def _base_weight_row(self, round_number: int) -> np.ndarray:
+        """``[n_slots]`` aggregation weights: dataset sizes of the round's
+        selected workers, 0 elsewhere."""
+        selected = select_workers(
+            self.config.seed,
+            round_number,
+            self.config.worker_number,
+            self.config.algorithm_kwargs.get("random_client_number"),
+        )
+        weights = np.zeros(self.n_slots, np.float32)
+        for worker_id in selected:
+            weights[worker_id] = self._dataset_sizes[worker_id]
+        return weights
+
+    def _init_global_params(self) -> torch.Tensor:
+        """The f32 master as one flat vector: ``global_model_path`` (an npz
+        of JAX parameters, through the weight bridge) or a fresh init."""
+        init_path = self.config.algorithm_kwargs.get("global_model_path")
+        if init_path:
+            with np.load(init_path) as blob:
+                params = from_jax({k: blob[k] for k in blob.files})
+        else:
+            params = self.engine.init_params(self.config.seed)
+        params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
+        return self.engine.layout.flatten(params)
+
+    def run_round(self, global_vec: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
+        """One FedAvg round: the new f32 master from ``global_vec``."""
+        engine = self.engine
+        start = global_vec.to(self.model_ctx.compute_dtype)  # once per round
+        mb = self.chunk_size()
+        size = global_vec.numel()
+        # rows start on 128-byte boundaries, so K1 reads 16-byte vectors
+        row_stride = -(-size // 64) * 64
+        rows = torch.empty(mb, row_stride, dtype=start.dtype, device=self.device)[:, :size]
+        acc = torch.zeros_like(global_vec)
+        w = torch.from_numpy(weights).to(self.device)  # one host->device copy a round
+        for c0 in range(0, self.n_slots, mb):
+            for j in range(mb):
+                slot = c0 + j
+                rows[j].copy_(start)
+                if weights[slot] == 0:  # unselected: contributes exactly 0
+                    continue
+                val = None
+                if self._val_data is not None:
+                    val = {k: v[slot] for k, v in self._val_data.items()}
+                scan_local_epochs(
+                    engine,
+                    self.config.epoch,
+                    rows[j],
+                    {k: v[slot] for k, v in self._data.items()},
+                    self._counts[slot],
+                    val,
+                )
+            acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
+        return acc / max(float(weights.sum()), 1e-12)
+
+    def _evaluate(self, global_vec: torch.Tensor) -> dict:
+        params = self.engine.layout.split(global_vec)
+        metric = summarize_metrics(self.engine.evaluate(params, self._eval_batches))
+        metric.update(maybe_slow_metrics(self.config, self.engine, params, self._eval_batches))
+        return metric
+
+    def run(self) -> dict:
+        config = self.config
+        global_vec = self._init_global_params()
+        save_dir = os.path.join(config.save_dir, "server")
+        os.makedirs(save_dir, exist_ok=True)
+        param_mb = global_vec.numel() * 4 / 1e6
+        for round_number in range(1, config.round + 1):
+            start = time.monotonic()
+            weights = self._base_weight_row(round_number)
+            global_vec = self.run_round(global_vec, weights)
+            metric = self._evaluate(global_vec)  # reads the metrics: the round's one sync
+            selected = int((weights > 0).sum())
+            self._note_round(
+                round_number,
+                metric,
+                save_dir,
+                {
+                    "received_mb": selected * param_mb,
+                    "sent_mb": selected * param_mb,
+                    "round_seconds": time.monotonic() - start,
+                },
+            )
+        # the exit state, in the JAX package's keys and layout
+        model_dir = os.path.join(config.save_dir, "aggregated_model")
+        os.makedirs(model_dir, exist_ok=True)
+        np.savez(
+            os.path.join(model_dir, f"round_{config.round}.npz"),
+            **to_jax(self.engine.layout.split(global_vec)),
+        )
+        return {"performance": self._stat}
+
+    def _note_round(self, round_number, metric, save_dir, extra) -> None:
+        row = {f"test_{k}": v for k, v in metric.items()}
+        row.update(extra)
+        self._stat[round_number] = row
+        get_logger().info(
+            "round: %d, test accuracy %.4f loss %.4f (torch)",
+            round_number,
+            metric["accuracy"],
+            metric["loss"],
+        )
+        path = os.path.join(save_dir, "round_record.json")
+        with open(path + ".tmp", "w", encoding="utf8") as f:
+            json.dump(self._stat, f)
+        os.replace(path + ".tmp", path)
