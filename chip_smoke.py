@@ -7,16 +7,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   FedAvg ViT-small round's shapes and at the edge shapes the kernels must
-   cover, and time kernel, plain version, bound and one library call
-   (a yardstick only: the port never calls it);
-3. a small FedAvg task (ViT-small, f32) on the card against the same task
-   on the CPU, where the kernels' plain versions run;
-4. the main path: ``train()`` on the dense-shape configuration (FedAvg,
+   FedAvg ViT-small round's shapes (K1, K4, K5), at the long-context
+   round's attention shape (K6-K8) and the f32 task's (K9-K11), and at the
+   edge shapes the kernels must cover, and time kernel, plain version,
+   bound and one library call (a yardstick only: the port never calls it);
+3. small FedAvg tasks on the card against the same tasks on the CPU,
+   where the kernels' plain versions run: ViT-small in f32, and a narrow
+   f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
+   stream tier, whose card run is the path of K9-K11 (launch counters set
+   to 0 just before and read just after);
+4. the main paths, each with the launch counters set to 0 just before and
+   read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
-   ``client_chunk`` 2, ``use_amp``) for 2 rounds, with every launch counter
-   set to 0 just before and read just after; then one more training round
-   of that configuration under ``torch.profiler``, for where the time goes;
+   ``client_chunk`` 2, ``use_amp``) for 2 rounds, then one more training
+   round under ``torch.profiler``; then ``train()`` on the long-context
+   configuration (``lc_config``: imdb at max_len 8192, d_model 512, 8
+   heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
+   ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
+   exactly, then one long-context training round under the profiler;
 5. one JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -239,6 +247,158 @@ def check_short_attention(gen) -> tuple[dict, dict]:
     return fwd_row, bwd_row
 
 
+#: (B, H, T, Dh, dtype name, causal, mask kind) of the K6-K11 checks: the
+#: main path's shape first, then the edges the kernels must cover
+LC_MAIN = (8, 8, 8192, 64, "bfloat16", False, "pad")
+FUSED_CASES = [
+    LC_MAIN,
+    (2, 8, 8192, 64, "bfloat16", True, "pad"),  # causal LM
+    (1, 8, 8192, 64, "float32", False, "pad"),  # f32 at 8192: the stream tier
+    (1, 8, 16384, 64, "bfloat16", False, "pad"),  # past MAX_FUSED_T: stream tier
+    (2, 4, 1000, 64, "bfloat16", True, "pad"),  # T not a multiple of 64
+    (2, 4, 1000, 20, "float32", False, "pad"),  # ragged Dh (FMA path)
+    (2, 4, 1000, 20, "bfloat16", True, "pad"),  # ragged Dh (tensor cores, scalar loads)
+    (2, 4, 2048, 32, "bfloat16", False, "pad"),  # Dh 32 (the model's default)
+    (2, 4, 2048, 128, "float32", True, "pad"),  # Dh 128
+    (2, 4, 2048, 128, "bfloat16", False, "pad"),  # Dh 128 in bf16 (FMA path)
+    (2, 4, 1024, 64, "float32", True, "empty"),  # fully masked rows
+]
+#: the f32 task's attention shape (K9-K11's path): batch 2, 2 heads of 64
+LC_F32 = (2, 2, 8192, 64, "float32", False, "pad")
+
+
+def _fused_inputs(case, gen):
+    """Strided q/k/v views of one packed ``[B, T, 3, H, Dh]`` tensor (the
+    model's layout), dO, and the f32 key mask: padding (lengths from T/4 to
+    T, as the text data has), or ``empty``: sample 0 has no valid key at
+    all and the first key of every other sample is masked, so under causal
+    row 0 sees nothing."""
+    import torch
+
+    b, h, t, dh, dtype, causal, kind = case
+    dtype = getattr(torch, dtype)
+    qkv = torch.randn(b, t, 3, h, dh, generator=gen, device="cuda").to(dtype)
+    q, k, v = qkv.unbind(dim=2)
+    dout = torch.randn(b, t, h, dh, generator=gen, device="cuda").to(dtype)
+    lengths = torch.randint(t // 4, t + 1, (b,), generator=gen, device="cuda")
+    mask = (torch.arange(t, device="cuda")[None, :] < lengths[:, None]).float()
+    if kind == "empty":
+        mask[0] = 0.0
+        mask[1:, 0] = 0.0
+    return q, k, v, mask, dout
+
+
+def _fused_work(case) -> tuple[dict, dict]:
+    """Operations (flop, this run's causal skip counted) and bytes of the
+    three kernels on one case: forward 2 products of ``2·T·T·Dh`` per
+    (batch, head), dq 3, dkv 4; each input read once, each output written
+    once."""
+    b, h, t, dh, dtype, causal, _ = case
+    item = 4 if dtype == "float32" else 2
+    pairs = t * (t + 1) / 2 if causal else t * t
+    product = 2 * pairs * dh * b * h
+    act = b * t * h * dh * item
+    row = b * h * t * 4
+    flops = {"fwd": 2 * product, "dq": 3 * product, "dkv": 4 * product}
+    nbytes = {
+        "fwd": 3 * act + b * t * 4 + act + row,
+        "dq": 4 * act + b * t * 4 + 2 * row + act,
+        "dkv": 4 * act + b * t * 4 + 2 * row + 2 * act,
+    }
+    return flops, nbytes
+
+
+def check_fused_attention(gen) -> dict[str, dict]:
+    """K6-K11's three CUDA kernels against their plain versions at the main
+    path's shape and the edge shapes; at the main shape (K6-K8) and at the
+    f32 task's shape (K9-K11) also the times of kernel, plain version and
+    ``F.scaled_dot_product_attention`` forward / backward (a yardstick: the
+    port never calls it), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    rows = {}
+    for case in [*FUSED_CASES, LC_F32]:
+        b, h, t, dh, dtype, causal, kind = case
+        q, k, v, mask, dout = _fused_inputs(case, gen)
+        tier = fa.kernel_tier(t, dh, q.element_size(), _perf_gate=False)
+        out, lse = fa.attention_fwd(q, k, v, mask, causal, tier)
+        delta = fa.attention_delta(dout, out)
+        dq = fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier)
+        dk, dv = fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier)
+        ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
+        ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
+        torch.cuda.synchronize()
+        # f32: summation order only.  bf16: both round p and ds to bf16 at
+        # the same points against the same maximum, so a difference is a
+        # value on a rounding boundary; 4 bf16 ulps (2^-6) of the largest
+        # magnitude covers it and the output's own rounding
+        rel = 2e-5 if dtype == "float32" else 2.0**-6
+        errs = {}
+        for name, got, want in (("out", out, ref_out), ("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
+            err, scale = max_err(got, want), max(1.0, float(want.float().abs().max()))
+            errs[name] = err
+            check(bool(torch.isfinite(got.float()).all()), f"fused attention {case} {name} not finite")
+            check(err <= rel * scale, f"fused attention {case} {name} err {err} > {rel * scale}")
+        errs["lse"] = max_err(lse, ref_lse)
+        check(errs["lse"] <= 1e-4, f"fused attention {case} lse err {errs['lse']}")
+        if kind == "empty":
+            check(float(out[0].float().abs().max()) == 0.0, "a fully masked row gave non-zero output")
+            check(float(lse[0].max()) <= -1e29, "a fully masked row's lse is not -1e30")
+            check(float(dq[0].float().abs().max()) == 0.0, "a fully masked row gave a non-zero dq")
+        print(
+            f"K6-K11 {dtype} B={b} H={h} T={t} Dh={dh} causal={causal} mask={kind} tier={tier}:"
+            f" max_abs_err " + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
+            + f" (tol {rel:g} x max(1, |ref|), lse 1e-4)"
+        )
+        if case not in (LC_MAIN, LC_F32):
+            continue
+        flops, nbytes = _fused_work(case)
+        sdpa = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
+        attn_mask = mask.bool()[:, None, None, :]
+        qg, kg, vg = (x.detach().requires_grad_(True) for x in sdpa)
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask, is_causal=False)
+        do4 = dout.transpose(1, 2).contiguous()
+        timed = {
+            "fwd": (
+                lambda: fa.attention_fwd(q, k, v, mask, causal, tier),
+                lambda: fa.attention_fwd_plain(q, k, v, mask, causal),
+                lambda: F.scaled_dot_product_attention(*sdpa, attn_mask=attn_mask),
+                max(errs["out"], errs["lse"]),
+            ),
+            "dq": (
+                lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier),
+                lambda: fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal),
+                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True),
+                errs["dq"],
+            ),
+            "dkv": (
+                lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier),
+                lambda: fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal),
+                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True),
+                max(errs["dk"], errs["dv"]),
+            ),
+        }
+        ids = {"fwd": fa._FWD_ID[tier], "dq": fa._DQ_ID[tier], "dkv": fa._DKV_ID[tier]}
+        for part, (kernel, plain, library, err) in timed.items():
+            bound, by = bound_ms(nbytes[part], flops[part], dtype)
+            rows[ids[part]] = {
+                "max_abs_err": err,
+                "ms": cuda_ms(kernel, iters=5, warmup=1),
+                # the plain backward computes dq, dk and dv in one call
+                "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+                "bound_ms": bound,
+                "bound_by": by,
+                # SDPA's backward also computes all three gradients
+                "library_ms": cuda_ms(library, iters=5, warmup=1),
+                "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
+            }
+        del sdpa_out, qg, kg, vg
+    return rows
+
+
 def check_small_task_against_cpu(workdir: str) -> None:
     """A small f32 FedAvg task (ViT-small, 2 clients x 32 samples, 1 round)
     from one init, on the card (kernels) and on the CPU (plain versions)."""
@@ -287,6 +447,8 @@ def check_small_task_against_cpu(workdir: str) -> None:
 
 
 def _kernel_group(name: str) -> str:
+    if "Layout" in name:  # csrc/fused_attention.cu's kernels take a Layout
+        return "port kernels (K6-K11)"
     if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "weighted_accum_kernel")):
         return "port kernels (K1, K4, K5)"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")):
@@ -298,12 +460,41 @@ def _kernel_group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def profile_round(workdir: str) -> None:
-    """Where a steady round's time goes: a warm-up round, one round timed
-    alone, then one round under ``torch.profiler``; prints the device's
-    busy share and its time by kernel group and by kernel."""
+def _profiled_round(session, vec, weights, label: str, alone: str) -> None:
+    """One training round of ``session`` under ``torch.profiler``; prints
+    the device's busy share and its time by kernel group and by kernel.
+    ``alone`` says what the unprofiled round took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        session.run_round(vec, weights)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    device = [
+        e for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    print(
+        f"profile{label}: {alone}; training round (no eval) {wall:.3f} s profiled;"
+        f" device busy {busy:.3f} s = {busy / wall:.1%} of the profiled round"
+    )
+    groups: dict[str, float] = {}
+    for e in device:
+        key = _kernel_group(e.key)
+        groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e6
+    for key, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {key}: {t * 1e3:.1f} ms ({t / busy:.1%} of device time)")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+def profile_round(workdir: str) -> None:
+    """Where a steady round's time goes: a warm-up round, one round timed
+    alone, then one round under ``torch.profiler``."""
+    import torch
 
     from distributed_learning_simulator_tpu_torch.training import build_session
 
@@ -315,29 +506,181 @@ def profile_round(workdir: str) -> None:
     t0 = time.monotonic()
     vec = session.run_round(vec, weights)
     torch.cuda.synchronize()
-    plain_wall = time.monotonic() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        vec = session.run_round(vec, weights)
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-    device = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy = sum(e.self_device_time_total for e in device) / 1e6
-    print(
-        f"profile: training round (no eval) {plain_wall:.3f} s alone, {wall:.3f} s profiled;"
-        f" device busy {busy:.3f} s = {busy / wall:.1%} of the profiled round"
+    alone = f"training round (no eval) {time.monotonic() - t0:.3f} s alone"
+    _profiled_round(session, vec, weights, "", alone)
+
+
+# ------------------------------------------------------- long-context slice
+LC_WORKERS, LC_SAMPLES, LC_TEST, LC_ROUNDS = 8, 16, 32, 2
+
+
+def lc_config(save_dir: str, model: str = "LongContextTransformer", **fields):
+    """``conf/large_scale/fed_avg/imdb_longcontext_sp.yaml`` without
+    ``sequence_parallel``/``sp_impl`` (one card holds it whole): fed_avg,
+    imdb at max_len 8192, d_model 512, 8 heads, 6 layers, dropout 0.1,
+    8 workers, batch 8, use_amp.  ``CausalLMTransformer`` takes
+    ``causal_lm_sp.yaml``'s batch 4 and dropout 0.  Cut to size:
+    8 x 16 training samples, 32 test samples, 2 rounds (1 for the LM)."""
+    from distributed_learning_simulator_tpu_torch.config import DistributedTrainingConfig
+
+    lm = model == "CausalLMTransformer"
+    base = dict(
+        dataset_name="imdb",
+        model_name=model,
+        distributed_algorithm="fed_avg",
+        worker_number=LC_WORKERS,
+        batch_size=4 if lm else 8,
+        round=1 if lm else LC_ROUNDS,
+        epoch=1,
+        learning_rate=0.01,
+        use_amp=True,
+        dataset_kwargs={
+            "max_len": 8192,
+            "train_size": LC_WORKERS * LC_SAMPLES,
+            "val_size": 8,
+            "test_size": LC_TEST,
+        },
+        model_kwargs={
+            "max_len": 8192,
+            "d_model": 512,
+            "nhead": 8,
+            "num_encoder_layer": 6,
+            **({"dropout_rate": 0.0} if lm else {}),
+        },
+        save_dir=save_dir,
+        log_file=os.path.join(save_dir, "train.log"),
     )
-    groups: dict[str, float] = {}
-    for e in device:
-        key = _kernel_group(e.key)
-        groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e6
-    for key, t in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"  {key}: {t * 1e3:.1f} ms ({t / busy:.1%} of device time)")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
-        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    base.update(fields)
+    return DistributedTrainingConfig(**base)
+
+
+def _reset_launches() -> None:
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+
+    wa.launches = sa.fwd_launches = sa.bwd_launches = 0
+    for kid in fa.launches:
+        fa.launches[kid] = 0
+
+
+def _read_launches() -> dict[str, int]:
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+
+    return {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches, **fa.launches}
+
+
+def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
+    """A small f32 long-context FedAvg task at max_len 8192 (2 layers,
+    d_model 128, 2 heads, dropout 0, 2 clients x 2 samples, 1 round) from one init, on
+    the card and on the CPU.  f32 at T = 8192 is the JAX package's stream
+    tier, so this is the path of K9-K11; returns the card run's launches."""
+    import numpy as np
+
+    small = dict(
+        worker_number=2,
+        batch_size=2,
+        round=1,
+        use_amp=False,
+        dataset_kwargs={"max_len": 8192, "train_size": 4, "val_size": 2, "test_size": 2},
+        # dropout 0: the card's and the CPU's generators draw other bits
+        model_kwargs={
+            "max_len": 8192, "d_model": 128, "nhead": 2, "num_encoder_layer": 2, "dropout_rate": 0.0,
+        },
+    )
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    init = os.path.join(workdir, "lc_init.npz")
+    session = build_session(lc_config(os.path.join(workdir, "lc_init"), **small), device="cpu")
+    from distributed_learning_simulator_tpu_torch.models import convert
+
+    np.savez(init, **convert.to_jax(session.engine.init_params(0)))
+    results, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        cfg = lc_config(
+            os.path.join(workdir, f"lc_{device}"), algorithm_kwargs={"global_model_path": init}, **small
+        )
+        _reset_launches()
+        perf = train(cfg, device=device)["performance"][1]
+        if device == "cuda":
+            launches = _read_launches()
+        with np.load(os.path.join(cfg.save_dir, "aggregated_model", "round_1.npz")) as blob:
+            results[device] = (perf, {k: blob[k] for k in blob.files})
+    (gpu_perf, gpu_params), (cpu_perf, cpu_params) = results["cuda"], results["cpu"]
+    param_err = max(float(np.abs(gpu_params[k] - cpu_params[k]).max()) for k in cpu_params)
+    loss_rel = abs(gpu_perf["test_loss"] - cpu_perf["test_loss"]) / abs(cpu_perf["test_loss"])
+    print(
+        f"long-context f32 task card vs CPU (T 8192): test loss {gpu_perf['test_loss']:.6f} vs"
+        f" {cpu_perf['test_loss']:.6f} (rel {loss_rel:.2g}), max |param diff| {param_err:.3g};"
+        f" card launches {launches}"
+    )
+    # f32 on both (TF32 off); 2 SGD steps in other summation orders
+    check(loss_rel <= 1e-3 and param_err <= 1e-3, "long-context f32 task: card and CPU disagree")
+    # 2 layers x (1 step per client x 2 clients; 1 eval batch)
+    check(launches["K9"] == 2 * 3 and launches["K10"] == launches["K11"] == 2 * 2, f"stream-tier launches {launches}")
+    check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"one-level launches on the f32 task {launches}")
+    return launches
+
+
+def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
+    """``train()`` on the long-context configuration for 2 rounds, then on
+    ``CausalLMTransformer`` for 1 round, at full width; checks each run's
+    launches exactly.  Returns the launches of both runs and the long-context
+    round-2 wall time."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    layers = 6
+    total = {}
+    _reset_launches()
+    round_seconds = 0.0
+    for model in ("LongContextTransformer", "CausalLMTransformer"):
+        config = lc_config(os.path.join(workdir, f"main_{model}"), model=model)
+        before = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        total = _read_launches()
+        moved = {kid: total[kid] - before[kid] for kid in total}
+        # every client trains each round; a batch with nothing to count
+        # (padding of a client shorter than the longest) is a no-op
+        counts = build_session(config)._counts
+        steps = config.round * sum(1 for client in counts for n in client if n > 0)
+        evals = config.round * (LC_TEST // config.batch_size)
+        last = perf[config.round]
+        if model == "LongContextTransformer":
+            round_seconds = last["round_seconds"]
+        print(
+            f"main path {model}: {config.round} rounds in {wall:.2f} s (setup included);"
+            f" round {config.round} {last['round_seconds']:.3f} s = {1 / last['round_seconds']:.4f}"
+            f" rounds/s; test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f}"
+            f" over {last['test_count']:.0f}; peak memory"
+            f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {moved}"
+        )
+        for r, row in perf.items():
+            check(np.isfinite(row["test_loss"]), f"{model} round {r} test loss {row['test_loss']}")
+            check(0.0 <= row["test_accuracy"] <= 1.0, f"{model} round {r} accuracy {row['test_accuracy']}")
+        check(moved["K6"] == layers * (steps + evals), f"{model} K6 launches {moved['K6']}")
+        check(moved["K7"] == moved["K8"] == layers * steps, f"{model} K7/K8 launches {moved}")
+        check(moved["K1"] == config.round, f"{model} K1 launches {moved['K1']} (one chunk a round)")
+        check(moved["K9"] == moved["K10"] == moved["K11"] == 0, f"{model} stream-tier launches {moved}")
+    return total, round_seconds
+
+
+def profile_long_context_round(workdir: str, round_seconds: float) -> None:
+    """One training round of the long-context configuration under the
+    profiler, in a fresh session on the warm process."""
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    session = build_session(lc_config(os.path.join(workdir, "lc_profile"), round=1))
+    vec = session._init_global_params()
+    alone = f"main path round {LC_ROUNDS} (eval included) {round_seconds:.3f} s"
+    _profiled_round(session, vec, session._base_weight_row(1), " (long context)", alone)
 
 
 def main() -> int:
@@ -364,7 +707,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.monotonic()
-    reports = build.build(["weighted_accum", "short_attention"])
+    reports = build.build(["weighted_accum", "short_attention", "fused_attention"])
     print(f"build: {time.monotonic() - t0:.1f} s")
     for name, text in reports.items():
         regs = [line.split(":", 1)[1].strip() for line in text.splitlines() if "registers" in line]
@@ -375,11 +718,13 @@ def main() -> int:
     d = param_count()
     k1 = check_weighted_accum(d, gen)
     k4, k5 = check_short_attention(gen)
+    fused = check_fused_attention(gen)
 
-    # 3. a small task on the card against the CPU
+    # 3. small tasks on the card against the CPU
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "session"))
     check_small_task_against_cpu(workdir)
+    stream_launches = check_long_context_f32_against_cpu(workdir)
 
     # 4. the main path
     config = dense_config(os.path.join(workdir, "main"))
@@ -404,6 +749,13 @@ def main() -> int:
     check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
     profile_round(workdir)
 
+    # 4b. the long-context main path (K6-K8, K1) and its profile
+    lc_launches, lc_round = run_long_context_main_path(workdir)
+    profile_long_context_round(workdir, lc_round)
+    launches.update({kid: lc_launches[kid] for kid in ("K6", "K7", "K8")})
+    launches["K1"] += lc_launches["K1"]
+    launches.update({kid: stream_launches[kid] for kid in ("K9", "K10", "K11")})
+
     # 5. the record
     src = f"{PACKAGE}/csrc"
     rows = [
@@ -414,6 +766,16 @@ def main() -> int:
         ("short_attention_bwd", "K5", f"{src}/short_attention.cu",
          "distributed_learning_simulator_tpu/ops/short_attention.py:159", k5),
     ]
+    fa_src, fa_jax = f"{src}/fused_attention.cu", "distributed_learning_simulator_tpu/ops/fused_attention.py"
+    for name, kid, line in (
+        ("fused_attention_fwd (fused tier)", "K6", 168),
+        ("fused_attention_dq (fused tier)", "K7", 271),
+        ("fused_attention_dkv (fused tier)", "K8", 281),
+        ("fused_attention_fwd (stream tier)", "K9", 425),
+        ("fused_attention_dq (stream tier)", "K10", 470),
+        ("fused_attention_dkv (stream tier)", "K11", 490),
+    ):
+        rows.append((name, kid, fa_src, f"{fa_jax}:{line}", fused[kid]))
     kernels = [
         {"name": name, "id": kid, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches[kid], "status": "ok", **numbers}

@@ -1,7 +1,9 @@
 """Dataset collections with phase splits, as host numpy arrays (the port's
-copy of the JAX package's ``data/collection.py``, vision splits only)."""
+copy of the JAX package's ``data/collection.py``: vision and text splits;
+graph splits are not ported yet)."""
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 
@@ -10,7 +12,8 @@ from ..ml_type import MachineLearningPhase
 
 @dataclasses.dataclass
 class ArrayDataset:
-    """One split: ``inputs`` (NHWC images for vision) and ``targets``."""
+    """One split: ``inputs`` (NHWC images for vision, ``[N, max_len]``
+    int32 token ids for text) and ``targets``."""
 
     inputs: np.ndarray
     targets: np.ndarray
@@ -28,7 +31,9 @@ class DatasetCollection:
     datasets: dict[MachineLearningPhase, ArrayDataset]
     num_classes: int
     input_shape: tuple[int, ...]
-    dataset_type: str = "vision"
+    dataset_type: str = "vision"  # vision | text
+    #: text: ``vocab_size``, ``max_len``, ``pad_id`` (and ``tokenizer``)
+    metadata: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def get_dataset(self, phase: MachineLearningPhase) -> ArrayDataset:
         return self.datasets[phase]
@@ -54,6 +59,7 @@ class DatasetCollection:
             num_classes=self.num_classes,
             input_shape=self.input_shape,
             dataset_type=self.dataset_type,
+            metadata=dict(self.metadata),
         )
 
 

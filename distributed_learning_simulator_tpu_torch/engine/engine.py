@@ -5,7 +5,9 @@ Python loop over batches that stay on the device.  A client's parameters
 are ONE flat vector (``ops/pytree.py``): every step splits it into views,
 runs the model on them through ``functional_call``, and gets one flat
 gradient back, which the hand-written SGD (``hyper_parameter.py``) applies
-in place.  The metrics stay on the device until the caller reads them.
+in place.  Dropout draws from the ``torch.Generator`` the caller passes
+(one per client and round).  The metrics stay on the device until the
+caller reads them.
 """
 
 from collections.abc import Sequence
@@ -39,16 +41,24 @@ class ComputeEngine:
         return self.optimizer.init(flat_params)
 
     def train_step(
-        self, flat_params: torch.Tensor, opt_state: SGDState, batch: dict, count: float
+        self,
+        flat_params: torch.Tensor,
+        opt_state: SGDState,
+        batch: dict,
+        count: float,
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor] | None:
         """One SGD step on ``flat_params`` in place.  ``count`` is the
-        batch's sample count, known on the host: an all-padding batch
-        (``count == 0``) is a true no-op, as in the JAX engine: it neither
-        decays the momentum trace nor advances the schedule."""
+        batch's loss count (samples; tokens under ``causal_lm``), known on
+        the host: a batch that counts 0 is a true no-op, as in the JAX
+        engine: it neither decays the momentum trace nor advances the
+        schedule, and draws no dropout bits."""
         if count <= 0:
             return None
         leaf = flat_params.detach().requires_grad_(True)
-        loss, aux = self.model_ctx.loss(self.layout.split(leaf), batch, train=True)
+        loss, aux = self.model_ctx.loss(
+            self.layout.split(leaf), batch, train=True, generator=generator
+        )
         loss.backward()
         self.optimizer.step(flat_params, leaf.grad, opt_state)
         return {"loss": loss.detach(), "correct": aux["correct"], "count": aux["count"]}
@@ -59,6 +69,7 @@ class ComputeEngine:
         opt_state: SGDState,
         batches: dict,
         counts: Sequence[float],
+        generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
         """One epoch over ``batches`` (``[n_batches, B, ...]`` tensors);
         returns the summed metrics."""
@@ -66,7 +77,7 @@ class ComputeEngine:
         summed = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         for i, count in enumerate(counts):
             metrics = self.train_step(
-                flat_params, opt_state, {k: v[i] for k, v in batches.items()}, count
+                flat_params, opt_state, {k: v[i] for k, v in batches.items()}, count, generator
             )
             if metrics is not None:
                 summed["loss_sum"] += metrics["loss"] * metrics["count"]
@@ -118,8 +129,10 @@ def slow_metrics_from_confusion(confusion) -> dict:
 
 
 def maybe_slow_metrics(config, engine: ComputeEngine, params, batches) -> dict:
-    """The ``use_slow_performance_metrics`` extras, or ``{}``."""
-    if not config.use_slow_performance_metrics:
+    """The ``use_slow_performance_metrics`` extras, or ``{}``.  A causal
+    LM has no per-class metrics: its classes are the vocab, whose
+    confusion matrix is ``[V, V]``."""
+    if not config.use_slow_performance_metrics or engine.model_ctx.loss_type == "causal_lm":
         return {}
     return slow_metrics_from_confusion(engine.confusion(params, batches).cpu().numpy())
 

@@ -8,7 +8,9 @@ heads side by side), then the JAX package's routing:
   short-sequence kernels K4/K5, which read the packed projection in place;
 * shapes the JAX package sends to its long-sequence Pallas kernels
   (``ops/fused_attention.py``, kernels K6-K11) raise
-  ``NotImplementedError`` until those kernels are ported;
+  ``NotImplementedError``: the port has those kernels
+  (``ops/fused_attention.py``) but this module's route to them is not
+  wired yet (``models/long_context.py`` is the model that runs them);
 * everything else, and attention-probability dropout in training, takes
   the dense ``[B, H, S, S]`` path in plain PyTorch, which the JAX package
   also leaves to its compiler.
@@ -17,17 +19,9 @@ heads side by side), then the JAX package's routing:
 import torch
 from torch import nn
 
+from ..ops.fused_attention import kernel_eligible
 from ..ops.short_attention import short_attention, short_eligible
-
-#: the JAX package's long-sequence kernel window on the accelerator
-#: (``ops/fused_attention.py``: MIN_FUSED_T .. MAX_STREAM_T, head dim <= 128)
-MIN_FUSED_T = 1024
-MAX_STREAM_T = 32768
-
-
-def fused_eligible(s: int, head_dim: int) -> bool:
-    """Would the JAX package run its long-sequence Pallas kernels here?"""
-    return head_dim <= 128 and MIN_FUSED_T <= s <= MAX_STREAM_T
+from .dropout import Dropout
 
 
 class FusedSelfAttention(nn.Module):
@@ -42,9 +36,11 @@ class FusedSelfAttention(nn.Module):
         self.dropout_rate = dropout_rate
         self.qkv = nn.Linear(d_model, 3 * d_model)
         self.out = nn.Linear(d_model, d_model)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+    def forward(
+        self, x: torch.Tensor, mask: torch.Tensor | None = None, generator=None
+    ) -> torch.Tensor:
         b, s, d = x.shape
         h = self.num_heads
         dh = d // h
@@ -55,11 +51,11 @@ class FusedSelfAttention(nn.Module):
             if mask is not None:
                 kv_mask = torch.broadcast_to(mask, (b, 1, 1, s))[:, 0, 0, :]
             return self.out(short_attention(qkv, h, kv_mask=kv_mask))
-        if not drop_active and fused_eligible(s, dh):
+        if not drop_active and kernel_eligible(s, dh, x.element_size()):
             raise NotImplementedError(
                 f"attention at S={s}, head dim {dh} runs the long-sequence kernels"
-                " (JAX ops/fused_attention.py, K6-K11), which are not ported yet"
-                " (ROADMAP.md, port slice 3)"
+                " (JAX ops/fused_attention.py, K6-K11); this module's route to the"
+                " port's K6-K11 is not wired yet (ROADMAP.md)"
             )
         q, k, v = (t.reshape(b, s, h, dh) for t in qkv.split(d, dim=-1))
         logits = torch.einsum("bqhd,bkhd->bhqk", q * dh**-0.5, k)
@@ -67,6 +63,6 @@ class FusedSelfAttention(nn.Module):
             logits = torch.where(mask, logits, torch.finfo(logits.dtype).min)
         probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
         if drop_active:
-            probs = self.dropout(probs)
+            probs = self.dropout(probs, generator)
         out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(b, s, d)
         return self.out(out)

@@ -6,11 +6,16 @@ the port's modules carry the same names, so a ``state_dict`` key is the
 same path joined by ``.``.  Per leaf:
 
 * Dense kernel ``[in, out]``  <->  Linear weight ``[out, in]``;
+* DenseGeneral ``qkv`` kernel ``[D, 3, H, Dh]``  <->  packed projection
+  weight ``[3, H, Dh, D]`` (its bias ``[3, H, Dh]`` unchanged);
 * Conv kernel HWIO            <->  Conv2d weight OIHW;
 * LayerNorm ``scale``         <->  ``weight`` (``bias`` stays ``bias``);
-* anything else (``pos_embed``) unchanged.
+* anything else (``pos_embed``, ``Embed_0/embedding``) unchanged.
 
-Both directions only transpose, so JAX -> port -> JAX is exact.
+A 4-d kernel is a convolution unless its module is named ``qkv`` (the
+long-context models' DenseGeneral): the rule is chosen by the path, not by
+the number of dimensions alone.  Both directions only transpose, so
+JAX -> port -> JAX is exact.
 """
 
 from collections.abc import Mapping
@@ -27,6 +32,8 @@ def from_jax(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
         *path, leaf = key.split("/")
         if leaf == "kernel" and value.ndim == 2:
             leaf, value = "weight", value.T
+        elif leaf == "kernel" and value.ndim == 4 and path[-1:] == ["qkv"]:
+            leaf, value = "weight", value.transpose(1, 2, 3, 0)
         elif leaf == "kernel" and value.ndim == 4:
             leaf, value = "weight", value.transpose(3, 2, 0, 1)
         elif leaf == "kernel":
@@ -45,6 +52,8 @@ def to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
         *path, leaf = key.split(".")
         if leaf == "weight" and value.ndim == 2:
             leaf, value = "kernel", value.T
+        elif leaf == "weight" and value.ndim == 4 and path[-1:] == ["qkv"]:
+            leaf, value = "kernel", value.transpose(3, 0, 1, 2)
         elif leaf == "weight" and value.ndim == 4:
             leaf, value = "kernel", value.transpose(2, 3, 1, 0)
         elif leaf == "weight" and value.ndim == 1:

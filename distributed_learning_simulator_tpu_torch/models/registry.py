@@ -4,7 +4,10 @@ A :class:`ModelContext` bundles an ``nn.Module`` with functions over
 parameter dicts (``init`` / ``apply`` / ``loss``), which are what the
 engine and the session pass around.  ``apply`` runs the module through
 ``torch.func.functional_call``, so the same module serves the f32 master
-parameters, a client's bf16 copy, or views into a flat vector.
+parameters, a client's bf16 copy, or views into a flat vector.  Dropout
+draws from the ``torch.Generator`` passed to ``apply``/``loss`` (one per
+client and round, ``models/dropout.py::dropout_generator``), never from
+torch's global RNG.
 """
 
 import dataclasses
@@ -37,6 +40,12 @@ class ModelContext:
     num_classes: int
     device: torch.device
     compute_dtype: torch.dtype = torch.float32
+    dataset_type: str = "vision"
+    #: "softmax_ce" (classification) or "causal_lm" (next-token CE: the
+    #: model returns [B, L, V] logits and the targets are the INPUT tokens
+    #: shifted left; dataset labels are ignored)
+    loss_type: str = "softmax_ce"
+    pad_id: int = 0  # causal_lm: positions whose target is pad weigh 0
 
     def init(self, seed: int) -> dict[str, torch.Tensor]:
         """Fresh f32 parameters from ``seed`` (drawn on the CPU with a
@@ -45,9 +54,13 @@ class ModelContext:
         self.module.init_weights(torch.Generator().manual_seed(seed))
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
-    def apply(self, params: Mapping[str, torch.Tensor], inputs, train: bool = False):
+    def apply(
+        self, params: Mapping[str, torch.Tensor], inputs, train: bool = False, generator=None
+    ):
         self.module.train(train)
-        return torch.func.functional_call(self.module, dict(params), (inputs,))
+        return torch.func.functional_call(
+            self.module, dict(params), (inputs,), {"generator": generator}
+        )
 
     def _cast_for_compute(self, tree):
         """Floating tensors in the compute dtype (the identity, without a
@@ -58,15 +71,30 @@ class ModelContext:
             return tree.to(self.compute_dtype) if tree.is_floating_point() else tree
         return {k: self._cast_for_compute(v) for k, v in tree.items()}
 
-    def loss(self, params, batch: dict, train: bool = False):
+    def loss(self, params, batch: dict, train: bool = False, generator=None):
         """Masked mean softmax cross-entropy + accuracy counts.  ``batch`` =
-        ``{"input", "target", "mask"}``; padded samples weigh 0."""
+        ``{"input", "target", "mask"}``; padded samples weigh 0.  Under
+        ``causal_lm`` the counts are tokens: a position weighs 1 when its
+        sample is real, it is not the last, and its target is not pad."""
         logits = self.apply(
             self._cast_for_compute(params),
             self._cast_for_compute(batch["input"]),
             train=train,
+            generator=generator,
         )
+        if self.loss_type == "causal_lm":
+            targets, token_mask = causal_lm_targets(batch["input"], batch["mask"], self.pad_id)
+            return masked_ce_loss(logits, targets, token_mask)
         return masked_ce_loss(logits, batch["target"], batch["mask"])
+
+
+def causal_lm_targets(tokens: torch.Tensor, mask: torch.Tensor, pad_id: int):
+    """Next-token targets (the last position wraps to a filler) and the
+    f32 token mask, ``[B, L]`` each."""
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    not_last = torch.arange(tokens.shape[1], device=tokens.device)[None, :] < tokens.shape[1] - 1
+    token_mask = mask.to(torch.float32)[:, None] * not_last * (targets != pad_id)
+    return targets, token_mask
 
 
 def masked_ce_loss(logits, targets, mask):

@@ -11,6 +11,8 @@ Submodules carry the flax names (``Block_0``, ``LayerNorm_0``,
 ``state_dict`` key reads like the JAX parameter path it mirrors
 (``models/convert.py``).  flax defaults kept: LayerNorm eps 1e-6, tanh
 GELU, lecun-normal kernels and zero biases, ``pos_embed ~ N(0, 0.02)``.
+Dropout draws from the generator passed to ``forward``
+(``models/dropout.py``).
 """
 
 import math
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .attention import FusedSelfAttention
+from .dropout import Dropout
 from .registry import ModelContext, example_batch, register_model
 
 _LN_EPS = 1e-6
@@ -32,11 +35,11 @@ class MlpBlock(nn.Module):
         super().__init__()
         self.Dense_0 = nn.Linear(d_model, mlp_dim)
         self.Dense_1 = nn.Linear(mlp_dim, d_model)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.dropout(F.gelu(self.Dense_0(x), approximate="tanh"))
-        return self.dropout(self.Dense_1(y))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        y = self.dropout(F.gelu(self.Dense_0(x), approximate="tanh"), generator)
+        return self.dropout(self.Dense_1(y), generator)
 
 
 class ViTBlock(nn.Module):
@@ -50,11 +53,12 @@ class ViTBlock(nn.Module):
         self.FusedSelfAttention_0 = FusedSelfAttention(d_model, num_heads, dropout_rate)
         self.LayerNorm_1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.MlpBlock_0 = MlpBlock(d_model, mlp_dim, dropout_rate)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dropout(self.FusedSelfAttention_0(self.LayerNorm_0(x)))
-        return x + self.MlpBlock_0(self.LayerNorm_1(x))
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
+        y = self.FusedSelfAttention_0(self.LayerNorm_0(x), generator=generator)
+        x = x + self.dropout(y, generator)
+        return x + self.MlpBlock_0(self.LayerNorm_1(x), generator)
 
 
 class VisionTransformer(nn.Module):
@@ -75,7 +79,7 @@ class VisionTransformer(nn.Module):
         self.patch_embed = nn.Conv2d(channels, d_model, patch_size, stride=patch_size)
         n_patches = (image_size // patch_size) ** 2
         self.pos_embed = nn.Parameter(torch.zeros(1, n_patches, d_model))
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         for i in range(num_layers):
             self.add_module(
                 f"Block_{i}", ViTBlock(d_model, num_heads, mlp_dim, dropout_rate)
@@ -83,12 +87,12 @@ class VisionTransformer(nn.Module):
         self.encoder_norm = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.head = nn.Linear(d_model, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.patch_embed(x.permute(0, 3, 1, 2))  # NHWC -> NCHW
         x = x.flatten(2).transpose(1, 2)  # [B, N_patches, D], row-major patches
-        x = self.dropout(x + self.pos_embed)
+        x = self.dropout(x + self.pos_embed, generator)
         for i in range(self.num_layers):
-            x = getattr(self, f"Block_{i}")(x)
+            x = getattr(self, f"Block_{i}")(x, generator)
         x = self.encoder_norm(x).mean(dim=1)  # global average pool over patches
         return self.head(x)
 

@@ -16,7 +16,8 @@ GPU, in chunks of ``client_chunk`` clients, with the JAX round's data flow:
 The port aggregates through K1 in f32 and bf16 alike; the JAX package's f32
 per-leaf epilogue computes the same function.  Each round then evaluates
 the master on the test set and writes a row of ``server/round_record.json``
-with the JAX session's keys.
+with the JAX session's keys.  Each client's dropout draws from its own
+generator, seeded from ``(seed, round, worker)``.
 """
 
 import json
@@ -31,6 +32,8 @@ from ..engine.batching import fixed_size_partition, make_epoch_batches
 from ..engine.engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
 from ..ml_type import MachineLearningPhase as Phase
 from ..models.convert import from_jax, to_jax
+from ..models.dropout import dropout_generator
+from ..models.registry import causal_lm_targets
 from ..ops.pytree import flat_stack_weighted_sum
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
@@ -109,12 +112,31 @@ def stack_client_val_data(config, dataset_collection, practitioners, n_slots):
     return data
 
 
+def loss_counts(model_ctx, host: dict) -> list:
+    """``[C][n_batches]`` host counts of what each batch's loss averages
+    over: samples, or tokens under ``causal_lm`` (the engine's no-op
+    test, as the JAX engine tests its loss count)."""
+    if model_ctx.loss_type == "causal_lm":
+        shape = host["input"].shape
+        tokens = torch.from_numpy(host["input"].reshape(-1, shape[-1]))
+        mask = torch.from_numpy(host["mask"].reshape(-1))
+        _, token_mask = causal_lm_targets(tokens, mask, model_ctx.pad_id)
+        return token_mask.sum(dim=-1).reshape(shape[:-1]).sum(dim=-1).tolist()
+    return host["mask"].sum(axis=-1).tolist()
+
+
 def scan_local_epochs(
-    engine: ComputeEngine, epochs: int, params: torch.Tensor, data, counts, val_data=None
+    engine: ComputeEngine,
+    epochs: int,
+    params: torch.Tensor,
+    data,
+    counts,
+    val_data=None,
+    generator: torch.Generator | None = None,
 ) -> dict[str, torch.Tensor]:
     """One client's local training, in place on the flat ``params`` (which
     start as the round's global copy): ``epochs`` of SGD with a fresh
-    optimizer state.  With ``val_data`` (the iid best-epoch policy) the
+    optimizer state; dropout draws from ``generator``.  With ``val_data`` (the iid best-epoch policy) the
     params left behind are the epoch with the best validation accuracy,
     ``>=`` so a later epoch wins ties; the choice stays on the device.
     Returns the summed training metrics."""
@@ -125,7 +147,7 @@ def scan_local_epochs(
         best = params.clone()
         best_acc = torch.full((), -1.0, device=params.device)
     for _ in range(epochs):
-        metrics = engine.train_epoch(params, opt_state, data, counts)
+        metrics = engine.train_epoch(params, opt_state, data, counts, generator)
         summed = metrics if summed is None else {k: summed[k] + metrics[k] for k in summed}
         if val_data is not None:
             val = engine.evaluate(engine.layout.split(params), val_data)
@@ -166,7 +188,7 @@ class SpmdFedAvgSession:
         host, self._dataset_sizes, _ = stack_client_data(
             config, dataset_collection, practitioners, self.n_slots
         )
-        self._counts = host["mask"].sum(axis=-1).tolist()  # [C][n_batches], on the host
+        self._counts = loss_counts(model_ctx, host)  # [C][n_batches], on the host
         self._data = self._to_device(host)
         self._val_data = None
         if config.dataset_sampling == "iid" and config.epoch > 1:
@@ -177,12 +199,14 @@ class SpmdFedAvgSession:
         self._eval_batches = self._to_device(make_epoch_batches(test, config.batch_size))
 
     def _to_device(self, batches: dict) -> dict[str, torch.Tensor]:
-        """Host batches on the device, inputs stored in the compute dtype
-        once (the JAX session's hoisted cast), targets as int64."""
+        """Host batches on the device: floating inputs stored in the
+        compute dtype once (the JAX session's hoisted cast), integer inputs
+        (token ids) as int64, which no cast may touch (bf16 holds integers
+        exactly only up to 256), targets as int64."""
+        inputs = torch.from_numpy(batches["input"])
+        dtype = self.model_ctx.compute_dtype if inputs.is_floating_point() else torch.int64
         return {
-            "input": torch.from_numpy(batches["input"]).to(
-                self.device, self.model_ctx.compute_dtype
-            ),
+            "input": inputs.to(self.device, dtype),
             "target": torch.from_numpy(batches["target"]).to(self.device, torch.int64),
             "mask": torch.from_numpy(batches["mask"]).to(self.device, torch.float32),
         }
@@ -223,7 +247,9 @@ class SpmdFedAvgSession:
         params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
         return self.engine.layout.flatten(params)
 
-    def run_round(self, global_vec: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
+    def run_round(
+        self, global_vec: torch.Tensor, weights: np.ndarray, round_number: int = 1
+    ) -> torch.Tensor:
         """One FedAvg round: the new f32 master from ``global_vec``."""
         engine = self.engine
         start = global_vec.to(self.model_ctx.compute_dtype)  # once per round
@@ -250,6 +276,7 @@ class SpmdFedAvgSession:
                     {k: v[slot] for k, v in self._data.items()},
                     self._counts[slot],
                     val,
+                    dropout_generator(self.config.seed, round_number, slot, self.device),
                 )
             acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
         return acc / max(float(weights.sum()), 1e-12)
@@ -269,7 +296,7 @@ class SpmdFedAvgSession:
         for round_number in range(1, config.round + 1):
             start = time.monotonic()
             weights = self._base_weight_row(round_number)
-            global_vec = self.run_round(global_vec, weights)
+            global_vec = self.run_round(global_vec, weights, round_number)
             metric = self._evaluate(global_vec)  # reads the metrics: the round's one sync
             selected = int((weights > 0).sum())
             self._note_round(

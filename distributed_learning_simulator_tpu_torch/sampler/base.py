@@ -1,5 +1,6 @@
 """Dataset partitioning over federated participants (the port's copy of the
-JAX package's ``sampler/base.py``, iid split only).
+JAX package's ``sampler/base.py``, iid split of vision and text datasets
+only; graph datasets are not ported yet).
 
 The iid split permutes each class with the repo's xorshift64 Fisher-Yates
 stream (``native/fastops.cc::permute_indices``), written out here in
@@ -57,7 +58,7 @@ class DatasetCollectionSampler:
         seed: int = 0,
         **kwargs,
     ) -> None:
-        if dataset_collection.dataset_type != "vision":
+        if dataset_collection.dataset_type not in ("vision", "text"):
             raise NotImplementedError(
                 f"{dataset_collection.dataset_type} partitions are not ported yet"
             )
