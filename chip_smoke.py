@@ -11,6 +11,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    round's attention shape (K6-K8) and the f32 task's (K9-K11), and at the
    edge shapes the kernels must cover, and time kernel, plain version,
    bound and one library call (a yardstick only: the port never calls it);
+   two faults planted at the main attention shape must fail the same
+   comparison;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -288,6 +290,29 @@ def _fused_inputs(case, gen):
     return q, k, v, mask, dout
 
 
+#: (max, rms) tolerance of K6-K11 against their plain versions, relative to
+#: the plain output's own largest magnitude and RMS.  f32: summation order
+#: only (measured max 1.5e-6 absolute).  bf16: both sides round p and ds to
+#: bf16 at the same points against the same maximum, so only a value on a
+#: rounding boundary differs, by one output ulp (at most 2^-7 of a value);
+#: the max allows 2 of those on the largest value.  The RMS bound catches
+#: faults that move most values by less than an ulp: without the bf16
+#: rounding of p and ds the RMS error is about 2.5e-3 (T 2048 on the CPU),
+#: against about 1e-4 for a change of summation order.
+ATTN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2.0**-6, 1e-3)}
+
+
+def attention_mismatch(got, want, dtype: str) -> tuple[float, float, bool]:
+    """``(max |got - want| / max |want|, rms(got - want) / rms(want), ok)``
+    under ``ATTN_TOL[dtype]``; a local fault (a tile or row wrong) shows in
+    the max, a systematic one (a rounding point missed) in the RMS."""
+    err, ref = got.double() - want.double(), want.double()
+    rel_max = float(err.abs().max() / ref.abs().max().clamp_min(1e-30))
+    rel_rms = float(err.norm() / ref.norm().clamp_min(1e-30))
+    tol_max, tol_rms = ATTN_TOL[dtype]
+    return rel_max, rel_rms, rel_max <= tol_max and rel_rms <= tol_rms
+
+
 def _fused_work(case) -> tuple[dict, dict]:
     """Operations (flop, this run's causal skip counted) and bytes of the
     three kernels on one case: forward 2 products of ``2·T·T·Dh`` per
@@ -331,17 +356,13 @@ def check_fused_attention(gen) -> dict[str, dict]:
         ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
         ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
         torch.cuda.synchronize()
-        # f32: summation order only.  bf16: both round p and ds to bf16 at
-        # the same points against the same maximum, so a difference is a
-        # value on a rounding boundary; 4 bf16 ulps (2^-6) of the largest
-        # magnitude covers it and the output's own rounding
-        rel = 2e-5 if dtype == "float32" else 2.0**-6
-        errs = {}
+        errs, rel = {}, []
         for name, got, want in (("out", out, ref_out), ("dq", dq, ref[0]), ("dk", dk, ref[1]), ("dv", dv, ref[2])):
-            err, scale = max_err(got, want), max(1.0, float(want.float().abs().max()))
-            errs[name] = err
+            errs[name] = max_err(got, want)
+            rel_max, rel_rms, ok = attention_mismatch(got, want, dtype)
+            rel.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
             check(bool(torch.isfinite(got.float()).all()), f"fused attention {case} {name} not finite")
-            check(err <= rel * scale, f"fused attention {case} {name} err {err} > {rel * scale}")
+            check(ok, f"fused attention {case} {name}: max {rel_max:.3g} rms {rel_rms:.3g} of the reference's")
         errs["lse"] = max_err(lse, ref_lse)
         check(errs["lse"] <= 1e-4, f"fused attention {case} lse err {errs['lse']}")
         if kind == "empty":
@@ -351,7 +372,8 @@ def check_fused_attention(gen) -> dict[str, dict]:
         print(
             f"K6-K11 {dtype} B={b} H={h} T={t} Dh={dh} causal={causal} mask={kind} tier={tier}:"
             f" max_abs_err " + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
-            + f" (tol {rel:g} x max(1, |ref|), lse 1e-4)"
+            + f"; relative max/rms {', '.join(rel)} (tol {ATTN_TOL[dtype][0]:.3g}/{ATTN_TOL[dtype][1]:g},"
+            " lse 1e-4 absolute)"
         )
         if case not in (LC_MAIN, LC_F32):
             continue
@@ -397,6 +419,38 @@ def check_fused_attention(gen) -> dict[str, dict]:
             }
         del sdpa_out, qg, kg, vg
     return rows
+
+
+def check_planted_faults(gen) -> None:
+    """The comparison ``check_fused_attention`` makes must reject two faults
+    planted at the main path's shape, in each of out, dq, dk and dv: kernels
+    that skip one of the 128 key tiles (the kernels run with key tile 0,
+    always valid here, masked, held against the plain versions with the true
+    mask), and kernels that do not round p and ds to bf16 (the plain
+    versions on the f32 values of the same inputs, rounded to bf16 at the
+    end).  The backward of both takes the true lse and delta."""
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, mask, dout = _fused_inputs(LC_MAIN, gen)
+    causal, dtype = LC_MAIN[5], LC_MAIN[4]
+    out, lse = fa.attention_fwd_plain(q, k, v, mask, causal)
+    delta = fa.attention_delta(dout, out)
+    ref = (out, *fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal))
+    skip = mask.clone()
+    skip[:, :64] = 0.0
+    skipped = (fa.attention_fwd(q, k, v, skip, causal)[0], *fa.attention_bwd(q, k, v, skip, dout, lse, delta, causal))
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, dout))
+    unrounded = (
+        fa.attention_fwd_plain(qf, kf, vf, mask, causal)[0],
+        *fa.attention_bwd_plain(qf, kf, vf, mask, dof, lse, delta, causal),
+    )
+    for plant, outputs in (("skips key tile 0", skipped), ("does not round p, ds", unrounded)):
+        rel = []
+        for name, got, want in zip(("out", "dq", "dk", "dv"), outputs, ref):
+            rel_max, rel_rms, ok = attention_mismatch(got.to(want.dtype), want, dtype)
+            rel.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
+            check(not ok, f"a kernel that {plant} passes the {name} check")
+        print(f"planted fault at the main shape, a kernel that {plant}: relative max/rms {', '.join(rel)} (rejected)")
 
 
 def check_small_task_against_cpu(workdir: str) -> None:
@@ -719,6 +773,7 @@ def main() -> int:
     k1 = check_weighted_accum(d, gen)
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
+    check_planted_faults(gen)
 
     # 3. small tasks on the card against the CPU
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)

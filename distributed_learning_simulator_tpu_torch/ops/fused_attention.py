@@ -25,8 +25,9 @@ never split or padded in memory) and writes ``[B, T, H, Dh]`` directly.
 the kernels, as the JAX package leaves it to XLA.
 
 :func:`attention_fwd`, :func:`attention_dq` and :func:`attention_dkv`
-launch the kernels for CUDA tensors and raise on what they do not take;
-for CPU tensors they compute :func:`attention_fwd_plain` and
+(and :func:`attention_bwd`, both backward kernels) launch the kernels for
+CUDA tensors and raise on what they do not take; for CPU tensors they
+compute :func:`attention_fwd_plain` and
 :func:`attention_bwd_plain`, the same functions in plain PyTorch with the
 same roundings: the forward rounds the unnormalised ``p = exp(s - m)``
 (``m`` the row's global maximum) to the input dtype before ``P·V`` and
@@ -328,6 +329,16 @@ def attention_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier
     return dk, dv
 
 
+def attention_bwd(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused"):
+    """``(dq, dk, dv)``: the dq and dkv kernels for CUDA tensors; for CPU
+    tensors the plain backward, once for all three."""
+    if q.device.type == "cpu":
+        _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
+        return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)
+    args = (q, k, v, kv_mask, dout, lse, delta, causal, tier)
+    return (attention_dq(*args), *attention_dkv(*args))
+
+
 class FusedAttentionFunction(torch.autograd.Function):
     """``(out, lse)`` from the forward kernel, with the dq and dkv kernels
     as the gradient of both (the JAX package's ``_attend`` and
@@ -346,9 +357,7 @@ class FusedAttentionFunction(torch.autograd.Function):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = attention_delta(dout, out, dlse)
-        args = (q, k, v, kv_mask, dout, lse, delta, ctx.causal, ctx.tier)
-        dq = attention_dq(*args)
-        dk, dv = attention_dkv(*args)
+        dq, dk, dv = attention_bwd(q, k, v, kv_mask, dout, lse, delta, ctx.causal, ctx.tier)
         return dq, dk, dv, None, None, None
 
 

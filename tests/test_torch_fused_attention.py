@@ -74,8 +74,7 @@ def _assert_close(got, want, dtype, name):
     if dtype == torch.float32:
         np.testing.assert_allclose(got, want, atol=2e-5, err_msg=name)
     else:
-        scale = max(1.0, float(np.abs(want).max()))
-        np.testing.assert_allclose(got, want, atol=BF16_REL * scale, err_msg=name)
+        np.testing.assert_allclose(got, want, atol=BF16_REL * float(np.abs(want).max()), err_msg=name)
 
 
 def _compare(q, k, v, do, mask, causal, tier, dtype, dlse=None):
@@ -151,6 +150,38 @@ def test_fully_masked_rows_are_zero_and_finite():
     assert float(lse[0].max()) == float(lse[1, :, 0].max()) == np.float32(-1e30)
     assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
     assert float(leaves[0].grad[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("plant", [None, "skips key tile 0", "does not round p, ds"])
+def test_kernel_check_rejects_planted_faults(plant):
+    """``chip_smoke.attention_mismatch`` (how the card's kernels are held
+    to their plain versions) passes bf16 outputs summed in another order
+    (every token permuted, non-causal) and rejects both planted faults in
+    each of out, dq, dk and dv.  B 1, H 2, T 1024, Dh 64."""
+    import chip_smoke
+
+    q, k, v, do, _ = (torch.from_numpy(x).bfloat16() for x in _inputs(1, 1024, 2, 64, seed=4))
+    mask = (torch.arange(1024) < 800).float()[None]
+    out, lse = tfa.attention_fwd_plain(q, k, v, mask)
+    delta = tfa.attention_delta(do, out)
+    ref = (out, *tfa.attention_bwd_plain(q, k, v, mask, do, lse, delta))
+    if plant is None:
+        perm = torch.from_numpy(np.random.default_rng(0).permutation(1024))
+        inv = torch.argsort(perm)
+        qp, kp, vp, dop = (x[:, perm] for x in (q, k, v, do))
+        outp, lsep = tfa.attention_fwd_plain(qp, kp, vp, mask[:, perm])
+        got = (outp, *tfa.attention_bwd_plain(qp, kp, vp, mask[:, perm], dop, lsep, delta[..., perm]))
+        got = tuple(x[:, inv] for x in got)
+    elif plant == "skips key tile 0":
+        skip = mask.clone()
+        skip[:, :64] = 0.0
+        got = (tfa.attention_fwd_plain(q, k, v, skip)[0], *tfa.attention_bwd_plain(q, k, v, skip, do, lse, delta))
+    else:
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        got = (tfa.attention_fwd_plain(qf, kf, vf, mask)[0], *tfa.attention_bwd_plain(qf, kf, vf, mask, dof, lse, delta))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), got, ref):
+        rel_max, rel_rms, ok = chip_smoke.attention_mismatch(g.to(w.dtype), w, "bfloat16")
+        assert ok == (plant is None), (name, rel_max, rel_rms)
 
 
 def test_plain_chunks_over_heads(monkeypatch):

@@ -128,8 +128,7 @@ def test_model_bf16_tracks_jax(model):
     10% of its leaf's largest (bias gradients sum a batch of bf16 terms
     rounded at other points; 4.5% was the worst seen)."""
     (jlogits, jloss, jgrads), (tlogits, tloss, tgrads) = _compare_model(model, dtype=torch.bfloat16)
-    scale = max(1.0, float(np.abs(jlogits).max()))
-    np.testing.assert_allclose(tlogits, jlogits, atol=2**-5 * scale)
+    np.testing.assert_allclose(tlogits, jlogits, atol=2**-5 * float(np.abs(jlogits).max()))
     np.testing.assert_allclose(tloss, jloss, rtol=5e-3)
     for key, g in jgrads.items():
         g = np.asarray(g, np.float32)
