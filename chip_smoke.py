@@ -8,11 +8,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    source, all at once) and print the build time and register use;
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5), at the long-context
-   round's attention shape (K6-K8) and the f32 task's (K9-K11), and at the
-   edge shapes the kernels must cover, and time kernel, plain version,
-   bound and one library call (a yardstick only: the port never calls it);
-   two faults planted at the main attention shape must fail the same
-   comparison;
+   round's attention shape (K6-K8) and the f32 task's (K9-K11), at the
+   ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
+   K2's in-kernel Philox against its own stream), and at the edge shapes
+   the kernels must cover, and time kernel, plain version, bound and one
+   library call where one exists (a yardstick only: the port never calls
+   it); two faults planted at the main attention shape, and two at the
+   largest codec leaf, must fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -27,6 +29,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
    exactly, then one long-context training round under the profiler;
+   then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
+   (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
+   for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
+   the count the protocol gives (``expected_qsgd_launches``), then a
+   shorter run of it under the profiler;
 5. one JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -503,6 +510,8 @@ def check_small_task_against_cpu(workdir: str) -> None:
 def _kernel_group(name: str) -> str:
     if "Layout" in name:  # csrc/fused_attention.cu's kernels take a Layout
         return "port kernels (K6-K11)"
+    if any(k in name for k in ("encode_kernel", "absmax_kernel", "decode_kernel")):
+        return "port kernels (K2, K3)"
     if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "weighted_accum_kernel")):
         return "port kernels (K1, K4, K5)"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")):
@@ -514,16 +523,17 @@ def _kernel_group(name: str) -> str:
     return "elementwise, reductions, copies"
 
 
-def _profiled_round(session, vec, weights, label: str, alone: str) -> None:
-    """One training round of ``session`` under ``torch.profiler``; prints
-    the device's busy share and its time by kernel group and by kernel.
-    ``alone`` says what the unprofiled round took."""
+def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float:
+    """``fn`` under ``torch.profiler``; prints the device's busy share and
+    its time by kernel group and by kernel (and the ``host_ops`` operators
+    with the most host time of their own), and returns the busy share.
+    ``alone`` says what the unprofiled work took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        session.run_round(vec, weights)
+        fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
     device = [
@@ -532,8 +542,8 @@ def _profiled_round(session, vec, weights, label: str, alone: str) -> None:
     ]
     busy = sum(e.self_device_time_total for e in device) / 1e6
     print(
-        f"profile{label}: {alone}; training round (no eval) {wall:.3f} s profiled;"
-        f" device busy {busy:.3f} s = {busy / wall:.1%} of the profiled round"
+        f"profile{label}: {alone}; {what} {wall:.3f} s profiled;"
+        f" device busy {busy:.3f} s = {busy / wall:.1%} of it"
     )
     groups: dict[str, float] = {}
     for e in device:
@@ -543,6 +553,13 @@ def _profiled_round(session, vec, weights, label: str, alone: str) -> None:
         print(f"  {key}: {t * 1e3:.1f} ms ({t / busy:.1%} of device time)")
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    if host_ops:
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_ops]
+        total = sum(e.self_cpu_time_total for e in prof.key_averages()) / 1e6
+        print(f"  host: {total:.3f} s of operator time on all threads; the most of their own:")
+        for e in host:
+            print(f"    {e.self_cpu_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+    return busy / wall
 
 
 def profile_round(workdir: str) -> None:
@@ -561,7 +578,7 @@ def profile_round(workdir: str) -> None:
     vec = session.run_round(vec, weights)
     torch.cuda.synchronize()
     alone = f"training round (no eval) {time.monotonic() - t0:.3f} s alone"
-    _profiled_round(session, vec, weights, "", alone)
+    _profiled(lambda: session.run_round(vec, weights), "", alone, "training round (no eval)")
 
 
 # ------------------------------------------------------- long-context slice
@@ -610,20 +627,26 @@ def lc_config(save_dir: str, model: str = "LongContextTransformer", **fields):
 
 def _reset_launches() -> None:
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+    from distributed_learning_simulator_tpu_torch.ops import qsgd
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
     wa.launches = sa.fwd_launches = sa.bwd_launches = 0
+    qsgd.encode_launches = qsgd.decode_launches = 0
     for kid in fa.launches:
         fa.launches[kid] = 0
 
 
 def _read_launches() -> dict[str, int]:
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+    from distributed_learning_simulator_tpu_torch.ops import qsgd
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
-    return {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches, **fa.launches}
+    return {
+        "K1": wa.launches, "K2": qsgd.encode_launches, "K3": qsgd.decode_launches,
+        "K4": sa.fwd_launches, "K5": sa.bwd_launches, **fa.launches,
+    }
 
 
 def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
@@ -734,7 +757,332 @@ def profile_long_context_round(workdir: str, round_seconds: float) -> None:
     session = build_session(lc_config(os.path.join(workdir, "lc_profile"), round=1))
     vec = session._init_global_params()
     alone = f"main path round {LC_ROUNDS} (eval included) {round_seconds:.3f} s"
-    _profiled_round(session, vec, session._base_weight_row(1), " (long context)", alone)
+    weights = session._base_weight_row(1)
+    _profiled(lambda: session.run_round(vec, weights), " (long context)", alone, "training round (no eval)")
+
+
+# ------------------------------------------------------- fed_obd_sq slice
+#: (n, bits, level, values) of the K2/K3 checks: the main path's leaf sizes
+#: (ViT-Base fc1/fc2, qkv, proj, head) first, then the edges
+QSGD_MAIN = (2359296, 8, 255, "randn")
+QSGD_CASES = [
+    QSGD_MAIN,
+    (1769472, 8, 255, "randn"),
+    (589824, 8, 255, "randn"),
+    (76800, 8, 255, "randn"),
+    (65536, 8, 255, "randn"),  # the smallest leaf the codec sends to K2
+    (70001, 8, 255, "randn"),  # not a multiple of 128
+    (65536, 8, 255, "zeros"),  # an all-zero leaf: scale 1e-12
+    (70001, 4, 15, "randn"),
+    (589824, 2, 3, "randn"),
+]
+QSGD_SEEDS = 64
+
+
+def qsgd_mismatch(got, want) -> list[str]:
+    """The parts of two K2 results ``(packed, signs, scale)`` or two K3
+    results (one f32 tensor) whose bits differ: words compared as u32,
+    floats by their bit patterns."""
+    import torch
+
+    def bits(t):
+        if t.dtype == torch.float32:
+            return t.contiguous().view(torch.int32).to(torch.int64)
+        return t.to(torch.int64) & 0xFFFFFFFF
+
+    names = ("packed", "signs", "scale") if isinstance(got, tuple) else ("out",)
+    pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+    return [
+        name for name, (a, b) in zip(names, pairs)
+        if a.shape != b.shape or not torch.equal(bits(a), bits(b.to(a.device)))
+    ]
+
+
+def check_qsgd(gen) -> tuple[dict, dict]:
+    """K2 and K3 against their plain versions, bit for bit, at the main
+    path's leaf sizes and the edges: the card's encode with given bits
+    against the plain encode with the same bits, the card's Philox encode
+    against the card's encode of ``philox_fill``'s stream, the card's decode
+    against the plain decode; the error under one step; at the largest leaf
+    the mean over 64 seeds unbiased, and two planted faults (a decode that
+    drops the sign, an encode whose bits are shifted by one row) rejected by
+    the same comparison.  Times K2 (Philox), K3 and their plain versions at
+    the largest leaf; no single PyTorch call computes either function."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import qsgd
+
+    k2 = k3 = None
+    for n, bits, level, kind in QSGD_CASES:
+        x = torch.zeros(n, device="cuda")
+        if kind == "randn":
+            x = torch.randn(n, generator=gen, device="cuda") * 0.02
+        seed = n % 1000 + bits
+        rows = qsgd.rows_for(n, bits)
+        stream = qsgd.philox_fill(seed, rows, "cuda")
+        with_bits = qsgd.qsgd_encode(x, seed, level, bits, rand_bits=stream)
+        plain = qsgd.qsgd_encode_plain(x, level, bits, stream)
+        philox = qsgd.qsgd_encode(x, seed, level, bits)
+        out = qsgd.qsgd_decode(*philox, level, bits, n)
+        plain_out = qsgd.qsgd_decode_plain(*philox, level, bits, n)
+        torch.cuda.synchronize()
+        step = float(philox[2][0]) / level
+        err = float((out - x).abs().max())
+        print(
+            f"K2/K3 n={n} bits={bits} level={level} {kind}: encode with bits vs plain"
+            f" {qsgd_mismatch(with_bits, plain) or 'bit-equal'}; Philox vs its stream"
+            f" {qsgd_mismatch(philox, with_bits) or 'bit-equal'}; decode vs plain"
+            f" {qsgd_mismatch(out, plain_out) or 'bit-equal'}; max |x - decoded| {err:.3g}"
+            f" (one step {step:.3g})"
+        )
+        check(not qsgd_mismatch(with_bits, plain), f"K2 with bits differs from the plain encode at {n, bits}")
+        check(not qsgd_mismatch(philox, with_bits), f"K2's Philox differs from philox_fill's stream at {n, bits}")
+        check(not qsgd_mismatch(out, plain_out), f"K3 differs from the plain decode at {n, bits}")
+        check(err < step or (kind == "zeros" and err == 0.0), f"K2/K3 error {err} not below one step {step}")
+        if (n, bits, level, kind) != QSGD_MAIN:
+            continue
+        check_qsgd_statistics(x, level, bits, step)
+        shifted = qsgd.qsgd_encode(x, seed, level, bits, rand_bits=torch.roll(stream, 1, 0))
+        unsigned = qsgd.qsgd_decode_plain(philox[0], torch.zeros_like(philox[1]), philox[2], level, bits, n)
+        for plant, got, want in (
+            ("an encode whose bits are shifted by one row", shifted, plain),
+            ("a decode that drops the sign", unsigned, plain_out),
+        ):
+            differs = qsgd_mismatch(got, want)
+            check(bool(differs), f"{plant} passes the K2/K3 check")
+            print(f"planted fault at n={n}, {plant}: {differs} differ (rejected)")
+        packed, signs, scale = philox
+        words = 4 * (packed.numel() + signs.numel())
+        # each input read once, each output written once; the operations
+        # counted are the f32 ones a value takes (abs, divide, multiply,
+        # floor, subtract, compare; decode: 3 products)
+        enc_bound = bound_ms(4 * n + words + 4, 6 * n, "float32")
+        dec_bound = bound_ms(words + 4 + 4 * n, 3 * n, "float32")
+        k2 = {
+            "max_abs_err": 0.0,  # bit-equal to the plain version
+            "ms": cuda_ms(lambda: qsgd.qsgd_encode(x, seed, level, bits)),
+            "plain_ms": cuda_ms(lambda: qsgd.qsgd_encode_plain(x, level, bits, stream)),
+            "bound_ms": enc_bound[0],
+            "bound_by": enc_bound[1],
+            "library_ms": None,  # no single PyTorch call quantizes and packs
+            "shape": f"[{n}] f32 -> 8-bit levels + signs (Philox bits in the kernel)",
+        }
+        k3 = {
+            "max_abs_err": 0.0,
+            "ms": cuda_ms(lambda: qsgd.qsgd_decode(packed, signs, scale, level, bits, n)),
+            "plain_ms": cuda_ms(lambda: qsgd.qsgd_decode_plain(packed, signs, scale, level, bits, n)),
+            "bound_ms": dec_bound[0],
+            "bound_by": dec_bound[1],
+            "library_ms": None,  # no single PyTorch call unpacks and scales
+            "shape": f"8-bit levels + signs -> [{n}] f32",
+        }
+    return k2, k3
+
+
+def check_qsgd_statistics(x, level: int, bits: int, step: float) -> None:
+    """Over 64 seeds the decoded mean is unbiased: the mean over values of
+    ``sign(x)·(mean decode - x)`` lies within 6 standard errors of 0 (each
+    decode errs by at most one step, so by at most step/2 in standard
+    deviation), and every value's mean is within one step."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import qsgd
+
+    acc = torch.zeros_like(x, dtype=torch.float64)
+    for seed in range(QSGD_SEEDS):
+        acc += qsgd.qsgd_decode(*qsgd.qsgd_encode(x, seed, level, bits), level, bits, x.numel()).double()
+    mean = acc / QSGD_SEEDS
+    bias = float(((mean - x.double()) * torch.sign(x.double())).mean())
+    stderr = step / 2 / (QSGD_SEEDS * x.numel()) ** 0.5
+    worst = float((mean - x.double()).abs().max())
+    print(f"K2/K3 over {QSGD_SEEDS} seeds: bias {bias:.3g} ({bias / stderr:.2f} standard errors), max |mean - x| {worst:.3g}")
+    check(abs(bias) <= 6 * stderr and worst < step, f"K2/K3 biased: {bias} (stderr {stderr}), max {worst}")
+
+
+OBD_CONFIG = os.path.join("conf", "fed_obd_sq", "vit_cifar100.yaml")
+#: the cuts of the fed_obd_sq main path (the YAML runs 100 rounds of 5
+#: epochs and 10 tuning epochs over all of CIFAR-100)
+OBD_ROUNDS, OBD_SECOND_PHASE, OBD_SAMPLES, OBD_TEST = 2, 2, 64, 256
+
+
+def obd_config(save_dir: str, **overrides):
+    """``conf/fed_obd_sq/vit_cifar100.yaml`` (fed_obd_sq, CIFAR-100,
+    ``vit_base``, 10 workers with 5 selected a round, batch 64, SGD at
+    0.05 with the cosine schedule, ``use_amp``, block dropout 0.9) on the
+    path of K2/K3: ``executor: sequential`` and ``flat_payload: false`` on
+    both sides.  Cut to size: 2 rounds, 1 epoch, ``second_phase_epoch`` 2
+    (1 would take the keyed encodes), 64 training samples a worker (one
+    step a client and epoch), 64 validation and 256 test samples."""
+    from distributed_learning_simulator_tpu_torch.config import load_config_from_file
+
+    fields = {
+        "executor": "sequential",
+        "round": OBD_ROUNDS,
+        "epoch": 1,
+        "algorithm_kwargs.second_phase_epoch": OBD_SECOND_PHASE,
+        "endpoint_kwargs.worker.flat_payload": False,
+        "endpoint_kwargs.server.flat_payload": False,
+        "dataset_kwargs.train_size": 10 * OBD_SAMPLES,
+        "dataset_kwargs.val_size": 64,
+        "dataset_kwargs.test_size": OBD_TEST,
+        "save_dir": save_dir,
+        "log_file": os.path.join(save_dir, "train.log"),
+        **overrides,
+    }
+    return load_config_from_file(os.path.join(ROOT, OBD_CONFIG), overrides=fields)
+
+
+def expected_qsgd_launches(ctx) -> tuple[int, int]:
+    """K2 and K3 launches of a finished threaded fed_obd_sq run, from the
+    protocol (``method/fed_obd``, ``topology/quantized_endpoint.py``):
+
+    * every leaf of at least 65,536 values of an unkeyed per-leaf encode
+      is one K2 launch, and its decode at the receiver one K3 launch;
+    * phase 1 (``round`` aggregates): each upload carries the kept blocks
+      (``kept_history``), as a diff; every aggregate but the last goes to
+      the ``random_client_number`` selected workers, the last (which
+      switches phases) to all of them;
+    * phase 2 (``second_phase_epoch`` aggregates): every worker uploads
+      the whole model each epoch and receives every aggregate;
+    * a broadcast is encoded once for all its receivers, and the initial
+      model travels unencoded."""
+    from distributed_learning_simulator_tpu_torch.ops.quantization import KERNEL_MIN_ELEMENTS
+
+    config = ctx.config
+    sizes = {name: t.numel() for name, t in ctx.model_ctx.module.state_dict().items()}
+    big = sum(n >= KERNEL_MIN_ELEMENTS for n in sizes.values())
+    workers = config.worker_number
+    selected = min(workers, int(config.algorithm_kwargs.get("random_client_number") or workers))
+    epochs = int(config.algorithm_kwargs["second_phase_epoch"])
+    uploads = sum(
+        sum(sizes[name] >= KERNEL_MIN_ELEMENTS for name in kept)
+        for worker in ctx.workers
+        for kept in worker.block_selector.kept_history
+    )
+    uploads += epochs * workers * big
+    broadcasts = (config.round + epochs) * big
+    received = ((config.round - 1) * selected + workers + epochs * workers) * big
+    return uploads + broadcasts, uploads + received
+
+
+class HostTimer:
+    """Host wall time spent inside chosen functions, summed over the
+    threads that call them: ``targets`` maps a label to ``(owner,
+    attribute name)``; the functions are wrapped while the timer is
+    entered and restored after."""
+
+    def __init__(self, targets: dict) -> None:
+        import threading
+
+        self.targets = targets
+        self.seconds = dict.fromkeys(targets, 0.0)
+        self.calls = dict.fromkeys(targets, 0)
+        self._lock = threading.Lock()
+        self._saved = {}
+
+    def _wrap(self, label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                with self._lock:
+                    self.seconds[label] += time.monotonic() - t0
+                    self.calls[label] += 1
+
+        return timed
+
+    def __enter__(self) -> "HostTimer":
+        for label, (owner, name) in self.targets.items():
+            self._saved[label] = getattr(owner, name)
+            setattr(owner, name, self._wrap(label, self._saved[label]))
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for label, (owner, name) in self.targets.items():
+            setattr(owner, name, self._saved[label])
+
+    def report(self) -> str:
+        return ", ".join(f"{k} {v:.2f} s / {self.calls[k]} calls" for k, v in self.seconds.items())
+
+
+def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
+    """``build_task`` + ``run_task`` (what ``train()`` runs for
+    ``executor: sequential``) on the fed_obd_sq configuration at full
+    width, with the launch counters set to 0 just before and read just
+    after; K2/K3 launches checked exactly against the protocol's count.
+    Returns the launches and the numbers for the record."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    config = obd_config(os.path.join(workdir, "obd_main"))
+    t0 = time.monotonic()
+    ctx = build_task(config)
+    setup = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    from distributed_learning_simulator_tpu_torch.engine.engine import ComputeEngine
+    from distributed_learning_simulator_tpu_torch.topology import quantized_endpoint as qe
+
+    timer = HostTimer({
+        "local training (train_epoch)": (ComputeEngine, "train_epoch"),
+        "evaluation": (ComputeEngine, "evaluate"),
+        "codec encode": (qe._QuantCodecMixin, "_encode"),
+        "codec decode": (qe._QuantCodecMixin, "_decode"),
+        "artifact writes (np.savez)": (np, "savez"),
+    })
+    _reset_launches()
+    with timer:
+        t0 = time.monotonic()
+        perf = run_task(ctx)["performance"]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = _read_launches()
+    k2, k3 = expected_qsgd_launches(ctx)
+    params = sum(t.numel() for t in ctx.model_ctx.module.state_dict().values())
+    ratios = [r for e in [ctx.server._endpoint, *(w._endpoint for w in ctx.workers)] for r in e.compression_ratios]
+    with open(os.path.join(ctx.server.save_dir, "round_record.json"), encoding="utf8") as f:
+        phases = [row.get("phase") for _, row in sorted(json.load(f).items(), key=lambda kv: int(kv[0]))]
+    print(
+        f"main path fed_obd_sq {config.model_name} ({params} parameters, {config.worker_number} workers,"
+        f" {config.algorithm_kwargs['random_client_number']} selected): setup {setup:.2f} s, run {wall:.2f} s;"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}"
+        f" (K2/K3 from the protocol: {k2}/{k3}); compression ratio {min(ratios):.4f}-{max(ratios):.4f}"
+        f" over {len(ratios)} encodes"
+    )
+    print(f"  host time inside (summed over the threads; run {wall:.2f} s): {timer.report()}")
+    for key, row in sorted(perf.items()):
+        print(
+            f"  record {key} {row.get('phase')}: {row['round_seconds']:.3f} s, test loss {row['test_loss']:.4f}"
+            f" accuracy {row['test_accuracy']:.4f}, received {row['received_mb']:.1f} MB, sent {row['sent_mb']:.1f} MB"
+        )
+        check(np.isfinite(row["test_loss"]), f"fed_obd_sq record {key} test loss {row['test_loss']}")
+        check(0.0 <= row["test_accuracy"] <= 1.0, f"fed_obd_sq record {key} accuracy {row['test_accuracy']}")
+    check(params == 85_219_684, f"vit_base has {params} parameters")
+    want = ["block_dropout_rounds"] * OBD_ROUNDS + ["epoch_tune"] * OBD_SECOND_PHASE
+    check(phases == want, f"phases in round_record.json {phases}")
+    check((launches["K2"], launches["K3"]) == (k2, k3), f"K2/K3 launches {launches['K2']}/{launches['K3']}, want {k2}/{k3}")
+    check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
+    others = [kid for kid in ("K1", "K6", "K7", "K8", "K9", "K10", "K11") if launches[kid]]
+    check(not others, f"kernels off this path launched: {others}")
+    check(all(0.27 < r < 0.30 for r in ratios), f"compression ratios {min(ratios)}-{max(ratios)}, want about 9/32")
+    record = {
+        "run_s": wall, "setup_s": setup, "records": {k: row["round_seconds"] for k, row in perf.items()},
+        "host": dict(timer.seconds),
+    }
+    return launches, record
+
+
+def profile_obd_run(workdir: str, run_s: float) -> None:
+    """A shorter fed_obd_sq run (1 phase-1 round, then the 2 tuning
+    epochs) under the profiler, on the warm process: the device's busy
+    share of the threaded path."""
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    ctx = build_task(obd_config(os.path.join(workdir, "obd_profile"), round=1))
+    alone = f"main path run (2 rounds + 2 tuning epochs) {run_s:.3f} s"
+    _profiled(lambda: run_task(ctx), " (fed_obd_sq)", alone, "run of 1 round + 2 tuning epochs", host_ops=12)
 
 
 def main() -> int:
@@ -761,7 +1109,7 @@ def main() -> int:
 
     # 1. build
     t0 = time.monotonic()
-    reports = build.build(["weighted_accum", "short_attention", "fused_attention"])
+    reports = build.build(["weighted_accum", "short_attention", "fused_attention", "qsgd"])
     print(f"build: {time.monotonic() - t0:.1f} s")
     for name, text in reports.items():
         regs = [line.split(":", 1)[1].strip() for line in text.splitlines() if "registers" in line]
@@ -774,6 +1122,7 @@ def main() -> int:
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
     check_planted_faults(gen)
+    k2, k3 = check_qsgd(gen)
 
     # 3. small tasks on the card against the CPU
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
@@ -811,11 +1160,22 @@ def main() -> int:
     launches["K1"] += lc_launches["K1"]
     launches.update({kid: stream_launches[kid] for kid in ("K9", "K10", "K11")})
 
+    # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5) and its profile
+    obd_launches, obd_record = run_obd_main_path(workdir)
+    profile_obd_run(workdir, obd_record["run_s"])
+    launches.update({kid: obd_launches[kid] for kid in ("K2", "K3")})
+    launches["K4"] += obd_launches["K4"]
+    launches["K5"] += obd_launches["K5"]
+
     # 5. the record
     src = f"{PACKAGE}/csrc"
     rows = [
         ("weighted_accum", "K1", f"{src}/weighted_accum.cu",
          "distributed_learning_simulator_tpu/ops/pallas_kernels.py:197", k1),
+        ("qsgd_encode", "K2", f"{src}/qsgd.cu",
+         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:107", k2),
+        ("qsgd_decode", "K3", f"{src}/qsgd.cu",
+         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:166", k3),
         ("short_attention_fwd", "K4", f"{src}/short_attention.cu",
          "distributed_learning_simulator_tpu/ops/short_attention.py:134", k4),
         ("short_attention_bwd", "K5", f"{src}/short_attention.cu",

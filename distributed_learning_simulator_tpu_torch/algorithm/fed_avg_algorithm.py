@@ -1,0 +1,75 @@
+"""FedAvg's dataset-size-weighted average (the port's copy of the JAX
+package's ``algorithm/fed_avg_algorithm.py``, streaming path only).
+
+Each upload is flattened in layout order and added into ONE f32
+accumulator, ``acc += w · vec``, as it arrives, and its tensors are
+released at once; the aggregate is one divide by the total weight, one
+finite check and one split back to the parameter dict.  Uploads are taken
+in arrival order.  ``algorithm_kwargs.float64_parity`` (the JAX
+package's host float64 accumulator) and ``flat_aggregation`` are refused
+(``training.py``).
+"""
+
+from typing import Any
+
+import torch
+
+from ..message import Message, ParameterMessage
+from ..ops.pytree import ParamVecLayout
+from .aggregation_algorithm import AggregationAlgorithm, check_finite
+
+
+class FedAVGAlgorithm(AggregationAlgorithm):
+    def __init__(self, server=None) -> None:
+        super().__init__(server=server)
+        self._vec_acc: torch.Tensor | None = None
+        self._vec_layout: ParamVecLayout | None = None
+        self._vec_total_weight = 0.0
+        self._end_training = False
+        self._other_data: dict = {}
+
+    def _get_weight(self, dataset_size: int) -> float:
+        assert dataset_size != 0
+        return float(dataset_size)
+
+    def process_worker_data(self, worker_id, worker_data, **kwargs: Any) -> None:
+        super().process_worker_data(worker_id, worker_data, **kwargs)
+        data = self._all_worker_data.get(worker_id)
+        if not isinstance(data, ParameterMessage):
+            return
+        weight = self._get_weight(data.dataset_size)
+        if self._vec_acc is None:
+            self._vec_layout = ParamVecLayout.of(data.parameter)
+            self._vec_acc = self._vec_layout.flatten(data.parameter) * weight
+        else:
+            assert self._vec_layout is not None
+            self._vec_acc += self._vec_layout.flatten(data.parameter) * weight
+        self._vec_total_weight += weight
+        self._end_training |= data.end_training
+        self._merge_other_data(data.other_data)
+        data.parameter = {}  # release the upload's tensors now
+
+    def _merge_other_data(self, other_data: dict) -> None:
+        for key, value in other_data.items():
+            if key in self._other_data and self._other_data[key] != value:
+                raise RuntimeError(f"different values on key {key}")
+            self._other_data[key] = value
+
+    def aggregate_worker_data(self) -> Message:
+        assert self._vec_acc is not None and self._vec_layout is not None, "no uploads to aggregate"
+        vec = self._vec_acc / self._vec_total_weight
+        check_finite(vec, self._vec_layout)
+        parameter = self._vec_layout.split(vec)
+        self._vec_acc = None
+        self._vec_total_weight = 0.0
+        return ParameterMessage(
+            parameter=parameter, end_training=self._end_training, other_data=dict(self._other_data)
+        )
+
+    def clear_worker_data(self) -> None:
+        super().clear_worker_data()
+        self._vec_acc = None
+        self._vec_layout = None
+        self._vec_total_weight = 0.0
+        self._end_training = False
+        self._other_data = {}

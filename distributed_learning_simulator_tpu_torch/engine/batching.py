@@ -9,17 +9,24 @@ native gather.
 """
 
 import numpy as np
+import torch
 
 from ..data.collection import ArrayDataset
 
 
-def make_epoch_batches(dataset: ArrayDataset, batch_size: int) -> dict:
+def make_epoch_batches(
+    dataset: ArrayDataset, batch_size: int, rng: np.random.Generator | None = None
+) -> dict:
     """``{"input": [n, B, ...], "target": [n, B], "mask": [n, B]}`` in
-    dataset order (the SPMD session's evaluation batches)."""
+    dataset order, or in the order ``rng.permutation`` draws (the threaded
+    trainer's per-epoch shuffle: the same rng gives the JAX package's
+    batches, byte for byte)."""
     n = len(dataset)
     if n <= 0:
         raise ValueError("empty dataset")
     order = np.arange(n)
+    if rng is not None:
+        order = rng.permutation(order)
     n_batches = max(1, (n + batch_size - 1) // batch_size)
     pad = n_batches * batch_size - n
     order = np.concatenate([order, np.zeros(pad, dtype=order.dtype)])
@@ -43,3 +50,17 @@ def fixed_size_partition(indices: np.ndarray, size: int) -> tuple[np.ndarray, np
         pad = np.full(size - n, indices[0], dtype=indices.dtype)
     mask = np.concatenate([np.ones(n, np.float32), np.zeros(size - n, np.float32)])
     return np.concatenate([indices, pad]), mask
+
+
+def stage_batches(batches: dict, compute_dtype: torch.dtype, device) -> dict[str, torch.Tensor]:
+    """Host batches on the device: floating inputs stored in the compute
+    dtype once (the JAX session's hoisted cast), integer inputs (token
+    ids) as int64, which no cast may touch (bf16 holds integers exactly
+    only up to 256), targets as int64, the mask as f32."""
+    inputs = torch.from_numpy(np.ascontiguousarray(batches["input"]))
+    dtype = compute_dtype if inputs.is_floating_point() else torch.int64
+    return {
+        "input": inputs.to(device, dtype),
+        "target": torch.from_numpy(np.ascontiguousarray(batches["target"])).to(device, torch.int64),
+        "mask": torch.from_numpy(np.ascontiguousarray(batches["mask"])).to(device, torch.float32),
+    }

@@ -24,41 +24,78 @@ import numpy as np
 import torch
 
 
+def _port_key(key: str, ndim: int) -> tuple[str, tuple[int, ...] | None]:
+    """A JAX path and the permutation that takes its array to the port's
+    layout (None: unchanged)."""
+    *path, leaf = key.split("/")
+    perm = None
+    if leaf == "kernel" and ndim == 2:
+        leaf, perm = "weight", (1, 0)
+    elif leaf == "kernel" and ndim == 4 and path[-1:] == ["qkv"]:
+        leaf, perm = "weight", (1, 2, 3, 0)
+    elif leaf == "kernel" and ndim == 4:
+        leaf, perm = "weight", (3, 2, 0, 1)
+    elif leaf == "kernel":
+        raise ValueError(f"no port layout for a {ndim}-d kernel {key!r}")
+    elif leaf == "scale":
+        leaf = "weight"
+    return ".".join([*path, leaf]), perm
+
+
+def _jax_key(key: str, ndim: int) -> tuple[str, tuple[int, ...] | None]:
+    """A port key and the permutation that takes its tensor to the JAX
+    package's layout (None: unchanged)."""
+    *path, leaf = key.split(".")
+    perm = None
+    if leaf == "weight" and ndim == 2:
+        leaf, perm = "kernel", (1, 0)
+    elif leaf == "weight" and ndim == 4 and path[-1:] == ["qkv"]:
+        leaf, perm = "kernel", (3, 0, 1, 2)
+    elif leaf == "weight" and ndim == 4:
+        leaf, perm = "kernel", (2, 3, 1, 0)
+    elif leaf == "weight" and ndim == 1:
+        leaf = "scale"
+    elif leaf == "weight":
+        raise ValueError(f"no JAX layout for a {ndim}-d weight {key!r}")
+    return "/".join([*path, leaf]), perm
+
+
 def from_jax(params: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
     """JAX flat params (numpy) -> the port's ``state_dict`` (CPU tensors)."""
     out = {}
     for key, value in params.items():
         value = np.asarray(value)
-        *path, leaf = key.split("/")
-        if leaf == "kernel" and value.ndim == 2:
-            leaf, value = "weight", value.T
-        elif leaf == "kernel" and value.ndim == 4 and path[-1:] == ["qkv"]:
-            leaf, value = "weight", value.transpose(1, 2, 3, 0)
-        elif leaf == "kernel" and value.ndim == 4:
-            leaf, value = "weight", value.transpose(3, 2, 0, 1)
-        elif leaf == "kernel":
-            raise ValueError(f"no port layout for a {value.ndim}-d kernel {key!r}")
-        elif leaf == "scale":
-            leaf = "weight"
-        out[".".join([*path, leaf])] = torch.from_numpy(np.array(value, copy=True))
+        name, perm = _port_key(key, value.ndim)
+        if perm is not None:
+            value = value.transpose(perm)
+        out[name] = torch.from_numpy(np.array(value, copy=True))
     return out
 
 
 def to_jax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The port's ``state_dict`` -> JAX flat params (numpy)."""
+    return {
+        key: np.ascontiguousarray(t.detach().cpu().numpy())
+        for key, t in to_jax_tensors(state).items()
+    }
+
+
+def to_jax_tensors(state: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The port's parameters in the JAX package's keys and layouts, as
+    tensors on their own device (permuted views, no copy): the wire
+    layout of the transport codec, so a leaf's values meet the same
+    random draws in the same order as in the JAX package."""
     out = {}
     for key, tensor in state.items():
-        value = tensor.detach().cpu().numpy()
-        *path, leaf = key.split(".")
-        if leaf == "weight" and value.ndim == 2:
-            leaf, value = "kernel", value.T
-        elif leaf == "weight" and value.ndim == 4 and path[-1:] == ["qkv"]:
-            leaf, value = "kernel", value.transpose(3, 0, 1, 2)
-        elif leaf == "weight" and value.ndim == 4:
-            leaf, value = "kernel", value.transpose(2, 3, 1, 0)
-        elif leaf == "weight" and value.ndim == 1:
-            leaf = "scale"
-        elif leaf == "weight":
-            raise ValueError(f"no JAX layout for a {value.ndim}-d weight {key!r}")
-        out["/".join([*path, leaf])] = np.ascontiguousarray(value)
+        name, perm = _jax_key(key, tensor.dim())
+        out[name] = tensor if perm is None else tensor.permute(perm)
+    return out
+
+
+def from_jax_tensors(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The inverse of :func:`to_jax_tensors` (contiguous tensors)."""
+    out = {}
+    for key, tensor in params.items():
+        name, perm = _port_key(key, tensor.dim())
+        out[name] = (tensor if perm is None else tensor.permute(perm)).contiguous()
     return out

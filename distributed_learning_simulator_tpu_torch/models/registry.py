@@ -7,10 +7,13 @@ engine and the session pass around.  ``apply`` runs the module through
 parameters, a client's bf16 copy, or views into a flat vector.  Dropout
 draws from the ``torch.Generator`` passed to ``apply``/``loss`` (one per
 client and round, ``models/dropout.py::dropout_generator``), never from
-torch's global RNG.
+torch's global RNG.  ``functional_call`` swaps the module's parameters for
+the duration of a forward, so ``apply`` holds a lock: the threaded
+executor runs forwards from several worker threads on one module.
 """
 
 import dataclasses
+import threading
 from collections.abc import Callable, Mapping
 
 import numpy as np
@@ -46,6 +49,9 @@ class ModelContext:
     #: shifted left; dataset labels are ignored)
     loss_type: str = "softmax_ce"
     pad_id: int = 0  # causal_lm: positions whose target is pad weigh 0
+    _forward_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False
+    )
 
     def init(self, seed: int) -> dict[str, torch.Tensor]:
         """Fresh f32 parameters from ``seed`` (drawn on the CPU with a
@@ -57,10 +63,11 @@ class ModelContext:
     def apply(
         self, params: Mapping[str, torch.Tensor], inputs, train: bool = False, generator=None
     ):
-        self.module.train(train)
-        return torch.func.functional_call(
-            self.module, dict(params), (inputs,), {"generator": generator}
-        )
+        with self._forward_lock:
+            self.module.train(train)
+            return torch.func.functional_call(
+                self.module, dict(params), (inputs,), {"generator": generator}
+            )
 
     def _cast_for_compute(self, tree):
         """Floating tensors in the compute dtype (the identity, without a

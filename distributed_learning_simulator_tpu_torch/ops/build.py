@@ -36,6 +36,11 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
+#: held around every launch counter's increment: the threaded executor
+#: launches kernels from several worker threads, and ``count += 1`` is a
+#: read-modify-write that two threads can interleave
+launch_lock = threading.Lock()
+
 
 class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a kernel source."""

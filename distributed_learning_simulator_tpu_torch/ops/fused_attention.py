@@ -283,7 +283,8 @@ def attention_fwd(q, k, v, kv_mask=None, causal: bool = False, tier: str = "fuse
             *_head(q, k, v, kv_mask), out.data_ptr(), lse.data_ptr(), *_tail(q, causal)
         )
     _raise_on(err, "forward")
-    launches[_FWD_ID[tier]] += 1
+    with build.launch_lock:
+        launches[_FWD_ID[tier]] += 1
     return out, lse
 
 
@@ -308,7 +309,8 @@ def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier:
             dq.data_ptr(), *_tail(q, causal),
         )
     _raise_on(err, "dq")
-    launches[_DQ_ID[tier]] += 1
+    with build.launch_lock:
+        launches[_DQ_ID[tier]] += 1
     return dq
 
 
@@ -325,7 +327,8 @@ def attention_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier
             dk.data_ptr(), dv.data_ptr(), *_tail(q, causal),
         )
     _raise_on(err, "dkv")
-    launches[_DKV_ID[tier]] += 1
+    with build.launch_lock:
+        launches[_DKV_ID[tier]] += 1
     return dk, dv
 
 

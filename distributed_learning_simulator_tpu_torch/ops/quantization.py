@@ -1,0 +1,226 @@
+"""The QSGD transport codec over parameter dicts (the port's copy of the
+stochastic part of the JAX package's ``ops/quantization.py``).
+
+``stochastic_quantization(level)`` returns ``(quant, dequant)`` over a
+``dict[str, Tensor]`` with the JAX codec's three branches and routing:
+
+* **flat** (``flat=True``, no key): the whole dict as ONE ParamVec leaf,
+  with per-tensor abs-max scales (a segment max, ``scatter_reduce``);
+* **keyed per-leaf** (a ``key``): each leaf rounded with draws from the
+  key, split by leaf index or folded by ``fold_indices`` position;
+* **unkeyed per-leaf**: leaves of at least ``16*32*128 = 65,536`` values
+  go through kernel K2 (``ops/qsgd.py``) with the seed
+  ``(seed * 100003 + i) % 0x7FFFFFFF``, the rest through the consecutive
+  packer here.  Each leaf's blob keeps its ``"pallas"`` flag, and decode
+  follows it: K3 for the row-grouped layout, the unpacker here for the
+  consecutive one.  The two layouts are never mixed.
+
+The JAX package takes the kernel route only on a TPU (``use_pallas``);
+the port takes it on both devices, as it does for attention.  The random
+numbers come from a :class:`CodecRandom`, passed explicitly; the default
+draws from ``torch.Generator``s seeded from the codec's integers, so a
+test can hand in one that returns the JAX package's draws instead.
+Packed words are int64 tensors holding u32 values on the CPU and int32
+tensors of the same bits from the card's kernels; wire sizes count them
+as 4-byte words either way.
+"""
+
+import math
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from . import qsgd
+from .pytree import ParamVecLayout
+
+#: leaves at least this large go through K2/K3 (whole (32, 128) tiles x 16)
+KERNEL_MIN_ELEMENTS = 16 * 32 * 128
+
+
+class CodecRandom:
+    """The codec's random source: uniforms in [0, 1) for the consecutive
+    packer's rounding and 32-bit words for K2.  These draws are the port's
+    own (``torch.Generator``s seeded through ``numpy.random.SeedSequence``
+    from the codec's integers); a subclass may return other draws for the
+    same requests, such as the JAX package's."""
+
+    @staticmethod
+    def _uniform(entropy, shape, device) -> torch.Tensor:
+        state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)
+        gen = torch.Generator(device=device).manual_seed(int(state[0]) & (2**63 - 1))
+        return torch.rand(tuple(shape), generator=gen, device=device, dtype=torch.float32)
+
+    def leaf_uniform(self, seed: int, index: int, count: int, shape, device) -> torch.Tensor:
+        """Leaf ``index`` of ``count`` of an unkeyed encode with ``seed``."""
+        return self._uniform([seed, index, count], shape, device)
+
+    def keyed_uniform(self, key, index: int, count: int, shape, device, fold_index=None):
+        """Leaf ``index`` of ``count`` of an encode keyed by ``key``; with
+        ``fold_index`` the leaf's position in the full parameter dict."""
+        entropy = [int(key), 1, fold_index] if fold_index is not None else [int(key), 2, index, count]
+        return self._uniform(entropy, shape, device)
+
+    def flat_uniform(self, seed: int, shape, device) -> torch.Tensor:
+        """The flat ParamVec encode with ``seed``."""
+        return self._uniform([seed, 3], shape, device)
+
+    def kernel_bits(self, seed: int, rows: int, device):
+        """K2's ``[rows, 128]`` random words for ``seed``, or None for
+        K2's own draw (Philox on the card, a seeded generator on the CPU)."""
+        return None
+
+
+# ---------------------------------------------------------------- bit packing
+def _pack_uint(levels: torch.Tensor, bits: int) -> torch.Tensor:
+    """Levels below ``2^bits`` packed ``32 // bits`` consecutive values a
+    word, value ``j`` of a word at shift ``j·bits`` (int64 holding u32)."""
+    lanes = 32 // bits
+    flat = levels.reshape(-1).to(torch.int64)
+    pad = (-flat.numel()) % lanes
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shifts = torch.arange(lanes, device=flat.device, dtype=torch.int64) * bits
+    return (flat.reshape(-1, lanes) << shifts).sum(dim=1)  # disjoint bits: sum == or
+
+
+def _unpack_uint(packed: torch.Tensor, bits: int, n: int) -> torch.Tensor:
+    lanes = 32 // bits
+    shifts = torch.arange(lanes, device=packed.device, dtype=torch.int64) * bits
+    values = (packed.to(torch.int64)[:, None] >> shifts) & ((1 << bits) - 1)
+    return values.reshape(-1)[:n]
+
+
+def _round(flat: torch.Tensor, scale, rnd: torch.Tensor, level: int) -> torch.Tensor:
+    """The QSGD rounding: ``|x| / scale`` on ``level`` levels, up with
+    probability equal to the remainder."""
+    normalized = flat.abs() / scale * level
+    floor = torch.floor(normalized)
+    return floor + (rnd < normalized - floor).to(torch.float32)
+
+
+def _decode_consecutive(packed, signs, scale, level: int, bits: int, n: int) -> torch.Tensor:
+    """The consecutive layout's decode in XLA's order of the JAX package's
+    ``q / level * scale``: ``q * (scale * fl(1/level))`` for one scale
+    (``ops/qsgd.py::decode_step``), ``(q * fl(1/level)) * scales`` for
+    per-element scales, so decodes are bit-equal to the reference's."""
+    q = _unpack_uint(packed, bits, n).to(torch.float32)
+    s = _unpack_uint(signs, 1, n).to(torch.float32)
+    if scale.numel() == 1:
+        magnitude = q * qsgd.decode_step(scale, level).reshape(())
+    else:
+        magnitude = q * qsgd.level_reciprocal(level, q.device) * scale
+    return magnitude * (1.0 - 2.0 * s)
+
+
+def _wire_bytes(enc: dict) -> int:
+    """Bytes a leaf puts on the wire: u32 words and f32 scales."""
+    scales = enc["scales"] if "scales" in enc else enc["scale"]
+    return 4 * (enc["packed"].numel() + enc["signs"].numel() + scales.numel())
+
+
+def stochastic_quantization(quantization_level: int = 255, random: CodecRandom | None = None):
+    """``(quant, dequant)`` closures over parameter dicts."""
+    level = int(quantization_level)
+    bits = max(1, math.ceil(math.log2(level + 1)))
+    source = random if random is not None else CodecRandom()
+
+    def quant(tree: Mapping[str, torch.Tensor], seed: int = 0, key=None, fold_indices=None,
+              flat: bool = False) -> dict:
+        """Encode ``tree``; see the module docstring for the branches.
+        ``fold_indices`` maps each name to its position in the FULL
+        parameter dict (a kept-block subset still draws by position)."""
+        names = sorted(tree)
+        if flat and key is None and len(tree) > 1:
+            layout = ParamVecLayout.of(tree)
+            vec = layout.flatten(tree)
+            sizes = [int(np.prod(s)) if s else 1 for s in layout.shapes]
+            seg = torch.repeat_interleave(
+                torch.arange(len(sizes), device=vec.device), torch.tensor(sizes, device=vec.device)
+            )
+            scales = torch.zeros(len(sizes), dtype=torch.float32, device=vec.device)
+            scales = scales.scatter_reduce(0, seg, vec.abs(), "amax", include_self=False)
+            scales = torch.clamp(scales, min=1e-12)
+            q = _round(vec, scales[seg], source.flat_uniform(seed, vec.shape, vec.device), level)
+            leaf = {
+                "packed": _pack_uint(q, bits),
+                "signs": _pack_uint(vec < 0, 1),
+                "scales": scales,
+                "shape": (layout.size,),
+                "dtype": torch.float32,
+                "pallas": False,
+            }
+            return {"leaves": [leaf], "level": level, "flat_layout": layout}
+        count = max(1, len(names))
+        encoded = []
+        for i, name in enumerate(names):
+            leaf = tree[name]
+            flat_leaf = leaf.detach().reshape(-1).to(torch.float32)
+            leaf_pallas = key is None and flat_leaf.numel() >= KERNEL_MIN_ELEMENTS
+            if leaf_pallas:
+                leaf_seed = (seed * 100003 + i) % 0x7FFFFFFF  # int32-safe, as on the TPU
+                rows = qsgd.rows_for(flat_leaf.numel(), bits)
+                packed, signs, scale = qsgd.qsgd_encode(
+                    flat_leaf.contiguous(), leaf_seed, level, bits,
+                    rand_bits=source.kernel_bits(leaf_seed, rows, flat_leaf.device),
+                )
+            else:
+                if key is None:
+                    rnd = source.leaf_uniform(seed, i, count, flat_leaf.shape, flat_leaf.device)
+                else:
+                    fold = None if fold_indices is None else fold_indices[name]
+                    rnd = source.keyed_uniform(key, i, count, flat_leaf.shape, flat_leaf.device, fold)
+                scale = torch.clamp(flat_leaf.abs().max(), min=1e-12) if flat_leaf.numel() else (
+                    torch.tensor(1e-12, device=flat_leaf.device)
+                )
+                q = _round(flat_leaf, scale, rnd, level)
+                packed, signs = _pack_uint(q, bits), _pack_uint(flat_leaf < 0, 1)
+            encoded.append(
+                {
+                    "packed": packed,
+                    "signs": signs,
+                    "scale": scale,
+                    "shape": tuple(leaf.shape),
+                    "dtype": leaf.dtype,
+                    "pallas": leaf_pallas,
+                }
+            )
+        return {"keys": names, "leaves": encoded, "level": level}
+
+    def dequant(blob: dict) -> dict[str, torch.Tensor]:
+        decoded = []
+        for enc in blob["leaves"]:
+            n = int(np.prod(enc["shape"])) if enc["shape"] else 1
+            if "scales" in enc:
+                layout = blob["flat_layout"]
+                sizes = [int(np.prod(s)) if s else 1 for s in layout.shapes]
+                scales = enc["scales"]
+                per_element = torch.repeat_interleave(scales, torch.tensor(sizes, device=scales.device))
+                flat = _decode_consecutive(enc["packed"], enc["signs"], per_element, blob["level"], bits, n)
+            elif enc["pallas"]:
+                flat = qsgd.qsgd_decode(enc["packed"], enc["signs"], enc["scale"], blob["level"], bits, n)
+            else:
+                flat = _decode_consecutive(enc["packed"], enc["signs"], enc["scale"], blob["level"], bits, n)
+            decoded.append(flat.reshape(enc["shape"]).to(enc["dtype"]))
+        if "flat_layout" in blob:
+            return dict(blob["flat_layout"].split(decoded[0]))
+        return dict(zip(blob["keys"], decoded))
+
+    return quant, dequant
+
+
+def blob_nbytes(blob: dict) -> int:
+    """Wire bytes of an encoded blob: every leaf's words and scales (the
+    JAX package's ``param_nbytes`` over the blob's arrays)."""
+    return sum(_wire_bytes(enc) for enc in blob["leaves"])
+
+
+def check_compression_ratio(original: Mapping[str, torch.Tensor], encoded: dict) -> float:
+    """Compressed bytes / original bytes; a per-leaf scale counts 8 bytes,
+    a flat blob's per-tensor scales 4 bytes each, as in the JAX package."""
+    original_bytes = max(1, sum(t.numel() * t.element_size() for t in original.values()))
+    encoded_bytes = 0
+    for enc in encoded["leaves"]:
+        encoded_bytes += 4 * (enc["packed"].numel() + enc["signs"].numel())
+        encoded_bytes += 4 * enc["scales"].numel() if "scales" in enc else 8
+    return encoded_bytes / original_bytes

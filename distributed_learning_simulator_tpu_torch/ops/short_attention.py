@@ -172,7 +172,8 @@ def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
         )
     if err != 0:
         raise RuntimeError(f"short_attention forward launch failed: CUDA error {err}")
-    fwd_launches += 1
+    with build.launch_lock:
+        fwd_launches += 1
     return out, lse
 
 
@@ -201,7 +202,8 @@ def short_attention_bwd(qkv, dout, lse, num_heads: int, kv_mask=None):
         )
     if err != 0:
         raise RuntimeError(f"short_attention backward launch failed: CUDA error {err}")
-    bwd_launches += 1
+    with build.launch_lock:
+        bwd_launches += 1
     return dqkv
 
 

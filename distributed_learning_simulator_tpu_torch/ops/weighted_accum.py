@@ -91,5 +91,6 @@ def weighted_accum(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         )
     if err != 0:
         raise RuntimeError(f"weighted_accum kernel launch failed: CUDA error {err}")
-    launches += 1
+    with build.launch_lock:
+        launches += 1
     return out

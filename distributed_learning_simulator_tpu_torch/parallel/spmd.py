@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config import DistributedTrainingConfig
-from ..engine.batching import fixed_size_partition, make_epoch_batches
+from ..engine.batching import fixed_size_partition, make_epoch_batches, stage_batches
 from ..engine.engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
 from ..ml_type import MachineLearningPhase as Phase
 from ..models.convert import from_jax, to_jax
@@ -199,17 +199,8 @@ class SpmdFedAvgSession:
         self._eval_batches = self._to_device(make_epoch_batches(test, config.batch_size))
 
     def _to_device(self, batches: dict) -> dict[str, torch.Tensor]:
-        """Host batches on the device: floating inputs stored in the
-        compute dtype once (the JAX session's hoisted cast), integer inputs
-        (token ids) as int64, which no cast may touch (bf16 holds integers
-        exactly only up to 256), targets as int64."""
-        inputs = torch.from_numpy(batches["input"])
-        dtype = self.model_ctx.compute_dtype if inputs.is_floating_point() else torch.int64
-        return {
-            "input": inputs.to(self.device, dtype),
-            "target": torch.from_numpy(batches["target"]).to(self.device, torch.int64),
-            "mask": torch.from_numpy(batches["mask"]).to(self.device, torch.float32),
-        }
+        """Host batches on the device (``engine/batching.py::stage_batches``)."""
+        return stage_batches(batches, self.model_ctx.compute_dtype, self.device)
 
     def chunk_size(self) -> int:
         """Clients per aggregation chunk: ``client_chunk`` (8 when unset,

@@ -1,0 +1,99 @@
+"""Hub-and-spoke links between the server thread and the worker threads
+(the port's copy of the JAX package's ``topology/central_topology.py``).
+
+An endpoint is a pair of thread-safe queues: messages are handed over by
+reference, and parameter payloads stay on the device.  The server endpoint
+counts the payload bytes it sends and receives; quantized subclasses encode
+before and decode after the count, so it sees wire sizes.
+"""
+
+import queue
+import threading
+from typing import Any
+
+from ..message import Message, get_message_size
+
+
+class _Channel:
+    """One direction of a link."""
+
+    def __init__(self, notify: threading.Event | None = None) -> None:
+        self._queue: queue.Queue = queue.Queue()
+        self._notify = notify
+
+    def put(self, item: Any) -> None:
+        self._queue.put(item)
+        if self._notify is not None:
+            self._notify.set()
+
+    def get(self, timeout: float | None = None) -> Any:
+        return self._queue.get(timeout=timeout)
+
+    def has_data(self) -> bool:
+        return not self._queue.empty()
+
+
+class CentralTopology:
+    """A star of the server and ``worker_num`` workers."""
+
+    def __init__(self, worker_num: int) -> None:
+        self.worker_num = worker_num
+        # any worker -> server put wakes the server's event loop
+        self.server_wakeup = threading.Event()
+        self._to_server = {w: _Channel(notify=self.server_wakeup) for w in range(worker_num)}
+        self._to_worker = {w: _Channel() for w in range(worker_num)}
+
+
+class ClientEndpoint:
+    """A worker's end of its link."""
+
+    def __init__(self, topology: CentralTopology, worker_id: int) -> None:
+        self._topology = topology
+        self.worker_id = worker_id
+
+    def send(self, data: Any) -> None:
+        self._topology._to_server[self.worker_id].put(data)
+
+    def get(self, timeout: float | None = None) -> Any:
+        return self._topology._to_worker[self.worker_id].get(timeout=timeout)
+
+    def has_data(self) -> bool:
+        return self._topology._to_worker[self.worker_id].has_data()
+
+    def close(self) -> None:
+        pass
+
+
+class ServerEndpoint:
+    """The server's end of every link, with the byte counters."""
+
+    def __init__(self, topology: CentralTopology) -> None:
+        self._topology = topology
+        self.received_bytes = 0
+        self.sent_bytes = 0
+
+    @property
+    def worker_num(self) -> int:
+        return self._topology.worker_num
+
+    def has_data(self, worker_id: int) -> bool:
+        return self._topology._to_server[worker_id].has_data()
+
+    def get(self, worker_id: int, timeout: float | None = None) -> Any:
+        data = self._topology._to_server[worker_id].get(timeout=timeout)
+        if isinstance(data, Message):
+            self.received_bytes += get_message_size(data)
+        return data
+
+    def send(self, worker_id: int, data: Any) -> None:
+        if isinstance(data, Message):
+            self.sent_bytes += get_message_size(data)
+        self._topology._to_worker[worker_id].put(data)
+
+    def broadcast(self, data: Any, worker_ids: set[int] | None = None) -> None:
+        for worker_id in range(self.worker_num):
+            if worker_ids is None or worker_id in worker_ids:
+                self.send(worker_id, data)
+
+    def close(self) -> None:
+        pass

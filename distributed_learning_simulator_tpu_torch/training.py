@@ -1,44 +1,97 @@
 """Task construction and the ``train`` entry point (the port's ``training.py``).
 
 ``train(config)`` builds the data, the partitions, the model and the engine
-the way the JAX package's ``_build_task`` does, then runs the FedAvg
-session.  It runs on CUDA unless ``device="cpu"`` is passed (or set in the
-config), and raises where no GPU is visible.  Methods other than
-``fed_avg`` and executors other than the SPMD session raise
-``NotImplementedError``: they are later slices of the port (ROADMAP.md).
+the way the JAX package's ``_build_task`` does, then runs one of two
+executors:
+
+* ``executor: auto`` or ``spmd``: the single-device FedAvg session
+  (``parallel/spmd.py``);
+* ``executor: sequential``: the threaded executor, the server and every
+  worker on a thread of their own exchanging messages through in-memory
+  endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
+  sets the task's abort event, every blocking loop unwinds, and ``train``
+  re-raises the first error after joining the threads.
+
+It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
+and raises where no GPU is visible.  What the port does not run yet raises
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 import copy
+import dataclasses
 import math
+import threading
+from typing import Any
 
 import torch
 
 from .config import DistributedTrainingConfig
-from .data import create_dataset_collection
+from .data import DatasetCollection, create_dataset_collection
 from .engine.engine import ComputeEngine
 from .engine.hyper_parameter import HyperParameter
+from .method.algorithm_factory import CentralizedAlgorithmFactory
 from .ml_type import MachineLearningPhase as Phase
+from .ml_type import TaskAbortedError
 from .models import create_model_context
+from .models.registry import ModelContext
 from .parallel.spmd import SpmdFedAvgSession
 from .practitioner import create_practitioners
+from .topology.central_topology import CentralTopology
 from .utils.device import resolve_device
 from .utils.logging import add_file_handler, get_logger
 
 #: model_kwargs that select a multi-device layout in the JAX package
 _LAYOUT_KWARGS = ("sequence_parallel", "expert_parallel", "pipeline_stages")
+_EXECUTORS = ("auto", "spmd", "sequential")
+#: algorithm_kwargs the threaded executor's roles read; any other raises
+THREADED_ALGORITHM_KWARGS = frozenset(
+    {"global_model_path", "random_client_number", "early_stop", "second_phase_epoch", "dropout_rate"}
+)
+
+
+def resolve_executor(config: DistributedTrainingConfig) -> str:
+    """``auto`` is the SPMD session, as for every built-in method of the
+    JAX package; ``sequential`` the threaded executor."""
+    executor = str(config.executor or "auto")
+    if executor not in _EXECUTORS:
+        raise ValueError(f"unknown executor {executor!r}; expected one of {_EXECUTORS}")
+    return "spmd" if executor == "auto" else executor
 
 
 def _refuse_unported(config: DistributedTrainingConfig) -> None:
-    if config.distributed_algorithm != "fed_avg":
+    algorithm = config.distributed_algorithm
+    if resolve_executor(config) == "spmd":
+        if algorithm != "fed_avg":
+            raise NotImplementedError(
+                f"method {algorithm!r} under the SPMD executor is not ported yet (ROADMAP.md);"
+                " the port's SPMD session runs fed_avg (fed_obd_sq runs with executor: sequential)"
+            )
+    elif algorithm == "fed_obd":
+        raise NotImplementedError("fed_obd (NNADQ transport) is not ported yet (ROADMAP.md)")
+    elif algorithm == "fed_paq":
         raise NotImplementedError(
-            f"method {config.distributed_algorithm!r} is not ported yet (ROADMAP.md);"
-            " the port runs fed_avg"
+            "fed_paq on the threaded executor is not ported yet: its worker hands the codec"
+            " JAX threefry keys (ROADMAP.md)"
         )
-    if str(config.executor or "auto") not in ("auto", "spmd"):
+    elif algorithm not in ("fed_avg", "fed_obd_sq"):
         raise NotImplementedError(
-            f"executor {config.executor!r} is not ported yet; the port runs the"
-            " SPMD FedAvg session (executor auto or spmd)"
+            f"method {algorithm!r} is not ported yet (ROADMAP.md); the threaded executor runs"
+            " fed_avg and fed_obd_sq"
         )
+    else:
+        kwargs = config.algorithm_kwargs
+        if algorithm == "fed_obd_sq" and int(kwargs.get("second_phase_epoch", 0)) == 1:
+            raise NotImplementedError(
+                "fed_obd_sq with second_phase_epoch 1 (the aligned-stream replay of the SPMD"
+                " session's keys) is not ported yet (ROADMAP.md)"
+            )
+        unsupported = sorted(set(kwargs) - THREADED_ALGORITHM_KWARGS)
+        if unsupported:
+            raise NotImplementedError(
+                f"algorithm_kwargs {unsupported} are not ported yet on the threaded executor"
+                " (buffered aggregation, resume, the population store, float64_parity:"
+                " ROADMAP.md)"
+            )
     layouts = [k for k in _LAYOUT_KWARGS if int(config.model_kwargs.get(k, 0) or 0) > 1]
     refused = {
         "model_kwargs": layouts,
@@ -46,17 +99,25 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
         "telemetry": bool(dict(config.telemetry).get("enabled")),
         "profile": config.profile,
         "watchdog_seconds": bool(config.watchdog_seconds),
+        "parallel_number": bool(config.parallel_number),
     }
     named = [k for k, v in refused.items() if v]
     if named:
         raise NotImplementedError(f"{named} are not ported yet (ROADMAP.md)")
 
 
-def build_session(
-    config: DistributedTrainingConfig, practitioners=None, device: str | None = None
-) -> SpmdFedAvgSession:
-    """The JAX package's ``_build_task`` + ``_make_spmd_session``: data,
-    partitions, model and engine, staged on the device, ready to ``run``."""
+@dataclasses.dataclass
+class _Prepared:
+    config: DistributedTrainingConfig
+    dataset_collection: DatasetCollection
+    practitioners: list
+    model_ctx: ModelContext
+    engine: ComputeEngine
+
+
+def _prepare(config: DistributedTrainingConfig, practitioners, device) -> _Prepared:
+    """The JAX package's ``_build_task`` up to the engine: data,
+    partitions, model and engine, on the device."""
     config = copy.deepcopy(config)
     if device is not None:
         config.device = device
@@ -66,36 +127,137 @@ def build_session(
         config.load_config_and_process()
     if config.log_file:
         add_file_handler(config.log_file)
-
     dataset_collection = create_dataset_collection(config)
     if practitioners is None:
         practitioners = create_practitioners(config, dataset_collection)
     if len(practitioners) != config.worker_number:
         raise ValueError(f"{len(practitioners)} practitioners for {config.worker_number} workers")
     model_kwargs = {k: v for k, v in config.model_kwargs.items() if k not in _LAYOUT_KWARGS}
-    model_ctx = create_model_context(
-        config.model_name, dataset_collection, device=target, **model_kwargs
-    )
+    model_ctx = create_model_context(config.model_name, dataset_collection, device=target, **model_kwargs)
     if config.use_amp:
-        # bf16 compute; the master stays f32 and is cast once per round
+        # bf16 compute; the f32 master is cast per step (threaded) or once
+        # per round (SPMD)
         model_ctx.compute_dtype = torch.bfloat16
     train_size = dataset_collection.dataset_size(Phase.Training)
     steps_per_epoch = max(1, math.ceil(train_size / config.worker_number / config.batch_size))
     engine = ComputeEngine(
-        model_ctx,
-        HyperParameter.from_config(config),
-        total_steps=steps_per_epoch * config.epoch,
+        model_ctx, HyperParameter.from_config(config), total_steps=steps_per_epoch * config.epoch
     )
-    return SpmdFedAvgSession(config, dataset_collection, model_ctx, engine, practitioners)
+    return _Prepared(config, dataset_collection, practitioners, model_ctx, engine)
+
+
+def build_session(
+    config: DistributedTrainingConfig, practitioners=None, device: str | None = None
+) -> SpmdFedAvgSession:
+    """The JAX package's ``_build_task`` + ``_make_spmd_session``: the
+    FedAvg session, staged on the device, ready to ``run``."""
+    p = _prepare(config, practitioners, device)
+    return SpmdFedAvgSession(p.config, p.dataset_collection, p.model_ctx, p.engine, p.practitioners)
+
+
+@dataclasses.dataclass
+class TaskContext:
+    """What the threaded executor's roles share: one engine, model and
+    dataset for all of them, the topology, and the abort machinery."""
+
+    config: DistributedTrainingConfig
+    dataset_collection: DatasetCollection
+    model_ctx: ModelContext
+    engine: ComputeEngine
+    topology: CentralTopology
+    practitioners: list
+    task_id: Any = None
+    abort_event: threading.Event = dataclasses.field(default_factory=threading.Event)
+    threads: list = dataclasses.field(default_factory=list)
+    errors: list = dataclasses.field(default_factory=list)
+    server: Any = None
+    workers: list = dataclasses.field(default_factory=list)
+
+    def aborted(self) -> bool:
+        return self.abort_event.is_set()
+
+    def worker_dataset_collection(self, practitioner) -> DatasetCollection:
+        """One worker's view of the data: its partition of every split."""
+        sampler = practitioner.get_sampler(self.config.dataset_name)
+        return self.dataset_collection.subset(sampler.sample(practitioner.practitioner_id))
+
+
+def build_task(
+    config: DistributedTrainingConfig, practitioners=None, device: str | None = None
+) -> TaskContext:
+    """The JAX package's ``_build_task`` for the threaded executor."""
+    p = _prepare(config, practitioners, device)
+    if not CentralizedAlgorithmFactory.has_algorithm(p.config.distributed_algorithm):
+        raise NotImplementedError(f"no threaded roles for {p.config.distributed_algorithm!r}")
+    return TaskContext(
+        config=p.config,
+        dataset_collection=p.dataset_collection,
+        model_ctx=p.model_ctx,
+        engine=p.engine,
+        topology=CentralTopology(p.config.worker_number),
+        practitioners=sorted(p.practitioners, key=lambda q: q.worker_id),
+    )
+
+
+def _spawn(ctx: TaskContext) -> None:
+    """Build the server and the workers and start each on its own thread."""
+    config = ctx.config
+    algorithm = config.distributed_algorithm
+    common = {"config": config, "task_context": ctx, "task_id": ctx.task_id}
+    ctx.server = CentralizedAlgorithmFactory.create_server(
+        algorithm, ctx.topology, endpoint_kwargs=config.endpoint_kwargs.get("server", {}), kwargs=dict(common)
+    )
+    for practitioner in ctx.practitioners:
+        ctx.workers.append(
+            CentralizedAlgorithmFactory.create_client(
+                algorithm,
+                ctx.topology,
+                worker_id=practitioner.worker_id,
+                endpoint_kwargs=config.endpoint_kwargs.get("worker", {}),
+                kwargs={**common, "practitioner": practitioner},
+            )
+        )
+
+    def run(executor) -> None:
+        try:
+            executor.start()
+        except TaskAbortedError:
+            get_logger().debug("%s aborted", executor.name)
+        except BaseException as exc:  # noqa: BLE001 -- re-raised by _harvest
+            get_logger().exception("%s failed", executor.name)
+            ctx.errors.append(exc)
+            ctx.abort_event.set()
+            ctx.topology.server_wakeup.set()
+
+    for executor in [ctx.server, *ctx.workers]:
+        ctx.threads.append(threading.Thread(target=run, args=(executor,), name=executor.name, daemon=True))
+    for thread in ctx.threads:
+        thread.start()
+
+
+def run_task(ctx: TaskContext) -> dict:
+    """Run a task built by :func:`build_task` on its threads: start the
+    server and the workers, join them all, and re-raise the first error
+    any of them hit."""
+    _spawn(ctx)
+    for thread in ctx.threads:
+        thread.join()
+    if ctx.errors:
+        raise ctx.errors[0]
+    result = {"performance": ctx.server.performance_stat}
+    get_logger().info(
+        "threaded training done on %s (%d records)", ctx.model_ctx.device, len(result["performance"])
+    )
+    return result
 
 
 def train(
     config: DistributedTrainingConfig, practitioners=None, device: str | None = None
 ) -> dict:
-    """Run one FedAvg task; returns ``{"performance": {round: row}}``."""
+    """Run one task; returns ``{"performance": {round: row}}``."""
+    if resolve_executor(config) == "sequential":
+        return run_task(build_task(config, practitioners, device))
     session = build_session(config, practitioners, device)
     result = session.run()
-    get_logger().info(
-        "training done on %s (%d rounds)", session.device, len(result["performance"])
-    )
+    get_logger().info("training done on %s (%d rounds)", session.device, len(result["performance"]))
     return result

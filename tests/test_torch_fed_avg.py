@@ -123,9 +123,14 @@ def test_client_chunking_does_not_change_the_round(tmp_path, init_npz):
 
 def test_unported_paths_raise(tmp_path):
     base = _fields(tmp_path, "refused")
+    obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
     for change in (
         {"distributed_algorithm": "fed_paq"},
-        {"executor": "sequential"},
+        {"distributed_algorithm": "fed_paq", "executor": "sequential"},
+        {"distributed_algorithm": "fed_obd", "executor": "sequential", "algorithm_kwargs": obd},
+        {"distributed_algorithm": "fed_obd_sq", "executor": "sequential", "algorithm_kwargs": obd},
+        {"executor": "sequential", "algorithm_kwargs": {"aggregation_mode": "buffered"}},
+        {"executor": "sequential", "algorithm_kwargs": {"float64_parity": True}},
         {"algorithm_kwargs": {"round_horizon": 2}},
         {"algorithm_kwargs": {"population_store": "streamed"}},
         {"model_name": "densenet40"},
