@@ -7,14 +7,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   FedAvg ViT-small round's shapes (K1, K4, K5), at the long-context
+   FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
+   ``vit_base`` attention shape (K4, K5), at the long-context
    round's attention shape (K6-K8) and the f32 task's (K9-K11), at the
    ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
    K2's in-kernel Philox against its own stream), and at the edge shapes
-   the kernels must cover, and time kernel, plain version, bound and one
-   library call where one exists (a yardstick only: the port never calls
-   it); two faults planted at the main attention shape, and two at the
-   largest codec leaf, must fail the same comparisons;
+   the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
+   kernel (K2/K3: their device time from the profiler, since a wrapper
+   call's host cost exceeds it), plain version, bound and one library call
+   where one exists (a yardstick only: the port never calls it); two
+   faults planted at the main attention shape, and two at the largest
+   codec leaf, must fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -91,6 +94,33 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn`` spent in the kernels whose names hold
+    one of ``names``, from ``torch.profiler`` over ``iters`` back-to-back
+    calls (warm L2): the kernels' own time, without the host's cost of
+    each call.  Fails unless each named kernel ran once a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, counts = 0.0, dict.fromkeys(names, 0)
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in e.key:
+                total += e.self_device_time_total
+                counts[name] += e.count
+    check(all(c == iters for c in counts.values()) and total > 0, f"profiled kernels {counts}, {total} us")
+    return total / 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -180,8 +210,10 @@ def check_weighted_accum(d: int, gen) -> dict:
 
 
 def check_short_attention(gen) -> tuple[dict, dict]:
-    """K4 and K5 against their plain versions at the round's shape (both
-    dtypes) and the edge shapes: S = 50 with a kv_mask, Dh = 128, S = 1024."""
+    """K4 and K5 against their plain versions at the ViT-small round's shape
+    and the fed_obd_sq path's ``vit_base`` shape (batch 64, 12 heads, a
+    2304-wide packed row), both dtypes, and the edge shapes: S = 50 with a
+    kv_mask, Dh = 128, S = 1024."""
     import torch
     import torch.nn.functional as F
 
@@ -190,6 +222,8 @@ def check_short_attention(gen) -> tuple[dict, dict]:
     cases = [
         (BATCH, 64, 6, 64, False, torch.bfloat16),
         (BATCH, 64, 6, 64, False, torch.float32),
+        (64, 64, 12, 64, False, torch.bfloat16),
+        (64, 64, 12, 64, False, torch.float32),
         (8, 50, 6, 64, True, torch.bfloat16),
         (8, 50, 6, 64, True, torch.float32),
         (8, 128, 4, 128, False, torch.bfloat16),
@@ -775,6 +809,11 @@ QSGD_CASES = [
     (65536, 8, 255, "zeros"),  # an all-zero leaf: scale 1e-12
     (70001, 4, 15, "randn"),
     (589824, 2, 3, "randn"),
+    # level words that do not fill 32 bits: 10 lanes of 3 bits in 160-row
+    # groups, 6 lanes of 5 bits in 96-row groups, 4 lanes of 7 bits
+    (70001, 3, 7, "randn"),
+    (589824, 5, 31, "randn"),
+    (65536, 7, 127, "randn"),
 ]
 QSGD_SEEDS = 64
 
@@ -807,7 +846,9 @@ def check_qsgd(gen) -> tuple[dict, dict]:
     the mean over 64 seeds unbiased, and two planted faults (a decode that
     drops the sign, an encode whose bits are shifted by one row) rejected by
     the same comparison.  Times K2 (Philox), K3 and their plain versions at
-    the largest leaf; no single PyTorch call computes either function."""
+    the largest leaf (``ms`` the kernels' device time, ``call_ms`` the
+    wrapper's calls back to back); no single PyTorch call computes either
+    function."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import qsgd
@@ -858,9 +899,17 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         # floor, subtract, compare; decode: 3 products)
         enc_bound = bound_ms(4 * n + words + 4, 6 * n, "float32")
         dec_bound = bound_ms(words + 4 + 4 * n, 3 * n, "float32")
+
+        def encode():
+            return qsgd.qsgd_encode(x, seed, level, bits)
+
+        def decode():
+            return qsgd.qsgd_decode(packed, signs, scale, level, bits, n)
+
         k2 = {
             "max_abs_err": 0.0,  # bit-equal to the plain version
-            "ms": cuda_ms(lambda: qsgd.qsgd_encode(x, seed, level, bits)),
+            "ms": kernel_device_ms(encode, ("absmax_kernel", "encode_kernel")),
+            "call_ms": cuda_ms(encode),  # the wrapper's calls back to back, host cost included
             "plain_ms": cuda_ms(lambda: qsgd.qsgd_encode_plain(x, level, bits, stream)),
             "bound_ms": enc_bound[0],
             "bound_by": enc_bound[1],
@@ -869,7 +918,8 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         }
         k3 = {
             "max_abs_err": 0.0,
-            "ms": cuda_ms(lambda: qsgd.qsgd_decode(packed, signs, scale, level, bits, n)),
+            "ms": kernel_device_ms(decode, ("decode_kernel",)),
+            "call_ms": cuda_ms(decode),
             "plain_ms": cuda_ms(lambda: qsgd.qsgd_decode_plain(packed, signs, scale, level, bits, n)),
             "bound_ms": dec_bound[0],
             "bound_by": dec_bound[1],

@@ -5,8 +5,8 @@
 //   (:53), and qsgd_decode (:166-181) with _qsgd_decode_kernel (:147).
 //
 // Layout (the TPU kernels'): a flat f32 leaf of n values is read as a
-// zero-padded [rows, 128] matrix, rows a multiple of 32.  With `bits` bits
-// per level, lanes = 32 / bits consecutive ROWS of one 128-lane column
+// zero-padded [rows, 128] matrix, rows a multiple of lcm(32 / bits, 32).
+// With `bits` bits (1 to 24) per level, lanes = 32 / bits consecutive ROWS of one 128-lane column
 // share a u32 word (value of row g*lanes + j at shift j*bits), so the
 // levels are [rows / lanes, 128] words; signs pack 32 rows a word,
 // [rows / 32, 128].  The scale is max(max|x|, 1e-12), one f32.
@@ -30,12 +30,13 @@
 //     is its own kernel: a grid-stride max per thread, a warp and block
 //     max, then one atomicMax on the float's bits per block (the values
 //     are non-negative, so their bit patterns order as unsigned ints);
-//   * the quantize kernel runs one block per 32-row group, blockDim
-//     (128, bits): thread (l, s) builds the level word of rows
-//     g*lanes .. g*lanes + lanes - 1 in column l (g = 32-row group *
-//     bits + s), so a warp reads 32 neighbouring floats of one row per
-//     step (coalesced 128-byte loads); the bits of the 32 signs of the
-//     group meet in shared memory and one thread writes the sign word;
+//   * the quantize kernel runs one block per group of lcm(lanes, 32) rows
+//     (32 rows where lanes divides 32; 96 or 160 for 3, 5, 6, 9 and 10 bits):
+//     thread (l, s) builds the level words of its word rows in column l,
+//     reading rows g*lanes .. g*lanes + lanes - 1, so a warp reads 32
+//     neighbouring floats of one row per step (coalesced 128-byte loads);
+//     the sign bits of the group meet in shared memory (atomicOr) and one
+//     thread a column writes each sign word;
 //   * random bits come from a `rand_bits` input ([rows, 128] u32, the
 //     TPU interpreter's contract) or from Philox4x32-10 drawn in the
 //     kernel with counter = element index and key = seed; qsgd_philox_fill
@@ -52,6 +53,8 @@
 namespace {
 
 constexpr int kLane = 128;
+constexpr int kMaxBits = 24;
+constexpr int kMaxSignRows = 5;  // lcm(32 / bits, 32) / 32 is at most 5 (3 or 6 bits)
 
 // Philox4x32-10 (Salmon et al., SC'11), counter (lo, hi, 0, 0) of the
 // element index, key (seed, 0); returns the first output word.
@@ -90,42 +93,48 @@ __global__ void absmax_kernel(const float* __restrict__ x, int64_t n, uint32_t* 
   }
 }
 
-// blockDim (128, bits); grid rows / 32.  kHostBits: read rand_bits, else
+// One block per group of `group_rows` = lcm(lanes, 32) rows: `word_rows`
+// = group_rows / lanes level-word rows and `sign_rows` = group_rows / 32
+// sign-word rows (at most 5, for 3 or 6 bits).  blockDim (128, y),
+// y = min(word_rows, 8); thread (l, s) builds the level words of rows
+// s, s + y, ... of the group in column l.  kHostBits: read rand_bits, else
 // draw Philox bits in the kernel.
 template <bool kHostBits>
 __global__ void encode_kernel(const float* __restrict__ x, int64_t n,
                               const uint32_t* __restrict__ amax_bits,
                               const uint32_t* __restrict__ rand_bits, uint32_t seed, int level,
-                              int bits, uint32_t* __restrict__ packed,
-                              uint32_t* __restrict__ signs) {
-  __shared__ uint32_t sign_part[8][kLane];
+                              int bits, int word_rows, int sign_rows,
+                              uint32_t* __restrict__ packed, uint32_t* __restrict__ signs) {
+  __shared__ uint32_t sign_part[kMaxSignRows][kLane];
   const int l = threadIdx.x, s = threadIdx.y;
   const int lanes = 32 / bits;
-  const int64_t group = blockIdx.x;               // 32-row group
-  const int64_t word_row = group * bits + s;      // level-word row
+  const int64_t group = blockIdx.x;
+  for (int t = s; t < sign_rows; t += blockDim.y) sign_part[t][l] = 0u;
+  __syncthreads();
   const float scale = fmaxf(__uint_as_float(__ldg(amax_bits)), 1e-12f);
   const float flevel = static_cast<float>(level);
-  uint32_t word = 0u, sign_word = 0u;
-  for (int j = 0; j < lanes; ++j) {
-    const int64_t row = word_row * lanes + j;
-    const int64_t idx = row * kLane + l;
-    const float v = idx < n ? __ldg(x + idx) : 0.f;
-    const float normalized = __fmul_rn(__fdiv_rn(fabsf(v), scale), flevel);
-    const float f = floorf(normalized);
-    const uint32_t r = kHostBits ? __ldg(rand_bits + idx) : philox_bits(static_cast<uint64_t>(idx), seed);
-    const float u = __fmul_rn(static_cast<float>(static_cast<int32_t>(r >> 8)), 1.0f / 16777216.0f);
-    const float q = f + (u < __fsub_rn(normalized, f) ? 1.0f : 0.0f);
-    word |= static_cast<uint32_t>(static_cast<int32_t>(q)) << (j * bits);
-    sign_word |= (v < 0.f ? 1u : 0u) << (s * lanes + j);
+  for (int w = s; w < word_rows; w += blockDim.y) {
+    const int64_t word_row = group * word_rows + w;
+    uint32_t word = 0u;
+    for (int j = 0; j < lanes; ++j) {
+      const int64_t idx = (word_row * lanes + j) * kLane + l;
+      const float v = idx < n ? __ldg(x + idx) : 0.f;
+      const float normalized = __fmul_rn(__fdiv_rn(fabsf(v), scale), flevel);
+      const float f = floorf(normalized);
+      const uint32_t r = kHostBits ? __ldg(rand_bits + idx) : philox_bits(static_cast<uint64_t>(idx), seed);
+      const float u = __fmul_rn(static_cast<float>(static_cast<int32_t>(r >> 8)), 1.0f / 16777216.0f);
+      const float q = f + (u < __fsub_rn(normalized, f) ? 1.0f : 0.0f);
+      word |= static_cast<uint32_t>(static_cast<int32_t>(q)) << (j * bits);
+      if (v < 0.f) {
+        const int local = w * lanes + j;  // row within the group
+        atomicOr(&sign_part[local / 32][l], 1u << (local % 32));
+      }
+    }
+    packed[word_row * kLane + l] = word;
   }
-  packed[word_row * kLane + l] = word;
-  sign_part[s][l] = sign_word;
   __syncthreads();
-  if (s == 0) {
-    uint32_t all = 0u;
-    for (int t = 0; t < bits; ++t) all |= sign_part[t][l];
-    signs[group * kLane + l] = all;
-  }
+  for (int t = s; t < sign_rows; t += blockDim.y)
+    signs[(group * sign_rows + t) * kLane + l] = sign_part[t][l];
 }
 
 __global__ void decode_kernel(const uint32_t* __restrict__ packed,
@@ -154,8 +163,10 @@ __global__ void philox_fill_kernel(int64_t count, uint32_t seed, uint32_t* __res
     out[i] = philox_bits(static_cast<uint64_t>(i), seed);
 }
 
-// blockDim.y of the encode kernel is `bits`: 1, 2, 4 or 8 (levels up to 255)
-bool bits_supported(int bits) { return bits == 1 || bits == 2 || bits == 4 || bits == 8; }
+// 1 to 24 bits: levels up to 2^24 - 1, the integers f32 holds exactly
+bool bits_supported(int bits) { return bits >= 1 && bits <= kMaxBits; }
+
+int gcd(int a, int b) { return b == 0 ? a : gcd(b, a % b); }
 
 int grid_for(int64_t items, int threads) {
   int64_t blocks = (items + threads - 1) / threads;
@@ -167,20 +178,23 @@ int grid_for(int64_t items, int threads) {
 int encode(const float* x, int64_t n, int64_t rows, const uint32_t* rand_bits, uint32_t seed,
            int level, int bits, uint32_t* amax_bits, uint32_t* packed, uint32_t* signs,
            cudaStream_t stream) {
-  if (!bits_supported(bits) || rows % 32 != 0 || rows * kLane < n)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!bits_supported(bits)) return static_cast<int>(cudaErrorInvalidValue);
+  const int lanes = 32 / bits;
+  const int group_rows = lanes / gcd(lanes, 32) * 32;  // lcm(lanes, 32)
+  if (rows % group_rows != 0 || rows * kLane < n) return static_cast<int>(cudaErrorInvalidValue);
   // amax_bits must hold 0 (the wrapper passes a zeroed word)
   absmax_kernel<<<grid_for(n, 256), 256, 0, stream>>>(x, n, amax_bits);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const dim3 block(kLane, bits);
-  const unsigned grid = static_cast<unsigned>(rows / 32);
+  const int word_rows = group_rows / lanes, sign_rows = group_rows / 32;
+  const dim3 block(kLane, word_rows < 8 ? word_rows : 8);
+  const unsigned grid = static_cast<unsigned>(rows / group_rows);
   if (rand_bits != nullptr)
     encode_kernel<true><<<grid, block, 0, stream>>>(x, n, amax_bits, rand_bits, seed, level, bits,
-                                                    packed, signs);
+                                                    word_rows, sign_rows, packed, signs);
   else
     encode_kernel<false><<<grid, block, 0, stream>>>(x, n, amax_bits, nullptr, seed, level, bits,
-                                                     packed, signs);
+                                                     word_rows, sign_rows, packed, signs);
   return static_cast<int>(cudaGetLastError());
 }
 

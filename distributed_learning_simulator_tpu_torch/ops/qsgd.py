@@ -3,7 +3,8 @@
 The port of ``ops/pallas_kernels.py::qsgd_encode`` and ``::qsgd_decode``
 (kernels K2 and K3): the CUDA kernels are ``csrc/qsgd.cu``.  A flat f32
 leaf of ``n`` values is read as a zero-padded ``[rows, 128]`` matrix (rows
-a multiple of 32, :func:`rows_for`); ``32 // bits`` consecutive rows of a
+a multiple of ``lcm(32 // bits, 32)``, :func:`rows_for`; the kernels take 1
+to 24 bits); ``32 // bits`` consecutive rows of a
 column share a u32 word of levels, 32 rows a word of signs; the scale is
 ``max(max|x|, 1e-12)``.  Encode rounds ``|x| / scale * level``
 stochastically with ``u = (bits >> 8) * 2^-24`` drawn from 32 random bits
@@ -30,8 +31,9 @@ import torch
 from . import build
 
 LANE = 128
-#: bit widths the CUDA kernels take (levels up to 255)
-KERNEL_BITS = (1, 2, 4, 8)
+#: the widest level the CUDA kernels take: levels up to 2^24 - 1, the
+#: integers f32 holds exactly
+KERNEL_MAX_BITS = 24
 
 #: launches of the encode (K2) and decode (K3) kernels since last set to 0
 encode_launches = 0
@@ -140,8 +142,8 @@ def _check_x(x: torch.Tensor, bits: int) -> None:
         raise TypeError(f"qsgd_encode takes a flat f32 leaf, got {x.dtype} {tuple(x.shape)}")
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"qsgd runs on cuda or cpu, not {x.device}")
-    if x.device.type == "cuda" and (bits not in KERNEL_BITS or not x.is_contiguous()):
-        raise ValueError(f"the qsgd kernels take a contiguous leaf and bits in {KERNEL_BITS}, got {bits}")
+    if x.device.type == "cuda" and (not 1 <= bits <= KERNEL_MAX_BITS or not x.is_contiguous()):
+        raise ValueError(f"the qsgd kernels take a contiguous leaf and 1 to {KERNEL_MAX_BITS} bits, got {bits}")
 
 
 def _u32_view(t: torch.Tensor) -> torch.Tensor:
@@ -194,8 +196,8 @@ def qsgd_decode(packed, signs, scale, level: int, bits: int, n: int) -> torch.Te
         return qsgd_decode_plain(packed, signs, scale, level, bits, n)
     if packed.device.type != "cuda":
         raise ValueError(f"qsgd runs on cuda or cpu, not {packed.device}")
-    if bits not in KERNEL_BITS:
-        raise ValueError(f"the qsgd kernels take bits in {KERNEL_BITS}, got {bits}")
+    if not 1 <= bits <= KERNEL_MAX_BITS:
+        raise ValueError(f"the qsgd kernels take 1 to {KERNEL_MAX_BITS} bits, got {bits}")
     rows = packed.shape[0] * (32 // bits)
     if packed.shape[1] != LANE or tuple(signs.shape) != (rows // 32, LANE) or rows * LANE < n:
         raise ValueError(f"packed {tuple(packed.shape)} / signs {tuple(signs.shape)} do not hold {n} values")

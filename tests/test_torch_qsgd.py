@@ -68,8 +68,13 @@ def _leaf(n: int, seed: int = 0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- K2 / K3
+#: the widths of the task (8, 4 and 2 bits) and two whose level words do not
+#: fill 32 bits (3 bits: 10 lanes, 160-row groups; 5 bits: 6 lanes, 96 rows)
+BITS_LEVELS = [(8, 255), (4, 15), (2, 3), (3, 7), (5, 31)]
+
+
 @pytest.mark.parametrize("n", [100, 1024, 5000, 65536, 70001, "zeros"])
-@pytest.mark.parametrize("bits,level", [(8, 255), (4, 15), (2, 3)])
+@pytest.mark.parametrize("bits,level", BITS_LEVELS)
 def test_plain_kernels_are_bit_equal_to_jax(n, bits, level):
     x = np.zeros(4096, np.float32) if n == "zeros" else _leaf(n, seed=bits)
     seed = 11
@@ -89,7 +94,7 @@ def test_plain_kernels_are_bit_equal_to_jax(n, bits, level):
 
 
 @pytest.mark.parametrize("n", [100, 1024, 5000])
-@pytest.mark.parametrize("bits,level", [(8, 255), (4, 15), (2, 3)])
+@pytest.mark.parametrize("bits,level", BITS_LEVELS)
 def test_roundtrip_error_below_one_step(n, bits, level):
     """The JAX package's kernel properties on the port's CPU route (bits
     from a seeded torch.Generator): error under one step, signs kept above

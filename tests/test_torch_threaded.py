@@ -239,16 +239,20 @@ def _obd_task(tmp_path, name, init, workers=2, random=None, **algorithm_kwargs):
     return training.build_task(tconfig.DistributedTrainingConfig(**fields), device="cpu")
 
 
-def test_fed_obd_sq_matches_jax_with_the_jax_bits(tmp_path, monkeypatch):
+def _obd_against_jax(tmp_path, monkeypatch, workers=2, **algorithm_kwargs):
+    """The JAX package's run (``use_pallas=True``, its K2/K3 under the
+    generic interpreter) and the port's fed the JAX draws, from one init:
+    the same phases, round 1 within atol 1e-5 and every record within 5e-3;
+    returns the port's task and the K2/K3 calls it made."""
     init = _init_npz(tmp_path / "init.npz", "LongContextTransformer", _obd_fields(tmp_path, "init"), OBD_WIDTH)
-    fields = _obd_fields(tmp_path, "jax")
-    fields["algorithm_kwargs"]["global_model_path"] = init
+    fields = _obd_fields(tmp_path, "jax", workers=workers)
+    fields["algorithm_kwargs"].update(global_model_path=init, **algorithm_kwargs)
     monkeypatch.setattr(jqe, "stochastic_quantization", functools.partial(jq.stochastic_quantization, use_pallas=True))
     _generic_interpreter(monkeypatch)
     jres = jax_train(jconfig.DistributedTrainingConfig(**fields))["performance"]
 
     counted = _Counted(monkeypatch)
-    ctx = _obd_task(tmp_path, "torch", init, random=JaxCodecRandom())
+    ctx = _obd_task(tmp_path, "torch", init, workers=workers, random=JaxCodecRandom(), **algorithm_kwargs)
     tres = training.run_task(ctx)["performance"]
 
     phases = [row["phase"] for _, row in sorted(tres.items())]
@@ -257,7 +261,33 @@ def test_fed_obd_sq_matches_jax_with_the_jax_bits(tmp_path, monkeypatch):
     np.testing.assert_allclose(tres[1]["test_loss"], jres[1]["test_loss"], rtol=0, atol=1e-5)
     for key in jres:
         np.testing.assert_allclose(tres[key]["test_loss"], jres[key]["test_loss"], rtol=0, atol=5e-3)
+    return ctx, counted
+
+
+def test_fed_obd_sq_matches_jax_with_the_jax_bits(tmp_path, monkeypatch):
+    ctx, counted = _obd_against_jax(tmp_path, monkeypatch)
     # the K2 route: every encode of the embedding, on both wire directions
+    assert counted.encode > 0
+    assert (counted.encode, counted.decode) == chip_smoke.expected_qsgd_launches(ctx)
+
+
+def test_fed_obd_sq_with_unselected_workers_matches_jax_under_the_port_stop_rule(tmp_path, monkeypatch):
+    """4 workers, 2 selected a round.  The JAX worker stops once its round
+    counter passes ``config.round``, so a worker left out of the last
+    phase-1 round never takes the switch into phase 2 and the JAX server
+    waits for it.  With the port's rule patched into the JAX worker inside
+    the test (stop on the counter only in phase 2), the two packages run
+    the same protocol and agree within the same bounds."""
+    from distributed_learning_simulator_tpu.method.fed_obd import worker as jworker
+
+    def port_stop_rule(self) -> bool:
+        if self._last_epoch_announced or self._force_stop:
+            return True
+        return self._spec.epoch_cadence and super(jworker.FedOBDWorker, self)._stopped()
+
+    monkeypatch.setattr(jworker.FedOBDWorker, "_stopped", port_stop_rule)
+    ctx, counted = _obd_against_jax(tmp_path, monkeypatch, workers=4, random_client_number=2)
+    assert sum(len(w.block_selector.kept_history) for w in ctx.workers) == ROUNDS * 2
     assert counted.encode > 0
     assert (counted.encode, counted.decode) == chip_smoke.expected_qsgd_launches(ctx)
 
