@@ -1,11 +1,15 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # everything below
+    python3 chip_smoke.py --kernels    # phase 1, and phase 2 of K1 and K4-K11 only
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
-   source, all at once) and print the build time and register use;
+   source, all at once) and print the build time and register use; the
+   wgmma kernels of K6/K8 (``fwd_wgmma_kernel``, ``dkv_wgmma_kernel``)
+   must build without spills, and their SASS (``cuobjdump -sass``) must
+   hold ``HGMMA`` and ``UTMALDG``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
    ``vit_base`` attention shape (K4, K5), at the long-context
@@ -15,7 +19,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
    kernel (K2/K3: their device time from the profiler, since a wrapper
    call's host cost exceeds it), plain version, bound and one library call
-   where one exists (a yardstick only: the port never calls it); two
+   where one exists (a yardstick only: the port never calls it); K6-K11
+   also check which kernel family (``kernel_route``: wgmma, mma.sync,
+   FMA) each case ran, time the mma.sync K6/K8 beside the wgmma ones, and
+   show the C entries refusing the wgmma route off its layouts; two
    faults planted at the main attention shape, and two at the largest
    codec leaf, must fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
@@ -31,7 +38,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    configuration (``lc_config``: imdb at max_len 8192, d_model 512, 8
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
-   exactly, then one long-context training round under the profiler;
+   exactly (and K6/K8 all on the wgmma kernels, K7 on mma.sync), then one
+   long-context training round under the profiler;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
    for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
@@ -293,6 +301,9 @@ def check_short_attention(gen) -> tuple[dict, dict]:
 #: (B, H, T, Dh, dtype name, causal, mask kind) of the K6-K11 checks: the
 #: main path's shape first, then the edges the kernels must cover
 LC_MAIN = (8, 8, 8192, 64, "bfloat16", False, "pad")
+#: the main path's batch at ``LongContextTransformer``'s default width
+#: (d_model 256, 8 heads: Dh 32)
+LC_DH32 = (8, 8, 8192, 32, "bfloat16", False, "pad")
 FUSED_CASES = [
     LC_MAIN,
     (2, 8, 8192, 64, "bfloat16", True, "pad"),  # causal LM
@@ -302,12 +313,76 @@ FUSED_CASES = [
     (2, 4, 1000, 20, "float32", False, "pad"),  # ragged Dh (FMA path)
     (2, 4, 1000, 20, "bfloat16", True, "pad"),  # ragged Dh (tensor cores, scalar loads)
     (2, 4, 2048, 32, "bfloat16", False, "pad"),  # Dh 32 (the model's default)
+    LC_DH32,
     (2, 4, 2048, 128, "float32", True, "pad"),  # Dh 128
     (2, 4, 2048, 128, "bfloat16", False, "pad"),  # Dh 128 in bf16 (FMA path)
     (2, 4, 1024, 64, "float32", True, "empty"),  # fully masked rows
 ]
 #: the f32 task's attention shape (K9-K11's path): batch 2, 2 heads of 64
 LC_F32 = (2, 2, 8192, 64, "float32", False, "pad")
+#: the (fwd, dq, dkv) kernel families some cases must run: the packed bf16
+#: layouts at Dh 64 and 32 take the wgmma forward and dk/dv, the ragged Dh
+#: 20 the mma.sync kernels, f32 the FMA kernels
+ROUTE_OF = {
+    LC_MAIN: ("wgmma", "mma", "wgmma"),
+    FUSED_CASES[1]: ("wgmma", "mma", "wgmma"),
+    FUSED_CASES[6]: ("mma", "mma", "mma"),
+    FUSED_CASES[7]: ("wgmma", "mma", "wgmma"),
+    LC_DH32: ("wgmma", "mma", "wgmma"),
+    LC_F32: ("fma", "fma", "fma"),
+}
+
+
+#: the Hopper kernels of the wgmma route (csrc/fused_attention.cu)
+WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+
+
+def _wgmma_name(mangled: str) -> str | None:
+    """``fwd_wgmma_kernel<64>`` for a mangled instantiation, else None."""
+    import re
+
+    found = re.search(r"(%s)ILi(\d+)E" % "|".join(WGMMA_KERNELS), mangled)
+    return f"{found.group(1)}<{found.group(2)}>" if found else None
+
+
+def check_wgmma_build(report: str) -> None:
+    """The wgmma kernels as built: ``ptxas``' register, shared-memory and
+    spill report (no spills allowed), and the SASS of the built library
+    (``cuobjdump -sass``), which must hold ``HGMMA`` (wgmma) and
+    ``UTMALDG`` (TMA loads) in each of them."""
+    from distributed_learning_simulator_tpu_torch.ops import build
+
+    ptxas, current = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = _wgmma_name(line)
+            if current:
+                ptxas[current] = []
+        elif current and ("registers" in line or "spill" in line):
+            ptxas[current].append(line.replace("ptxas info    :", "").strip())
+    check(len(ptxas) == 2 * len(WGMMA_KERNELS), f"ptxas entries of the wgmma kernels: {sorted(ptxas)}")
+    for line in sorted({x.strip() for x in report.splitlines() if "warning" in x.lower()}):
+        print(f"  {line}")
+    for name, lines in sorted(ptxas.items()):
+        print(f"  ptxas {name}: {'; '.join(lines)}")
+        check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines), f"{name} spills: {lines}")
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", build.library_path("fused_attention")], capture_output=True, text=True, check=True
+    ).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = _wgmma_name(line)
+            if current:
+                counts[current] = dict.fromkeys(("HGMMA", "UTMALDG", "SYNCS", "HMMA"), 0)
+        elif current:
+            for op in counts[current]:
+                counts[current][op] += f" {op}." in line or f" {op} " in line
+    check(len(counts) == 2 * len(WGMMA_KERNELS), f"SASS functions of the wgmma kernels: {sorted(counts)}")
+    for name, ops in sorted(counts.items()):
+        print(f"  SASS {name}: " + ", ".join(f"{op} x{n}" for op, n in ops.items()))
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{name} has no wgmma or TMA load in its SASS: {ops}")
 
 
 def _fused_inputs(case, gen):
@@ -354,22 +429,30 @@ def attention_mismatch(got, want, dtype: str) -> tuple[float, float, bool]:
     return rel_max, rel_rms, rel_max <= tol_max and rel_rms <= tol_rms
 
 
-def _fused_work(case) -> tuple[dict, dict]:
-    """Operations (flop, this run's causal skip counted) and bytes of the
-    three kernels on one case: forward 2 products of ``2·T·T·Dh`` per
-    (batch, head), dq 3, dkv 4; each input read once, each output written
-    once."""
+def _fused_work(case, mask) -> tuple[dict, dict]:
+    """Operations (flop) and bytes of the three kernels on one case, as this
+    run's data needs them: a masked key, or one after the query under
+    ``causal``, gives p = 0 exactly, so only the valid (query, key) pairs
+    count (forward 2 products of ``2·Dh`` flop a pair, dq 3, dkv 4), and a
+    masked key's k and v rows need not be read.  Each other input is read
+    once and each output written once."""
+    import torch
+
     b, h, t, dh, dtype, causal, _ = case
     item = 4 if dtype == "float32" else 2
-    pairs = t * (t + 1) / 2 if causal else t * t
-    product = 2 * pairs * dh * b * h
+    valid = mask != 0
+    # queries that see key j: all T, or T - j under causal
+    seen = t - torch.arange(t, device=mask.device) if causal else t
+    pairs = float((valid * seen).sum()) * h
+    product = 2 * pairs * dh
     act = b * t * h * dh * item
+    kv = float(valid.sum()) * h * dh * item
     row = b * h * t * 4
     flops = {"fwd": 2 * product, "dq": 3 * product, "dkv": 4 * product}
     nbytes = {
-        "fwd": 3 * act + b * t * 4 + act + row,
-        "dq": 4 * act + b * t * 4 + 2 * row + act,
-        "dkv": 4 * act + b * t * 4 + 2 * row + 2 * act,
+        "fwd": act + 2 * kv + b * t * 4 + act + row,
+        "dq": 2 * act + 2 * kv + b * t * 4 + 2 * row + act,
+        "dkv": 2 * act + 2 * kv + b * t * 4 + 2 * row + 2 * act,
     }
     return flops, nbytes
 
@@ -390,10 +473,26 @@ def check_fused_attention(gen) -> dict[str, dict]:
         b, h, t, dh, dtype, causal, kind = case
         q, k, v, mask, dout = _fused_inputs(case, gen)
         tier = fa.kernel_tier(t, dh, q.element_size(), _perf_gate=False)
+        before = dict(fa.route_launches)
         out, lse = fa.attention_fwd(q, k, v, mask, causal, tier)
         delta = fa.attention_delta(dout, out)
         dq = fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier)
         dk, dv = fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier)
+        routes = sorted(key for key, n in fa.route_launches.items() if n != before[key])
+        want = ROUTE_OF.get(case)
+        if want is not None:
+            check(routes == sorted(f"{kind_}/{r}" for kind_, r in zip(("fwd", "dq", "dkv"), want)),
+                  f"fused attention {case} ran {routes}, want {want}")
+        if want == ("mma", "mma", "mma"):  # the C entries refuse the wgmma route off its layouts
+            for call in (lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="wgmma"),
+                         lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
+                         lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma")):
+                try:
+                    call()
+                except RuntimeError as err:
+                    check(str(err).endswith("CUDA error 1"), f"refused with {err}")  # cudaErrorInvalidValue
+                else:
+                    raise RuntimeError(f"chip smoke failed: the wgmma route ran on {case}")
         ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
         ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
         torch.cuda.synchronize()
@@ -414,11 +513,13 @@ def check_fused_attention(gen) -> dict[str, dict]:
             f"K6-K11 {dtype} B={b} H={h} T={t} Dh={dh} causal={causal} mask={kind} tier={tier}:"
             f" max_abs_err " + " ".join(f"{n} {e:.3g}" for n, e in errs.items())
             + f"; relative max/rms {', '.join(rel)} (tol {ATTN_TOL[dtype][0]:.3g}/{ATTN_TOL[dtype][1]:g},"
-            " lse 1e-4 absolute)"
+            f" lse 1e-4 absolute); routes {' '.join(routes)}"
         )
+        if dtype == "bfloat16" and dh == 32:
+            _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref[1:]))
         if case not in (LC_MAIN, LC_F32):
             continue
-        flops, nbytes = _fused_work(case)
+        flops, nbytes = _fused_work(case, mask)
         sdpa = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
         attn_mask = mask.bool()[:, None, None, :]
         qg, kg, vg = (x.detach().requires_grad_(True) for x in sdpa)
@@ -445,6 +546,12 @@ def check_fused_attention(gen) -> dict[str, dict]:
             ),
         }
         ids = {"fwd": fa._FWD_ID[tier], "dq": fa._DQ_ID[tier], "dkv": fa._DKV_ID[tier]}
+        # the mma.sync kernels the wgmma route replaced, on the same inputs
+        # (a yardstick within this run)
+        earlier = {
+            "fwd": lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="mma"),
+            "dkv": lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="mma"),
+        }
         for part, (kernel, plain, library, err) in timed.items():
             bound, by = bound_ms(nbytes[part], flops[part], dtype)
             rows[ids[part]] = {
@@ -457,9 +564,37 @@ def check_fused_attention(gen) -> dict[str, dict]:
                 # SDPA's backward also computes all three gradients
                 "library_ms": cuda_ms(library, iters=5, warmup=1),
                 "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
+                "family": fa.kernel_route(q, k, v, dout) if part != "dq" else fa.dq_route(fa.kernel_route(q, k, v)),
             }
+            if part in earlier and rows[ids[part]]["family"] == "wgmma":
+                rows[ids[part]]["mma_sync_ms"] = cuda_ms(earlier[part], iters=5, warmup=1)
         del sdpa_out, qg, kg, vg
     return rows
+
+
+def _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref) -> None:
+    """The forward and dk/dv on both bf16 kernel families at Dh 32, each
+    checked against the plain version and timed in this run: the route
+    rule serves Dh 32 from the family that is faster here.  The times go
+    into K6's and K8's rows as ``dh32_ms``."""
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    b, h, t, dh, dtype, causal, _ = case
+    calls = {
+        "fwd": lambda r: fa.attention_fwd(q, k, v, mask, causal, tier, route=r)[:1],
+        "dkv": lambda r: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route=r),
+    }
+    wants = {"fwd": ref[:1], "dkv": ref[1:]}
+    for part, kid in (("fwd", "K6"), ("dkv", "K8")):
+        ms = {}
+        for route in ("wgmma", "mma"):
+            for got, want in zip(calls[part](route), wants[part]):
+                rel_max, rel_rms, ok = attention_mismatch(got, want, dtype)
+                check(ok, f"{part} route {route} at {case}: max {rel_max:.3g} rms {rel_rms:.3g}")
+            ms[route] = cuda_ms(lambda: calls[part](route), iters=5, warmup=1)
+        print(f"Dh 32 {part} B={b} H={h} T={t}: wgmma {ms['wgmma']:.4g} ms, mma.sync {ms['mma']:.4g} ms"
+              f" (route {fa.kernel_route(q, k, v, dout)})")
+        rows[kid].setdefault("dh32_ms", []).append({"shape": f"[{b}, {t}, {h}, {dh}]", **ms})
 
 
 def check_planted_faults(gen) -> None:
@@ -667,8 +802,9 @@ def _reset_launches() -> None:
 
     wa.launches = sa.fwd_launches = sa.bwd_launches = 0
     qsgd.encode_launches = qsgd.decode_launches = 0
-    for kid in fa.launches:
-        fa.launches[kid] = 0
+    for counts in (fa.launches, fa.route_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def _read_launches() -> dict[str, int]:
@@ -743,6 +879,7 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
     import numpy as np
     import torch
 
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
     from distributed_learning_simulator_tpu_torch.training import build_session, train
 
     layers = 6
@@ -751,13 +888,14 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
     round_seconds = 0.0
     for model in ("LongContextTransformer", "CausalLMTransformer"):
         config = lc_config(os.path.join(workdir, f"main_{model}"), model=model)
-        before = _read_launches()
+        before, routes_before = _read_launches(), dict(fa.route_launches)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
         perf = train(config)["performance"]
         wall = time.monotonic() - t0
         total = _read_launches()
         moved = {kid: total[kid] - before[kid] for kid in total}
+        routes = {key: n - routes_before[key] for key, n in fa.route_launches.items() if n != routes_before[key]}
         # every client trains each round; a batch with nothing to count
         # (padding of a client shorter than the longest) is a no-op
         counts = build_session(config)._counts
@@ -771,7 +909,7 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
             f" round {config.round} {last['round_seconds']:.3f} s = {1 / last['round_seconds']:.4f}"
             f" rounds/s; test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f}"
             f" over {last['test_count']:.0f}; peak memory"
-            f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {moved}"
+            f" {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {moved}; by kernel family {routes}"
         )
         for r, row in perf.items():
             check(np.isfinite(row["test_loss"]), f"{model} round {r} test loss {row['test_loss']}")
@@ -780,6 +918,9 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
         check(moved["K7"] == moved["K8"] == layers * steps, f"{model} K7/K8 launches {moved}")
         check(moved["K1"] == config.round, f"{model} K1 launches {moved['K1']} (one chunk a round)")
         check(moved["K9"] == moved["K10"] == moved["K11"] == 0, f"{model} stream-tier launches {moved}")
+        # the main path runs the wgmma forward and dk/dv, and dq on mma.sync
+        want = {"fwd/wgmma": moved["K6"], "dq/mma": moved["K7"], "dkv/wgmma": moved["K8"]}
+        check(routes == want, f"{model} kernel families {routes}, want {want}")
     return total, round_seconds
 
 
@@ -1135,7 +1276,11 @@ def profile_obd_run(workdir: str, run_s: float) -> None:
     _profiled(lambda: run_task(ctx), " (fed_obd_sq)", alone, "run of 1 round + 2 tuning epochs", host_ops=12)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         print(f"{PACKAGE}/ is not beside chip_smoke.py", file=sys.stderr)
         return 2
@@ -1157,13 +1302,15 @@ def main() -> int:
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
-    # 1. build
+    # 1. build (each library's ptxas report is kept beside it)
+    sources = ["weighted_accum", "short_attention", "fused_attention", "qsgd"]
     t0 = time.monotonic()
-    reports = build.build(["weighted_accum", "short_attention", "fused_attention", "qsgd"])
+    build.build(sources)
     print(f"build: {time.monotonic() - t0:.1f} s")
-    for name, text in reports.items():
-        regs = [line.split(":", 1)[1].strip() for line in text.splitlines() if "registers" in line]
+    for name in sources:
+        regs = [line.split(":", 1)[1].strip() for line in build.report(name).splitlines() if "registers" in line]
         print(f"  {name}.cu: {'; '.join(regs)}")
+    check_wgmma_build(build.report("fused_attention"))
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1172,6 +1319,9 @@ def main() -> int:
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
     check_planted_faults(gen)
+    if kernels_only:  # phases 1-2 of the K6-K11 kernels: the quickest check of a kernel change
+        print(json.dumps({kid: fused[kid] for kid in sorted(fused)}))
+        return 0
     k2, k3 = check_qsgd(gen)
 
     # 3. small tasks on the card against the CPU
@@ -1255,4 +1405,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

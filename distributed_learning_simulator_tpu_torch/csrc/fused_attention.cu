@@ -10,46 +10,50 @@
 //   K9  _fwd_stream (:425, body _fwd_stream_kernel :307)
 //   K10 _bwd_stream dq (:470, body _dq_stream_kernel :349)
 //   K11 _bwd_stream dkv (:490, body _dkv_stream_kernel :384)
-// K6/K9 -> fwd_kernel or fwd_mma_kernel, K7/K10 -> dq_kernel or
-// dq_mma_kernel, K8/K11 -> dkv_kernel or dkv_mma_kernel (the path below).
 // The TPU's two tiers (one-level, streaming) compute one function and differ
 // only in how much of K/V fits VMEM; a block here never holds more than one
-// 64-row tile of each operand, so one kernel serves both.
+// tile of each operand, so one kernel serves both.
 //
 // What bounds it on the H100.  At the main path's shape (B = 8, H = 8,
 // T = 8192, Dh = 64, bf16) the forward needs 2 products of 2*T*T*Dh flop per
 // (batch, head), 1.10e12 flop, against 0.3 GB of operands: bound by
 // operations (1.11 ms at 989 TFLOP/s on the tensor cores); dq needs 3
-// products, dkv 4.  Two paths compute the same function:
-//   * bf16 at Dh <= 64 (the main path) runs fwd_mma_kernel, dq_mma_kernel
-//     and dkv_mma_kernel: products on the tensor cores with
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate), 16-byte tile loads,
-//     ldmatrix.trans for B operands that need the other orientation.  No
-//     cp.async pipeline and no wgmma/TMA yet: those are the next steps;
-//   * f32 (whose products must stay exact f32) and Dh 128 (whose tensor-
-//     core accumulators would spill) run fwd_kernel, dq_kernel and
-//     dkv_kernel: products on the f32 FMA units (67 TFLOP/s peak) with
-//     4 x 4 register tiles per thread, as K4/K5 do.
+// products, dkv 4.  The forward's max pass makes it compute 3 products, so
+// its own ceiling is 1.5 x that bound.  Three routes compute the same
+// function; the caller picks one from the layout (ops/fused_attention.py::
+// kernel_route) and an entry refuses a route the layout cannot take:
+//   * wgmma (route 2): bf16 at Dh 32 or 64 where TMA can describe q, k, v
+//     (and dout): 16-byte-aligned bases, nested strides whose byte sizes
+//     are multiples of 16.  The long-context and causal-LM main paths.
+//     fwd_wgmma_kernel (K6/K9) and dkv_wgmma_kernel (K8/K11), below the
+//     mma.sync kernels: products on wgmma from shared-memory descriptors,
+//     tiles brought by TMA into a ring of stages with full/empty mbarriers,
+//     one producer warp and two consumer warpgroups of 64 rows each, the
+//     block owning 128 query rows (forward) or 128 keys (dk/dv);
+//   * mma.sync (route 1): bf16 at Dh <= 64 on any other layout (a ragged Dh
+//     such as 20, a misaligned stride), and dq at every bf16 Dh <= 64:
+//     fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel, mma.sync.m16n8k16
+//     on 64-row tiles loaded by all threads between barriers;
+//   * FMA (route 0): f32 (whose products must stay exact f32) and Dh 128
+//     (whose tensor-core accumulators would spill): fwd_kernel, dq_kernel
+//     and dkv_kernel on the f32 FMA units (67 TFLOP/s peak) with 4 x 4
+//     register tiles per thread, as K4/K5 do.
 //
-// Design (not the TPU's), both paths:
-//   * one block per (64-row tile, head, batch): 256 threads (16 x 16) on the
-//     FMA path, 4 warps of 16 rows each on the tensor-core path; the walk
-//     over the other axis is a loop inside the block (the TPU carries it
-//     across grid steps in VMEM scratch);
-//   * operands are loaded into shared memory (as f32 on the FMA path, bf16
-//     on the tensor-core path), 64 rows x Dh_pad columns, rows padded so the
-//     products' operand reads meet no bank conflicts; columns past the true
-//     Dh and rows past T read as 0, so no padded copy of q/k/v exists in
-//     memory;
+// Design (not the TPU's), every route:
+//   * one block per (row tile, head, batch); the walk over the other axis is
+//     a loop inside the block (the TPU carries it across grid steps in VMEM
+//     scratch);
+//   * columns past the true Dh and rows past T read as 0, so no padded copy
+//     of q/k/v exists in memory;
 //   * the forward makes two passes over the key tiles: the first finds each
 //     row's maximum score, the second forms p = exp(s - m) against that
 //     global maximum, sums it unrounded into l, rounds p to the input dtype
 //     before P.V and divides by l at the end.  That is the one-level TPU
 //     kernel's arithmetic exactly (the streaming kernel rounds p against a
 //     running maximum instead; in f32 the two agree to rounding);
-//   * dq_kernel walks key tiles for one query tile: p = exp(s - lse),
+//   * dq walks key tiles for one query tile: p = exp(s - lse),
 //     ds = p * (dP - delta) rounded to the input dtype, dq += ds K, times the
-//     scale at the end; dkv_kernel walks query tiles for one key tile:
+//     scale at the end; dk/dv walks query tiles for one key tile:
 //     dv += round(p)^T dO, dk += round(ds)^T Q, times the scale at the end;
 //     delta = rowsum(dO * O) - dlse comes in from the caller;
 //   * masking follows the TPU kernels: a key is valid when it lies inside T,
@@ -59,19 +63,27 @@
 //   * under `causal`, key tiles wholly after a query tile (and query tiles
 //     wholly before a key tile) are skipped.
 //
-// C interface (ctypes): dtype 0 = float32, 1 = bfloat16; q, k, v share the
-// element strides (sb, st, sh) over batch, token and head, with unit stride
-// over Dh; out, dout, dq, dk and dv are contiguous [B, T, H, Dh]; mask is f32
-// [B, T] or null; lse and delta are f32 [B, H, T].  Every entry returns
-// cudaGetLastError() after its launch; launches are asynchronous on `stream`.
+// C interface (ctypes): dtype 0 = float32, 1 = bfloat16; route as above;
+// q, k, v share the element strides (sb, st, sh) over batch, token and head,
+// with unit stride over Dh; out, dout, dq, dk and dv are contiguous
+// [B, T, H, Dh]; mask is f32 [B, T] or null; lse and delta are f32
+// [B, H, T].  Every entry returns cudaGetLastError() after its launch (or
+// cudaErrorInvalidValue for a route the dtype, Dh or layout cannot take);
+// launches are asynchronous on `stream`.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <initializer_list>
+#include <mutex>
 #include <type_traits>
+#include <utility>
+#include <vector>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -447,7 +459,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------------------------
-// Tensor-core path: bf16 at Dh <= 64 (the main path).  The same three
+// mma.sync path: bf16 at Dh <= 64 off the wgmma route, and every bf16 dq
+// (K7/K10) at Dh <= 64.  The same three
 // functions with the same roundings, the products on mma.sync.m16n8k16
 // (bf16 in, f32 accumulate: bf16 products are exact in f32, so only the
 // summation order differs from the FMA kernels).  One block of 4 warps per
@@ -843,11 +856,487 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
+// ----------------------------------------------------------------------------
+// Hopper path: bf16 at Dh 32 and 64 on layouts TMA can describe (the long-
+// context and causal-LM main paths), for the forward (K6/K9) and dk/dv
+// (K8/K11).  The same functions and roundings as the mma.sync kernels
+// above; the products run on wgmma (bf16 in, f32 accumulate), the tiles
+// arrive by TMA into a ring of shared-memory stages guarded by full/empty
+// mbarriers, and the block (384 threads, one a SM) is warp-specialised:
+//   * warpgroups 0 and 1 consume: each owns 64 rows of the block's 128
+//     (query rows in the forward, keys in dk/dv) and keeps its
+//     accumulators in registers;
+//   * the first warp of warpgroup 2 produces: lane 0 issues the TMA
+//     loads, all 32 lanes write the per-tile side data (key validity; in
+//     dk/dv also lse, delta and an all-valid flag) with plain stores and
+//     arrive on the stage's full barrier (count 32, plus the TMA bytes),
+//     so the data reaches the consumers with the tile.
+// Scores come back as wgmma accumulators and turn into the bf16 A operand
+// of the next product in registers (hopper.cuh), never through shared
+// memory.  In dk/dv a tile whose scores are all valid (every key valid,
+// every query inside T, no causal cut) skips the per-element masking.
+// Rows past T and Dh columns past the tile read as TMA's zero fill.
+//
+// What bounds them: both are bound by operations (the forward's 3
+// products, dk/dv's 4).  The exp of every score (MUFU, 16 a clock an SM)
+// costs about as much as the tensor-core time of the products around it
+// at Dh 64, so the forward's second pass is bound by both together, and
+// the kernels reach the bound only where one warpgroup's exp runs while
+// the other's products do.  dk/dv issues the next stage's products behind
+// this stage's (below); the forward waits for each tile's scores, and its
+// two warpgroups fill each other's gaps only as the scheduler happens to
+// interleave them (a paced ping-pong between them is a later step).
+
+using hopper::desc_add;
+
+constexpr int kWgConsumers = 2;
+// two consumer warpgroups and a producer warpgroup, of which one warp
+// works; setmaxnreg moves registers from the producer (40 a thread) to the
+// consumers (232), within the SM's 65,536
+constexpr int kWgThreads = 128 * (kWgConsumers + 1);
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr int kWgBlock = 128;    // query rows (forward) or keys (dk/dv) a block owns
+constexpr int kFwdKeys = 128;    // keys a forward stage carries
+constexpr int kDkvQueries = 64;  // queries a dk/dv stage carries
+constexpr int kFwdStages = 3;
+constexpr int kDkvStages = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+// 4 keys a lane of one 128-key tile: inside T and mask != 0; returns
+// (to the whole warp) whether every key of the tile is valid
+__device__ __forceinline__ bool write_key_valid(uint8_t* dst, const float* mrow, int k0, int n, int lane) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int key = k0 + 4 * lane + e;
+    const bool valid = key < n && (mrow == nullptr || mrow[key] != 0.f);
+    word |= static_cast<uint32_t>(valid) << (8 * e);
+  }
+  reinterpret_cast<uint32_t*>(dst)[lane] = word;
+  return __all_sync(0xffffffffu, word == 0x01010101u);
+}
+
+template <int DH>
+struct FwdSmem {
+  static constexpr int kRowBytes = 2 * DH;
+  static constexpr int kTile = kFwdKeys * kRowBytes;  // a K or V tile; Q is 128 rows too
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kValid = kTile + kFwdStages * kStage;  // a byte a key, per stage
+  static constexpr int kBars = kValid + kFwdStages * kFwdKeys;
+  static constexpr size_t kBytes = kBars + (2 * kFwdStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// The forward's consumer warpgroup takes one stage's 128 keys at a time:
+// scores as one m64n128 product (64 registers a thread), then, in pass 2,
+// P.V; it waits for each product, and the two warpgroups fill each
+// other's waits.
+
+// issue S = Q . K^T over one stage's 128 keys as one group; `q_rows`: the
+// shared address of this warpgroup's 64 Q rows
+template <int DH>
+__device__ __forceinline__ void fwd_issue_scores(float (&s)[64], uint32_t q_rows, const unsigned char* Ks) {
+  constexpr uint32_t RB = 2 * DH;
+  const uint64_t dq = hopper::make_desc(q_rows, 16, 8 * RB, hopper::swizzle_code(RB));
+  const uint64_t dk = hopper::desc_k_major<RB>(Ks);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss_init(s, dq, dk);
+#pragma unroll
+  for (int ks = 1; ks < DH / 16; ++ks) hopper::wgmma_ss_acc(s, desc_add(dq, 32 * ks), desc_add(dk, 32 * ks));
+  hopper::wgmma_commit();
+}
+
+// the validity of score (row, key) of a tile whose key validity is `kv`
+// (the kernel's parameters stay in the constant bank, not in registers)
+__device__ __forceinline__ bool fwd_valid(const uint8_t* kv, int col, int row, int key, const Layout& L) {
+  return kv[col] != 0 && row < L.n && (!L.causal || row >= key);
+}
+
+// pass 1: the rows' maxima over one tile's valid scores (`kv` and `key0`:
+// the tile's first key; `lo`: this thread's first row, the other 8 below;
+// `t`: its quad lane)
+__device__ __forceinline__ void fwd_tile_max(const float (&s)[64], float& m_lo, float& m_hi, const uint8_t* kv,
+                                             int key0, int lo, int t, const Layout& L) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e;
+      if (fwd_valid(kv, col, lo, key0 + col, L)) m_lo = fmaxf(m_lo, s[4 * j + e] * L.scale);
+      if (fwd_valid(kv, col, lo + 8, key0 + col, L)) m_hi = fmaxf(m_hi, s[4 * j + 2 + e] * L.scale);
+    }
+}
+
+// pass 2: p = exp(s - m) of one tile in place (0 where masked), summed
+// unrounded into l (`ml_*`: m log2 e)
+__device__ __forceinline__ void fwd_tile_p(float (&s)[64], float& l_lo, float& l_hi, float ml_lo, float ml_hi,
+                                           const uint8_t* kv, int key0, int lo, int t, const Layout& L) {
+  const float sl2 = L.scale * kLog2e;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * t + e, i = 4 * j + e;
+      s[i] = fwd_valid(kv, col, lo, key0 + col, L) ? exp2f(fmaf(s[i], sl2, -ml_lo)) : 0.f;
+      s[i + 2] = fwd_valid(kv, col, lo + 8, key0 + col, L) ? exp2f(fmaf(s[i + 2], sl2, -ml_hi)) : 0.f;
+      l_lo += s[i];
+      l_hi += s[i + 2];
+    }
+}
+
+// p rounded to bf16 into the A fragments of P.V (hopper.cuh), then
+// o += P V issued as one group (`dv`: the descriptor of the tile's V)
+template <int DH>
+__device__ __forceinline__ void fwd_tile_pv(const float (&p)[64], uint32_t (&pa)[8][4], float (&o)[DH / 2],
+                                            uint64_t dv) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[k][r] = hopper::pack_bf16x2(p[8 * k + 2 * r], p[8 * k + 2 * r + 1]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 8; ++k) hopper::wgmma_rs(o, pa[k], desc_add(dv, k * 16 * 2 * DH));
+  hopper::wgmma_commit();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ mask,
+                     bf16* __restrict__ out, float* __restrict__ lse, Layout L) {
+  using S = FwdSmem<DH>;
+  constexpr int RB = S::kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* Qs = base;
+  uint8_t* kvalid = base + S::kValid;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* qbar = empty + kFwdStages;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kWgBlock;
+  const int ntiles = (L.n + kFwdKeys - 1) / kFwdKeys;
+  const int nk = L.causal ? min(ntiles, static_cast<int>(blockIdx.x) + 1) : ntiles;
+  const int wg = threadIdx.x / 128;  // kWgConsumers: the producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 128 * kWgConsumers);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    // producer: Q once, then pass 1's K tiles, then pass 2's K and V tiles
+    const int lane = threadIdx.x % 32;
+    const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(qbar, S::kTile);
+      hopper::tma_load_4d(Qs, &tm_q, qbar, 0, h, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < 2 * nk; ++it) {
+      const bool second = it >= nk;
+      const int kt = second ? it - nk : it;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      write_key_valid(kvalid + stage * kFwdKeys, mrow, kt * kFwdKeys, L.n, lane);
+      unsigned char* Ks = base + S::kTile + stage * S::kStage;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], (second ? 2 : 1) * S::kTile);
+        hopper::tma_load_4d(Ks, &tm_k, &full[stage], 0, h, kt * kFwdKeys, b);
+        if (second) hopper::tma_load_4d(Ks + S::kTile, &tm_v, &full[stage], 0, h, kt * kFwdKeys, b);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == kFwdStages) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63, walking the
+  // stream of 2 nk stages (pass 1's nk K tiles, then pass 2's K and V)
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int row0 = q0 + 64 * wg, lo = row0 + tid / 32 * 16 + tid % 32 / 4;  // and lo + 8
+  const uint32_t q_rows = hopper::smem_addr(Qs + 64 * wg * RB);
+  int stage = 0;
+  uint32_t phase = 0;
+  float s[64];
+  hopper::mbar_wait(qbar, 0);
+
+  // pass 1: each row's maximum score (invalid scores count as -1e30)
+  float m_lo = kMasked, m_hi = kMasked;
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::mbar_wait(&full[stage], phase);
+    fwd_issue_scores<DH>(s, q_rows, base + S::kTile + stage * S::kStage);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    fwd_tile_max(s, m_lo, m_hi, kvalid + stage * kFwdKeys, kt * kFwdKeys, lo, t, L);
+    hopper::mbar_arrive(&empty[stage]);
+    if (++stage == kFwdStages) { stage = 0; phase ^= 1; }
+  }
+  m_lo = quad_max(m_lo);
+  m_hi = quad_max(m_hi);
+
+  // pass 2: p = exp(s - m), l = sum p (unrounded), o += round(p) V
+  float l_lo = 0.f, l_hi = 0.f, o[DH / 2];
+  const float ml_lo = m_lo * kLog2e, ml_hi = m_hi * kLog2e;
+  uint32_t pa[8][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  for (int kt = 0; kt < nk; ++kt) {
+    hopper::mbar_wait(&full[stage], phase);
+    const unsigned char* Ks = base + S::kTile + stage * S::kStage;
+    fwd_issue_scores<DH>(s, q_rows, Ks);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    fwd_tile_p(s, l_lo, l_hi, ml_lo, ml_hi, kvalid + stage * kFwdKeys, kt * kFwdKeys, lo, t, L);
+    fwd_tile_pv<DH>(s, pa, o, hopper::desc_mn_major<RB>(Ks + S::kTile));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+    hopper::mbar_arrive(&empty[stage]);
+    if (++stage == kFwdStages) { stage = 0; phase ^= 1; }
+  }
+
+  const float d_lo = fmaxf(quad_sum(l_lo), 1e-30f), d_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+  const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = lo + 8 * half;
+    const float denom = half ? d_hi : d_lo;
+    if (row >= L.n) continue;
+    if (t == 0) lse[stat0 + row] = (half ? m_hi : m_lo) + logf(denom);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(out + obase + static_cast<int64_t>(row) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      dst[4 * j + t] = hopper::pack_bf16x2(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+  }
+}
+
+template <int DH>
+struct DkvSmem {
+  static constexpr int kRowBytes = 2 * DH;
+  static constexpr int kKV = kWgBlock * kRowBytes;      // the block's K (or V) tile
+  static constexpr int kTile = kDkvQueries * kRowBytes; // a Q or dO tile
+  static constexpr int kStages0 = 2 * kKV;
+  static constexpr int kStats = kStages0 + kDkvStages * 2 * kTile;  // lse, delta per stage
+  static constexpr int kValid = kStats + kDkvStages * 2 * kDkvQueries * static_cast<int>(sizeof(float));
+  static constexpr int kFull = kValid + kWgBlock;  // every key of the block valid
+  static constexpr int kBars = kFull + 8;
+  static constexpr size_t kBytes = kBars + (2 * kDkvStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// s^T = K Q^T and dP^T = V dO^T of one stage (K, V: this warpgroup's 64 keys)
+template <int DH>
+__device__ __forceinline__ void dkv_scores(float (&s)[32], float (&dp)[32], uint64_t dk_a, uint64_t dv_a,
+                                           const unsigned char* Qst) {
+  constexpr int RB = 2 * DH;
+  const uint64_t dq_b = hopper::desc_k_major<RB>(Qst);
+  const uint64_t ddo_b = hopper::desc_k_major<RB>(Qst + kDkvQueries * RB);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss_init(s, dk_a, dq_b);
+#pragma unroll
+  for (int ks = 1; ks < DH / 16; ++ks) hopper::wgmma_ss_acc(s, desc_add(dk_a, 32 * ks), desc_add(dq_b, 32 * ks));
+  hopper::wgmma_ss_init(dp, dv_a, ddo_b);
+#pragma unroll
+  for (int ks = 1; ks < DH / 16; ++ks) hopper::wgmma_ss_acc(dp, desc_add(dv_a, 32 * ks), desc_add(ddo_b, 32 * ks));
+  hopper::wgmma_commit();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ mask, const float* __restrict__ lse,
+                     const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Layout L) {
+  using S = DkvSmem<DH>;
+  constexpr int RB = S::kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* Ks = base;
+  unsigned char* Vs = base + S::kKV;
+  float* stats = reinterpret_cast<float*>(base + S::kStats);
+  uint8_t* kvalid = base + S::kValid;
+  uint32_t* keys_full = reinterpret_cast<uint32_t*>(base + S::kFull);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* kvbar = empty + kDkvStages;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kWgBlock;
+  const int ntiles = (L.n + kDkvQueries - 1) / kDkvQueries;
+  // under causal, query tiles wholly before this block's keys see none of them
+  const int qt0 = L.causal ? k0 / kDkvQueries : 0;
+  const int wg = threadIdx.x / 128;  // kWgConsumers: the producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDkvStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 128 * kWgConsumers);
+    }
+    hopper::mbar_init(kvbar, 32);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    // producer: K, V and their validity once, then Q, dO, lse, delta per query tile
+    const int lane = threadIdx.x % 32;
+    const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+    const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+    const bool all = write_key_valid(kvalid, mrow, k0, L.n, lane);
+    if (lane == 0) {
+      *keys_full = all;
+      hopper::mbar_arrive_expect_tx(kvbar, 2 * S::kKV);
+      hopper::tma_load_4d(Ks, &tm_k, kvbar, 0, h, k0, b);
+      hopper::tma_load_4d(Vs, &tm_v, kvbar, 0, h, k0, b);
+    } else {
+      hopper::mbar_arrive(kvbar);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = qt0; qt < ntiles; ++qt) {
+      const int q0 = qt * kDkvQueries;
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      float* st = stats + stage * 2 * kDkvQueries;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = 2 * lane + e, row = q0 + r;
+        st[r] = row < L.n ? lse[stat0 + row] * kLog2e : 0.f;
+        st[kDkvQueries + r] = row < L.n ? delta[stat0 + row] : 0.f;
+      }
+      unsigned char* Qst = base + S::kStages0 + stage * 2 * S::kTile;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * S::kTile);
+        hopper::tma_load_4d(Qst, &tm_q, &full[stage], 0, h, q0, b);
+        hopper::tma_load_4d(Qst + S::kTile, &tm_do, &full[stage], 0, h, q0, b);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == kDkvStages) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  // consumers: warpgroup wg owns keys k0 + 64 wg .. + 63; rows of every
+  // product are keys, columns queries (the forward's axes swapped, causal
+  // included: valid when query >= key).  The next stage's S^T and dP^T
+  // are issued right behind this stage's dV and dK, so the tensor cores
+  // run both groups back to back.
+  const int tid = threadIdx.x % 128, w = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int r_lo = 64 * wg + 16 * w + g;
+  const int key0 = k0 + 64 * wg, key_lo = k0 + r_lo, key_hi = key_lo + 8;
+  const uint64_t dk_a = hopper::desc_k_major<RB>(Ks + 64 * wg * RB);
+  const uint64_t dv_a = hopper::desc_k_major<RB>(Vs + 64 * wg * RB);
+  const float sl2 = L.scale * kLog2e;
+  hopper::mbar_wait(kvbar, 0);
+  const bool kv_lo = kvalid[r_lo] != 0, kv_hi = kvalid[r_lo + 8] != 0, keys_in = *keys_full != 0;
+  float acc_k[DH / 2], acc_v[DH / 2], s[32], dp[32];
+  uint32_t pa[4][4], da[4][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[k][r] = da[k][r] = 0u;
+  int stage = 0, pending = -1;
+  uint32_t phase = 0;
+  hopper::mbar_wait(&full[0], 0);
+  dkv_scores<DH>(s, dp, dk_a, dv_a, base + S::kStages0);
+  for (int qt = qt0; qt < ntiles; ++qt) {
+    const int q0 = qt * kDkvQueries, st_now = stage;
+    const unsigned char* Qst = base + S::kStages0 + st_now * 2 * S::kTile;
+    const float* st = stats + st_now * 2 * kDkvQueries;
+    hopper::wgmma_wait<0>();  // this stage's S^T and dP^T, the last stage's dV and dK
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(acc_k);
+    hopper::fence_regs(acc_v);
+    hopper::fence_regs(pa);
+    hopper::fence_regs(da);
+    if (pending >= 0) hopper::mbar_arrive(&empty[pending]);
+    // p = exp(s - lse); ds = p (dP - delta), from the unrounded p; no
+    // score is masked when every key is valid, every query inside T and
+    // (causal) every query at or after this warpgroup's last key
+    const bool fast = keys_in && q0 + kDkvQueries <= L.n && (!L.causal || q0 >= key0 + 63);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = 8 * j + 2 * t + e, query = q0 + ql;
+        const float lse_l2 = st[ql], dl = st[kDkvQueries + ql];
+        float p_lo = hopper::ex2(fmaf(s[4 * j + e], sl2, -lse_l2));
+        float p_hi = hopper::ex2(fmaf(s[4 * j + 2 + e], sl2, -lse_l2));
+        if (!fast) {
+          const bool qin = query < L.n;
+          p_lo = kv_lo && qin && (!L.causal || query >= key_lo) ? p_lo : 0.f;
+          p_hi = kv_hi && qin && (!L.causal || query >= key_hi) ? p_hi : 0.f;
+        }
+        s[4 * j + e] = p_lo;
+        s[4 * j + 2 + e] = p_hi;
+        dp[4 * j + e] = p_lo * (dp[4 * j + e] - dl);
+        dp[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - dl);
+      }
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        pa[k][r] = hopper::pack_bf16x2(s[8 * k + 2 * r], s[8 * k + 2 * r + 1]);
+        da[k][r] = hopper::pack_bf16x2(dp[8 * k + 2 * r], dp[8 * k + 2 * r + 1]);
+      }
+    // dV += round(P^T) dO, dK += round(dS^T) Q: dO and Q MN-major
+    const uint64_t dq_mn = hopper::desc_mn_major<RB>(Qst), ddo_mn = hopper::desc_mn_major<RB>(Qst + S::kTile);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_rs(acc_v, pa[k], desc_add(ddo_mn, k * 16 * RB));
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_rs(acc_k, da[k], desc_add(dq_mn, k * 16 * RB));
+    hopper::wgmma_commit();
+    pending = st_now;
+    if (++stage == kDkvStages) { stage = 0; phase ^= 1; }
+    if (qt + 1 < ntiles) {
+      hopper::mbar_wait(&full[stage], phase);
+      dkv_scores<DH>(s, dp, dk_a, dv_a, base + S::kStages0 + stage * 2 * S::kTile);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc_k);
+  hopper::fence_regs(acc_v);
+  hopper::fence_regs(pa);
+  hopper::fence_regs(da);
+
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_hi : key_lo;
+    if (key >= L.n) continue;
+    uint32_t* dkr = reinterpret_cast<uint32_t*>(dk + obase + static_cast<int64_t>(key) * row_ld);
+    uint32_t* dvr = reinterpret_cast<uint32_t*>(dv + obase + static_cast<int64_t>(key) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      dkr[4 * j + t] =
+          hopper::pack_bf16x2(acc_k[4 * j + 2 * half] * L.scale, acc_k[4 * j + 2 * half + 1] * L.scale);
+      dvr[4 * j + t] = hopper::pack_bf16x2(acc_v[4 * j + 2 * half], acc_v[4 * j + 2 * half + 1]);
+    }
+  }
+}
+
 constexpr size_t rows_bytes(int dh) { return sizeof(bf16) * kTile * (dh + 8); }
 constexpr size_t fwd_mma_smem(int dh) { return 3 * rows_bytes(dh) + kTile; }
 constexpr size_t dq_mma_smem(int dh) { return 4 * rows_bytes(dh) + kTile; }
 constexpr size_t dkv_mma_smem(int dh) { return 4 * rows_bytes(dh) + 2 * sizeof(float) * kTile + kTile; }
-// the tensor-core kernels serve bf16 up to Dh 64; f32 (exact f32 products)
+// the mma.sync kernels serve bf16 up to Dh 64; f32 (exact f32 products)
 // and Dh 128 (whose accumulators would spill) take the FMA kernels
 template <typename T, int DH>
 constexpr bool use_mma() { return std::is_same<T, bf16>::value && DH <= 64; }
@@ -860,10 +1349,20 @@ constexpr size_t dkv_smem(int dh) {
   return 4 * tile_bytes(dh) + 2 * p_bytes() + 2 * sizeof(float) * kTile + kTile;
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
+// the dynamic shared-memory limit of a kernel, raised once per kernel and
+// device rather than on every launch
+cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == kernel && d.second == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) done.emplace_back(kernel, dev);
+  return err;
 }
 
 bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -885,77 +1384,184 @@ Layout make_layout(long long sb, long long st, long long sh, int T, int H, int D
   return L;
 }
 
+// ---------------------------------------------------------- tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links nothing new
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// element strides over (head, token, batch) of one operand
+struct Strides {
+  long long sh, st, sb;
+};
+
+// The layouts the TMA route takes (ops/fused_attention.py::kernel_route
+// states the same rule): bf16 at Dh 32 or 64, 16-byte-aligned bases, and
+// strides nested as a tensor map describes them (each dimension's byte
+// stride a positive multiple of 16 that spans the dimensions inside it; a
+// dimension of size 1 is free).  Returns false where they fail.
+bool tma_strides(Strides& s, int B, int T, int H, int Dh) {
+  if (H == 1) s.sh = Dh;
+  if (T == 1) s.st = s.sh * H;
+  if (B == 1) s.sb = s.st * T;
+  for (long long x : {s.sh, s.st, s.sb})
+    if (x <= 0 || (2 * x) % 16 != 0) return false;
+  return s.sh >= Dh && s.st >= s.sh * H && s.sb >= s.st * T;
+}
+
+// a 4-d map (Dh, H, T, B) of one bf16 operand, boxes of `rows` tokens x
+// Dh, in the swizzle of a Dh-wide row
+cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * s.sh, 2ull * s.st, 2ull * s.sb};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Dh), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              Dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the maps of q, k and v (rows `qrows` and `kvrows` a box), or an error
+// when the layout is not the TMA route's
+cudaError_t qkv_maps(CUtensorMap maps[3], const void* q, const void* k, const void* v, int B, const Layout& L,
+                     int qrows, int kvrows) {
+  Strides s{L.sh, L.st, L.sb};
+  if (!(L.dh == 32 || L.dh == 64) || !tma_strides(s, B, L.n, L.heads, L.dh)) return cudaErrorInvalidValue;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    if (ptrs[i] == nullptr || !aligned16(ptrs[i])) return cudaErrorInvalidValue;
+    const cudaError_t err = make_map(&maps[i], ptrs[i], s, B, L.n, L.heads, L.dh, i == 0 ? qrows : kvrows);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <int DH>
+int fwd_wgmma(const void* q, const void* k, const void* v, const float* mask, void* out, float* lse, int B,
+              const Layout& L, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kWgBlock, kFwdKeys);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(fwd_wgmma_kernel<DH>), FwdSmem<DH>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
+  fwd_wgmma_kernel<DH><<<grid, kWgThreads, FwdSmem<DH>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], mask, static_cast<bf16*>(out), lse, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int dkv_wgmma(const void* q, const void* k, const void* v, const float* mask, const void* dout, const float* lse,
+              const float* delta, void* dk, void* dv, int B, const Layout& L, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kDkvQueries, kWgBlock);
+  // dout is contiguous [B, T, H, Dh]
+  const long long row = static_cast<long long>(L.heads) * DH;
+  if (err == cudaSuccess && !aligned16(dout)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = make_map(&maps[3], dout, Strides{DH, row, row * L.n}, B, L.n, L.heads, DH, kDkvQueries);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(dkv_wgmma_kernel<DH>), DkvSmem<DH>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
+  dkv_wgmma_kernel<DH><<<grid, kWgThreads, DkvSmem<DH>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), L);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int fwd(const void* q, const void* k, const void* v, const float* mask, void* out, float* lse,
         int B, const Layout& L, cudaStream_t stream) {
+  const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
   if constexpr (use_mma<T, DH>()) {
-    cudaError_t err = allow_smem(fwd_mma_kernel<DH>, fwd_mma_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(fwd_mma_kernel<DH>), fwd_mma_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     fwd_mma_kernel<DH><<<grid, kMmaThreads, fwd_mma_smem(DH), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<bf16*>(out), lse, L);
-    return static_cast<int>(cudaGetLastError());
   } else {
-    cudaError_t err = allow_smem(fwd_kernel<T, DH>, fwd_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(fwd_kernel<T, DH>), fwd_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     fwd_kernel<T, DH><<<grid, kThreads, fwd_smem(DH), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
         static_cast<T*>(out), lse, L);
-    return static_cast<int>(cudaGetLastError());
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DH>
 int dq_launch(const void* q, const void* k, const void* v, const float* mask, const void* dout,
               const float* lse, const float* delta, void* dq, int B, const Layout& L,
               cudaStream_t stream) {
+  const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
   if constexpr (use_mma<T, DH>()) {
-    cudaError_t err = allow_smem(dq_mma_kernel<DH>, dq_mma_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(dq_mma_kernel<DH>), dq_mma_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     dq_mma_kernel<DH><<<grid, kMmaThreads, dq_mma_smem(DH), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dq), L);
-    return static_cast<int>(cudaGetLastError());
   } else {
-    cudaError_t err = allow_smem(dq_kernel<T, DH>, dq_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(dq_kernel<T, DH>), dq_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     dq_kernel<T, DH><<<grid, kThreads, dq_smem(DH), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
         static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), L);
-    return static_cast<int>(cudaGetLastError());
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int DH>
 int dkv_launch(const void* q, const void* k, const void* v, const float* mask, const void* dout,
                const float* lse, const float* delta, void* dk, void* dv, int B, const Layout& L,
                cudaStream_t stream) {
+  const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
   if constexpr (use_mma<T, DH>()) {
-    cudaError_t err = allow_smem(dkv_mma_kernel<DH>, dkv_mma_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(dkv_mma_kernel<DH>), dkv_mma_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     dkv_mma_kernel<DH><<<grid, kMmaThreads, dkv_mma_smem(DH), stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         mask, static_cast<const bf16*>(dout), lse, delta, static_cast<bf16*>(dk),
         static_cast<bf16*>(dv), L);
-    return static_cast<int>(cudaGetLastError());
   } else {
-    cudaError_t err = allow_smem(dkv_kernel<T, DH>, dkv_smem(DH));
+    cudaError_t err = allow_smem(reinterpret_cast<const void*>(dkv_kernel<T, DH>), dkv_smem(DH));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((L.n + kTile - 1) / kTile, L.heads, B);
     dkv_kernel<T, DH><<<grid, kThreads, dkv_smem(DH), stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
         static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), L);
-    return static_cast<int>(cudaGetLastError());
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the padded head dim a true Dh runs at: 32, 64 or 128 (0 = refused)
 int dh_pad(int Dh) { return Dh <= 0 ? 0 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 128 ? 128 : 0; }
+
+// routes, chosen by the caller from the layout (ops/fused_attention.py::
+// kernel_route): 0 the FMA kernels (f32; bf16 at Dh 128), 1 the mma.sync
+// kernels (bf16 up to Dh 64), 2 the wgmma/TMA kernels (forward and dk/dv
+// only; bf16 at Dh 32 or 64 on a layout TMA describes)
+constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
+
+// the route the FMA/mma.sync dispatch below takes for (dtype, Dh)
+int plain_route(int dtype, int Dh) { return dtype == 1 && dh_pad(Dh) <= 64 ? kRouteMma : kRouteFma; }
 
 }  // namespace
 
@@ -972,34 +1578,47 @@ int dh_pad(int Dh) { return Dh <= 0 ? 0 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 
     return static_cast<int>(cudaErrorInvalidValue);                             \
   } while (0)
 
+// the wgmma route at Dh 32 or 64 (bf16 only), else refused
+#define DISPATCH_WGMMA(LAUNCH, ...)                                      \
+  do {                                                                   \
+    if (dtype == 1 && Dh == 64) return LAUNCH<64>(__VA_ARGS__);          \
+    if (dtype == 1 && Dh == 32) return LAUNCH<32>(__VA_ARGS__);          \
+    return static_cast<int>(cudaErrorInvalidValue);                      \
+  } while (0)
+
 extern "C" {
 
 // out [B, T, H, Dh] (input dtype), lse [B, H, T] f32
-int fused_attention_fwd(int dtype, const void* q, const void* k, const void* v, long long sb,
+int fused_attention_fwd(int dtype, int route, const void* q, const void* k, const void* v, long long sb,
                         long long st, long long sh, const float* mask, void* out, float* lse,
                         int B, int T, int H, int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma) DISPATCH_WGMMA(fwd_wgmma, q, k, v, mask, out, lse, B, L, s);
+  if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(fwd, q, k, v, mask, out, lse, B, L, s);
 }
 
 // dq [B, T, H, Dh] from dout, the forward's lse and delta = rowsum(dout * out) - dlse
-int fused_attention_dq(int dtype, const void* q, const void* k, const void* v, long long sb,
+int fused_attention_dq(int dtype, int route, const void* q, const void* k, const void* v, long long sb,
                        long long st, long long sh, const float* mask, const void* dout,
                        const float* lse, const float* delta, void* dq, int B, int T, int H,
                        int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dq_launch, q, k, v, mask, dout, lse, delta, dq, B, L, s);
 }
 
 // dk, dv [B, T, H, Dh]
-int fused_attention_dkv(int dtype, const void* q, const void* k, const void* v, long long sb,
+int fused_attention_dkv(int dtype, int route, const void* q, const void* k, const void* v, long long sb,
                         long long st, long long sh, const float* mask, const void* dout,
                         const float* lse, const float* delta, void* dk, void* dv, int B, int T,
                         int H, int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma) DISPATCH_WGMMA(dkv_wgmma, q, k, v, mask, dout, lse, delta, dk, dv, B, L, s);
+  if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dkv_launch, q, k, v, mask, dout, lse, delta, dk, dv, B, L, s);
 }
 

@@ -3,11 +3,14 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``_kernel_build/`` (listed in ``.gitignore``; nothing prebuilt is
-committed).  The library's file name carries a hash of its source and of
-the compiler flags, so an edited kernel is never served by a stale build.
+committed).  The library's file name carries a hash of its source, of
+every header in ``csrc/`` (``*.cuh``) and of the compiler flags, so an
+edited kernel or header is never served by a stale build.
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for them together; :func:`load` builds one library if needed and
-returns it as a :class:`ctypes.CDLL`.
+returns it as a :class:`ctypes.CDLL`.  Each build's compiler output
+(``ptxas``' registers, shared memory and spills per kernel) is kept beside
+its library as ``lib<name>-<hash>.ptxas.txt``; :func:`report` reads it.
 """
 
 import ctypes
@@ -61,24 +64,40 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+def headers() -> list[str]:
+    """The shared headers of ``csrc/``, in a fixed order."""
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+
+
 def library_path(name: str) -> str:
     digest = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        digest.update(f.read())
+    for path in (source_path(name), *headers()):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(names) -> dict[str, str]:
-    """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` process each, all started together.  Returns each compiled
-    library's ``ptxas`` report (registers, shared memory, spills); raises
-    :class:`KernelBuildError` naming every source that failed."""
+def report_path(name: str) -> str:
+    """Where the build of :func:`library_path` keeps its compiler output."""
+    return library_path(name)[: -len(".so")] + ".ptxas.txt"
+
+
+def report(name: str) -> str:
+    """The compiler output (``ptxas -v``) of the built library ``name``."""
+    with open(report_path(name), encoding="utf8") as f:
+        return f.read()
+
+
+def build(names) -> None:
+    """Compile every library in ``names`` that is not built yet (or has no
+    report beside it), one ``nvcc`` process each, all started together;
+    raises :class:`KernelBuildError` naming every source that failed."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     pending = {}
     for name in names:
         target = library_path(name)
-        if os.path.isfile(target):
+        if os.path.isfile(target) and os.path.isfile(report_path(name)):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
@@ -86,17 +105,18 @@ def build(names) -> dict[str, str]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
         pending[name] = (proc, tmp, target)
-    reports, failures = {}, []
+    failures = []
     for name, (proc, tmp, target) in pending.items():
         output, _ = proc.communicate()
         if proc.returncode != 0:
             failures.append(f"{name}.cu (exit {proc.returncode}):\n{output}")
             continue
+        with open(f"{tmp}.txt", "w", encoding="utf8") as f:
+            f.write(output)
+        os.replace(f"{tmp}.txt", report_path(name))
         os.replace(tmp, target)
-        reports[name] = output
     if failures:
         raise KernelBuildError("nvcc failed for " + "\n".join(failures))
-    return reports
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -13,11 +13,25 @@ kernel (``csrc/fused_attention.cu``) serves both tiers:
 * dq: K7 and K10;
 * dk, dv: K8 and K11.
 
-Each has a tensor-core version (bf16 at Dh <= 64, the main path) and an
-f32-FMA version (f32, Dh 128) of the same function.  All three are bound
-by operations on the H100 (the forward at the main shape, q/k/v
-``[8, 8192, 8, 64]`` bf16: 1.10e12 flop, 1.11 ms at 989 TFLOP/s); the
-design and what bounds each path are in the CUDA source's header.
+:func:`kernel_route` picks, from dtype, Dh and layout alone, which of
+three CUDA kernel families serves a call (the same function on each; a
+route chosen before the launch, never a fallback):
+
+* ``"wgmma"``: bf16 at Dh 32 or 64 on a layout TMA can describe (16-byte
+  aligned bases; nested strides whose byte sizes are multiples of 16).
+  The forward and dk/dv run Hopper kernels: TMA tile loads into a ring of
+  shared-memory stages with mbarriers, one producer warp, two consumer
+  warpgroups on ``wgmma``.  The long-context and causal-LM main paths
+  (packed ``[B, T, 3, H, Dh]`` projections) take it; dq has no such
+  kernel and runs the mma.sync one;
+* ``"mma"``: bf16 at Dh <= 64 on any other layout (a ragged Dh such as
+  20, a misaligned stride): ``mma.sync.m16n8k16`` on 64-row tiles;
+* ``"fma"``: f32 (exact f32 products) and Dh 128, on the f32 FMA units.
+
+All are bound by operations on the H100 (the forward at the main shape,
+q/k/v ``[8, 8192, 8, 64]`` bf16: 1.10e12 flop, 1.11 ms at 989 TFLOP/s;
+its max pass adds a third product, so its own ceiling is 1.5x that); the
+design and what bounds each route are in the CUDA source's header.
 
 Each kernel reads q/k/v as strided views (the packed QKV projection is
 never split or padded in memory) and writes ``[B, T, H, Dh]`` directly.
@@ -61,6 +75,11 @@ launches = {kid: 0 for kid in ("K6", "K7", "K8", "K9", "K10", "K11")}
 _FWD_ID = {"fused": "K6", "stream": "K9"}
 _DQ_ID = {"fused": "K7", "stream": "K10"}
 _DKV_ID = {"fused": "K8", "stream": "K11"}
+
+#: the kernel families, by the code the C entries take
+ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}
+#: launches per kernel and route ("fwd/wgmma", ...) since last set to 0
+route_launches = {f"{kind}/{route}": 0 for kind in ("fwd", "dq", "dkv") for route in ROUTES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
@@ -114,6 +133,52 @@ def eligible(q, mask, dropout_rate: float, deterministic: bool, k=None) -> bool:
     if mask is not None and (mask.dim() != 4 or mask.shape[-2] != 1 or mask.shape[-3] != 1):
         return False
     return True
+
+
+def _tma_describable(x, others) -> bool:
+    """Can one tensor map ``(Dh, H, T, B)`` describe ``x`` (and each of
+    ``others``, which share its shape): 16-byte-aligned bases, and strides
+    nested as the map nests them, each a positive multiple of 16 bytes
+    (a dimension of size 1 takes any stride)."""
+    b, t, h, d = x.shape
+    if any(y.data_ptr() % 16 for y in (x, *others)) or x.stride(-1) != 1:
+        return False
+    sb, st, sh = x.stride(0), x.stride(1), x.stride(2)
+    sh = d if h == 1 else sh
+    st = sh * h if t == 1 else st
+    sb = st * t if b == 1 else sb
+    item = x.element_size()
+    if any(s <= 0 or (s * item) % 16 for s in (sh, st, sb)):
+        return False
+    return sh >= d and st >= sh * h and sb >= st * t
+
+
+def kernel_route(q, k, v, *others) -> str:
+    """The kernel family that serves the forward and dk/dv for these
+    operands (``others``: dout, contiguous ``[B, T, H, Dh]``): ``"wgmma"``
+    for bf16 at Dh 32 or 64 where TMA can describe q, k, v (sharing their
+    strides) and the others; ``"mma"`` for any other bf16 at Dh <= 64;
+    ``"fma"`` for f32 and Dh above 64.  dq runs ``"mma"`` where this says
+    ``"wgmma"`` (:func:`dq_route`)."""
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d > 64:
+        return "fma"
+    if d in (32, 64) and k.stride() == q.stride() and v.stride() == q.stride() and _tma_describable(q, (k, v)):
+        if all(_tma_describable(x, ()) for x in others):
+            return "wgmma"
+    return "mma"
+
+
+def dq_route(route: str) -> str:
+    """dq's kernel family on a layout :func:`kernel_route` gave ``route``."""
+    return "mma" if route == "wgmma" else route
+
+
+def _named_route(route):
+    """The route a caller named (checked), or None."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {tuple(ROUTES)}, got {route!r}")
+    return route
 
 
 # ------------------------------------------------------- plain PyTorch versions
@@ -204,7 +269,7 @@ def _library():
     if _bound is None:
         lib = build.load("fused_attention")
         p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-        head = [i, p, p, p, ll, ll, ll, p]
+        head = [i, i, p, p, p, ll, ll, ll, p]
         tail = [i, i, i, i, f, i, p]
         lib.fused_attention_fwd.argtypes = head + [p, p] + tail
         lib.fused_attention_dq.argtypes = head + [p, p, p, p] + tail
@@ -250,10 +315,10 @@ def _check(q, k, v, kv_mask, tier, *rest):
     return b, t, h, d
 
 
-def _head(q, k, v, kv_mask):
+def _head(q, k, v, kv_mask, route):
     """The kernels' common leading arguments."""
     return [
-        _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        _DTYPE_CODES[q.dtype], ROUTES[route], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         q.stride(0), q.stride(1), q.stride(2),
         None if kv_mask is None else kv_mask.data_ptr(),
     ]
@@ -265,26 +330,33 @@ def _tail(q, causal):
             torch.cuda.current_stream(q.device).cuda_stream]
 
 
-def _raise_on(err: int, what: str) -> None:
+def _raise_on(err: int, what: str, route: str) -> None:
     if err != 0:
-        raise RuntimeError(f"fused attention {what} launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused attention {what} launch ({route} route) failed: CUDA error {err}")
 
 
-def attention_fwd(q, k, v, kv_mask=None, causal: bool = False, tier: str = "fused"):
+def _count(kid: str, kind: str, route: str) -> None:
+    with build.launch_lock:
+        launches[kid] += 1
+        route_launches[f"{kind}/{route}"] += 1
+
+
+def attention_fwd(q, k, v, kv_mask=None, causal: bool = False, tier: str = "fused", route=None):
     """Forward: ``(out [B, T, H, Dh], lse [B, H, T] f32)``.  ``kv_mask``
-    is f32 ``[B, T]`` (non-zero = attend) or None."""
+    is f32 ``[B, T]`` (non-zero = attend) or None.  ``route`` overrides
+    :func:`kernel_route` (the C entry refuses one the layout cannot take)."""
     b, t, h, d = _check(q, k, v, kv_mask, tier)
+    route = _named_route(route) or kernel_route(q, k, v)
     if q.device.type == "cpu":
         return attention_fwd_plain(q, k, v, kv_mask, causal)
     out = torch.empty(b, t, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, t, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().fused_attention_fwd(
-            *_head(q, k, v, kv_mask), out.data_ptr(), lse.data_ptr(), *_tail(q, causal)
+            *_head(q, k, v, kv_mask, route), out.data_ptr(), lse.data_ptr(), *_tail(q, causal)
         )
-    _raise_on(err, "forward")
-    with build.launch_lock:
-        launches[_FWD_ID[tier]] += 1
+    _raise_on(err, "forward", route)
+    _count(_FWD_ID[tier], "fwd", route)
     return out, lse
 
 
@@ -297,38 +369,39 @@ def _bwd_operands(q, dout, lse, delta):
     )
 
 
-def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused"):
-    """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``."""
+def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
+    """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``;
+    ``route`` defaults to :func:`dq_route` of the layout's route."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
+    route = _named_route(route) or dq_route(kernel_route(q, k, v, dout))
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().fused_attention_dq(
-            *_head(q, k, v, kv_mask), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *_head(q, k, v, kv_mask, route), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), *_tail(q, causal),
         )
-    _raise_on(err, "dq")
-    with build.launch_lock:
-        launches[_DQ_ID[tier]] += 1
+    _raise_on(err, "dq", route)
+    _count(_DQ_ID[tier], "dq", route)
     return dq
 
 
-def attention_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused"):
+def attention_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
     """``(dk, dv)``, each ``[B, T, H, Dh]``."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
+    route = _named_route(route) or kernel_route(q, k, v, dout)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[1:]
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     with torch.cuda.device(q.device):
         err = _library().fused_attention_dkv(
-            *_head(q, k, v, kv_mask), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            *_head(q, k, v, kv_mask, route), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), *_tail(q, causal),
         )
-    _raise_on(err, "dkv")
-    with build.launch_lock:
-        launches[_DKV_ID[tier]] += 1
+    _raise_on(err, "dkv", route)
+    _count(_DKV_ID[tier], "dkv", route)
     return dk, dv
 
 

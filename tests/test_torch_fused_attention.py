@@ -282,3 +282,137 @@ def test_strided_views_of_a_packed_projection():
     a = tfa.fused_attention(*views, causal=True, tier="fused")
     b = tfa.fused_attention(*copies, causal=True, tier="fused")
     assert torch.equal(a, b)
+
+
+# ------------------------------------------------------------------ routes
+def _packed(b, t, h, d, dtype, extra=0, offset=0):
+    """q, k, v as views of one packed ``[B, T, 3, H, Dh]`` projection (the
+    models' layout); ``extra`` elements pad each token's row and ``offset``
+    shifts every base, to break the TMA route's alignment."""
+    flat = torch.zeros(b, t, 3 * h * d + extra + offset, dtype=dtype)
+    packed = flat[..., offset:offset + 3 * h * d].view(b, t, 3, h, d)
+    return packed.unbind(dim=2)
+
+
+@pytest.mark.parametrize(
+    "make,route",
+    [
+        # the long-context main path (LC_MAIN) and the causal LM: packed bf16 at Dh 64
+        (lambda: _packed(2, 256, 8, 64, torch.bfloat16), "wgmma"),
+        (lambda: _packed(1, 1000, 4, 64, torch.bfloat16), "wgmma"),
+        (lambda: _packed(2, 128, 4, 32, torch.bfloat16), "wgmma"),  # Dh 32: the 64-byte swizzle
+        (lambda: [torch.zeros(1, 64, 1, 64, dtype=torch.bfloat16)] * 3, "wgmma"),  # contiguous, H 1
+        (lambda: _packed(2, 100, 4, 20, torch.bfloat16), "mma"),  # ragged Dh
+        (lambda: _packed(2, 128, 4, 48, torch.bfloat16), "mma"),  # Dh 48: no wgmma instance
+        (lambda: _packed(2, 128, 4, 64, torch.bfloat16, extra=1), "mma"),  # token stride not 16 bytes
+        (lambda: _packed(2, 128, 4, 64, torch.bfloat16, offset=1), "mma"),  # base not 16-byte aligned
+        # heads outside tokens ([B, H, T, Dh] viewed as [B, T, H, Dh]): not nested
+        (lambda: [torch.zeros(2, 4, 128, 64, dtype=torch.bfloat16).transpose(1, 2)] * 3, "mma"),
+        (lambda: _packed(2, 128, 4, 64, torch.float32), "fma"),
+        (lambda: _packed(2, 128, 4, 128, torch.bfloat16), "fma"),  # Dh 128 in bf16
+        (lambda: _packed(2, 128, 4, 20, torch.float32), "fma"),
+    ],
+)
+def test_kernel_route_follows_the_layout_rule(make, route):
+    q, k, v = make()
+    dout = torch.zeros(q.shape, dtype=q.dtype)
+    assert tfa.kernel_route(q, k, v) == route
+    assert tfa.kernel_route(q, k, v, dout) == route
+    # dq has no wgmma kernel: it runs the mma.sync one on the same layouts
+    assert tfa.dq_route(route) == ("mma" if route == "wgmma" else route)
+
+
+def test_kernel_route_needs_a_describable_dout():
+    q, k, v = _packed(2, 128, 4, 64, torch.bfloat16)
+    dout = torch.zeros(2, 128, 4, 65, dtype=torch.bfloat16)[..., 1:]  # base off by 2 bytes
+    assert tfa.kernel_route(q, k, v) == "wgmma"
+    assert tfa.kernel_route(q, k, v, dout) == "mma"
+
+
+@pytest.mark.parametrize("call", ["fwd", "dq", "dkv"])
+def test_wrappers_refuse_an_unknown_route(call):
+    x = torch.zeros(1, 64, 2, 32, dtype=torch.bfloat16)
+    stat = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match="route"):
+        if call == "fwd":
+            tfa.attention_fwd(x, x, x, route="tensor_core")
+        elif call == "dq":
+            tfa.attention_dq(x, x, x, None, x, stat, stat, route="wgmma2")
+        else:
+            tfa.attention_dkv(x, x, x, None, x, stat, stat, route="")
+
+
+def test_a_named_route_computes_the_same_function_on_the_cpu():
+    """On CPU tensors every route is the plain version: naming one changes
+    the kernel family on the card, never the function."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(1, 96, 2, 32)).astype(np.float32)).to(torch.bfloat16)
+    want = tfa.attention_fwd(x, x, x, causal=True)
+    for route in tfa.ROUTES:
+        got = tfa.attention_fwd(x, x, x, causal=True, route=route)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """An edited ``csrc/*.cuh`` header gives every library a new file name,
+    so a build made before the edit is never loaded."""
+    from distributed_learning_simulator_tpu_torch.ops import build
+
+    (tmp_path / "kernel.cu").write_text('#include "helpers.cuh"\n')
+    header = tmp_path / "helpers.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC_DIR", str(tmp_path))
+    before = build.library_path("kernel")
+    header.write_text("// v2\n")
+    assert build.library_path("kernel") != before
+    assert build.headers() == [str(header)]
+
+
+def test_build_keeps_the_compiler_report_beside_the_library(tmp_path, monkeypatch):
+    """A build writes its ``ptxas`` output beside the library, compiles a
+    library once, and compiles it again when the report is missing."""
+    import os
+
+    from distributed_learning_simulator_tpu_torch.ops import build
+
+    csrc, calls, nvcc = tmp_path / "csrc", tmp_path / "calls", tmp_path / "nvcc"
+    csrc.mkdir()
+    (csrc / "kernel.cu").write_text("// kernel\n")
+    nvcc.write_text(
+        f"#!/bin/sh\necho call >> {calls}\n"
+        'while [ $# -gt 0 ]; do [ "$1" = -o ] && out="$2"; shift; done\n'
+        ': > "$out"\necho "ptxas info    : Used 10 registers"\n'
+    )
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "out"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    build.build(["kernel"])
+    assert os.path.isfile(build.library_path("kernel"))
+    assert "Used 10 registers" in build.report("kernel")
+    build.build(["kernel"])
+    assert calls.read_text().split() == ["call"]
+    os.remove(build.report_path("kernel"))
+    build.build(["kernel"])
+    assert calls.read_text().split() == ["call", "call"]
+    assert "Used 10 registers" in build.report("kernel")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernel_bound_counts_only_the_valid_pairs(causal):
+    """``chip_smoke.py``'s K6-K11 bound counts the (query, key) pairs that
+    the mask and the causal flag leave valid (the plain version's own
+    validity: every other pair gives p = 0 exactly), and reads the k and v
+    rows of valid keys only."""
+    import chip_smoke
+
+    b, h, t, dh = 3, 2, 96, 32
+    rng = np.random.default_rng(11)
+    mask = torch.from_numpy((rng.random((b, t)) > 0.4).astype(np.float32))
+    mask[2] = 0.0
+    flops, nbytes = chip_smoke._fused_work((b, h, t, dh, "bfloat16", causal, "pad"), mask)
+    pairs = h * sum(int(tfa._valid(mask, bi, t, causal, "cpu").sum()) for bi in range(b))
+    for part, products in (("fwd", 2), ("dq", 3), ("dkv", 4)):
+        assert flops[part] == products * 2 * pairs * dh
+    act, kv = b * t * h * dh * 2, int(mask.sum()) * h * dh * 2
+    assert nbytes["fwd"] == 2 * act + 2 * kv + b * t * 4 + b * h * t * 4
