@@ -7,9 +7,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use; the
-   wgmma kernels of K6/K8 (``fwd_wgmma_kernel``, ``dkv_wgmma_kernel``)
-   must build without spills, and their SASS (``cuobjdump -sass``) must
-   hold ``HGMMA`` and ``UTMALDG``;
+   wgmma kernels (``WGMMA_KERNELS``: K6-K8's ``fwd_wgmma_kernel``,
+   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel`` and K4's
+   ``short_fwd_wgmma_kernel``) must build without spills, and their SASS
+   (``cuobjdump -sass``) must hold ``HGMMA`` and ``UTMALDG``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
    ``vit_base`` attention shape (K4, K5), at the long-context
@@ -17,14 +18,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
    K2's in-kernel Philox against its own stream), and at the edge shapes
    the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
-   kernel (K2/K3: their device time from the profiler, since a wrapper
-   call's host cost exceeds it), plain version, bound and one library call
-   where one exists (a yardstick only: the port never calls it); K6-K11
-   also check which kernel family (``kernel_route``: wgmma, mma.sync,
-   FMA) each case ran, time the mma.sync K6/K8 beside the wgmma ones, and
-   show the C entries refusing the wgmma route off its layouts; two
-   faults planted at the main attention shape, and two at the largest
-   codec leaf, must fail the same comparisons;
+   kernel (K2/K3/K4: their device time from the profiler, since a wrapper
+   call's host cost is of its size; K4's yardstick too), plain version,
+   bound and one library call where one exists (a yardstick only: the port
+   never calls it); K4 and K6-K11 also check which kernel each case ran
+   (``short_attention.fwd_route``: wgmma or FMA; ``kernel_route``: wgmma,
+   mma.sync, FMA), time the kernels the wgmma ones replaced beside them
+   (the FMA K4, the mma.sync K6/K7/K8), and show the C entries refusing
+   the wgmma route off its layouts; faults planted at the ViT-small
+   shape (one) and the main attention shape (two), and two at the
+   largest codec leaf, must fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -38,8 +41,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    configuration (``lc_config``: imdb at max_len 8192, d_model 512, 8
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
-   exactly (and K6/K8 all on the wgmma kernels, K7 on mma.sync), then one
-   long-context training round under the profiler;
+   exactly (and all on the wgmma kernels), then one long-context training
+   round under the profiler; every K4 launch of the ViT and fed_obd_sq
+   main paths must take the Hopper forward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
    for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
@@ -104,30 +108,41 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20, warmup: int = 3) -> float:
+def kernel_device_ms(fn, names: tuple[str, ...] | None, iters: int = 20, warmup: int = 3) -> float:
     """Device time per call of ``fn`` spent in the kernels whose names hold
-    one of ``names``, from ``torch.profiler`` over ``iters`` back-to-back
-    calls (warm L2): the kernels' own time, without the host's cost of
-    each call.  Fails unless each named kernel ran once a call."""
+    one of ``names`` (None: every kernel it launches), from
+    ``torch.profiler`` over ``iters`` back-to-back calls (warm L2): the
+    kernels' own time, without the host's cost of each call.  The
+    profiler's schedule traces a warm-up step of ``iters`` calls first and
+    keeps only the step after it, since the first kernels of a trace can
+    go unrecorded while tracing starts.  Fails unless each named kernel
+    ran once a call (None: unless at least one kernel ran a call)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total, counts = 0.0, dict.fromkeys(names, 0)
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for name in names:
-            if name in e.key:
-                total += e.self_device_time_total
-                counts[name] += e.count
-    check(all(c == iters for c in counts.values()) and total > 0, f"profiled kernels {counts}, {total} us")
+    steps = schedule(wait=0, warmup=1, active=1, repeat=1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=steps) as prof:
+        for _ in range(2):  # the warm-up step, then the one kept
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    # the schedule's step annotation ("ProfilerStep#") spans the step, not device work
+    device = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    if names is None:
+        print("  device work of one profiled step: " + "; ".join(f"{k[:80]} x{n} {t:.1f} us" for k, n, t in device))
+        counts = {"all kernels": sum(n for _, n, _ in device)}
+        launched = counts["all kernels"] >= iters
+    else:
+        device = [d for d in device if any(name in d[0] for name in names)]
+        counts = {name: sum(n for k, n, _ in device if name in k) for name in names}
+        launched = all(c == iters for c in counts.values())
+    total = sum(t for _, _, t in device)
+    check(launched and total > 0, f"profiled kernels {counts}, {total} us")
     return total / 1e3 / iters
 
 
@@ -221,7 +236,13 @@ def check_short_attention(gen) -> tuple[dict, dict]:
     """K4 and K5 against their plain versions at the ViT-small round's shape
     and the fed_obd_sq path's ``vit_base`` shape (batch 64, 12 heads, a
     2304-wide packed row), both dtypes, and the edge shapes: S = 50 with a
-    kv_mask, Dh = 128, S = 1024."""
+    kv_mask, Dh = 128, S = 1024; each case's forward kernel (bf16 at Dh 64
+    the Hopper kernel, else the FMA one) checked, bf16 also by the relative
+    check of ``attention_mismatch``.  At the ViT-small shape a planted fault
+    (p not rounded) must fail that check, and K4, the FMA K4 it replaced
+    (``fma_ms``) and SDPA's forward are timed by their device time (the
+    profiler's; a wrapper call's host cost is of the same size), the
+    wrapper's calls back to back as ``call_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -248,23 +269,39 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         if masked:
             mask = (torch.rand(b, s, generator=gen, device="cuda") > 0.3).float()
             mask[:, 0] = 1.0
+        before = dict(sa.route_launches)
         out, lse = sa.short_attention_fwd(qkv, h, mask)
         ref_out, ref_lse = sa.short_attention_fwd_plain(qkv, h, mask)
         dqkv = sa.short_attention_bwd(qkv, dout, lse, h, mask)
         ref_dqkv = sa.short_attention_bwd_plain(qkv, dout, ref_lse, h, mask)
         torch.cuda.synchronize()
+        routes = sorted(key for key, n in sa.route_launches.items() if n != before[key])
+        family = "wgmma" if dtype == torch.bfloat16 and dh == 64 else "fma"
+        check(routes == sorted([f"fwd/{family}", "bwd/fma"]), f"short_attention {b, s, h, dh, dtype} ran {routes}")
         errs = (max_err(out, ref_out), max_err(lse, ref_lse), max_err(dqkv, ref_dqkv))
         # f32: summation order only.  bf16: p and dS are rounded to bf16 on
         # both sides, so a value at a rounding boundary moves an output by
         # one bf16 ulp (2^-7 at magnitudes 1-2, 2^-5 up to 8)
         tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+        rel = ""
+        if dtype == torch.bfloat16:
+            rel_max, rel_rms, ok = attention_mismatch(out, ref_out, "bfloat16")
+            rel = f"; out relative max/rms {rel_max:.2g}/{rel_rms:.2g} (tol {ATTN_TOL['bfloat16'][0]:.3g}/{ATTN_TOL['bfloat16'][1]:g})"
+            check(ok, f"short_attention {b, s, h, dh} out: max {rel_max:.3g} rms {rel_rms:.3g} of the reference's")
         print(
             f"K4/K5 {str(dtype)[6:]} B={b} S={s} H={h} Dh={dh} mask={masked}: max_abs_err "
-            f"out {errs[0]:.3g} lse {errs[1]:.3g} dqkv {errs[2]:.3g} (tol {tol:g}, lse 1e-5)"
+            f"out {errs[0]:.3g} lse {errs[1]:.3g} dqkv {errs[2]:.3g} (tol {tol:g}, lse 1e-5){rel}; routes {' '.join(routes)}"
         )
         check(errs[0] <= tol and errs[2] <= tol and errs[1] <= 1e-5, f"short_attention {b,s,h,dh,dtype}")
         if (b, s, h, dh, dtype) != (BATCH, 64, 6, 64, torch.bfloat16):
             continue
+        # a kernel that does not round p to bf16: the plain version on the
+        # f32 values of the same inputs, rounded to bf16 at the end
+        unrounded = sa.short_attention_fwd_plain(qkv.float(), h, mask)[0].to(dtype)
+        rel_max, rel_rms, ok = attention_mismatch(unrounded, ref_out, "bfloat16")
+        check(not ok, "a K4 that does not round p passes the check")
+        print(f"planted fault at the ViT-small shape, a K4 that does not round p: relative max/rms"
+              f" {rel_max:.2g}/{rel_rms:.2g} (rejected)")
         itemsize, name = qkv.element_size(), "bfloat16"
         mm = 2 * b * h * s * s * dh  # one [S, S] x [S, Dh] product, all heads
         fwd_bound = bound_ms(b * s * 3 * d * itemsize + b * s * d * itemsize + b * h * s * 4, 2 * mm, name)
@@ -277,12 +314,18 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
         fwd_row = {
             "max_abs_err": max(errs[0], errs[1]),
-            "ms": cuda_ms(lambda: sa.short_attention_fwd(qkv, h, mask)),
+            "ms": kernel_device_ms(lambda: sa.short_attention_fwd(qkv, h, mask), ("short_fwd_wgmma_kernel",)),
+            "call_ms": cuda_ms(lambda: sa.short_attention_fwd(qkv, h, mask)),
+            # the FMA kernel this route replaced, on the same inputs
+            "fma_ms": kernel_device_ms(lambda: sa._fwd(qkv, h, mask, "fma"), ("fwd_kernel",)),
             "plain_ms": cuda_ms(lambda: sa.short_attention_fwd_plain(qkv, h, mask)),
             "bound_ms": fwd_bound[0],
             "bound_by": fwd_bound[1],
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            # every kernel SDPA's forward launches, by the same clock
+            "library_ms": kernel_device_ms(lambda: F.scaled_dot_product_attention(q, k, v), None),
+            "library_call_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "shape": f"qkv [{b}, {s}, {3 * d}] bf16",
+            "family": family,
         }
         bwd_row = {
             "max_abs_err": errs[2],
@@ -321,46 +364,53 @@ FUSED_CASES = [
 #: the f32 task's attention shape (K9-K11's path): batch 2, 2 heads of 64
 LC_F32 = (2, 2, 8192, 64, "float32", False, "pad")
 #: the (fwd, dq, dkv) kernel families some cases must run: the packed bf16
-#: layouts at Dh 64 and 32 take the wgmma forward and dk/dv, the ragged Dh
-#: 20 the mma.sync kernels, f32 the FMA kernels
+#: layouts at Dh 64 and 32 take the wgmma kernels, the ragged Dh 20 the
+#: mma.sync kernels, f32 the FMA kernels
 ROUTE_OF = {
-    LC_MAIN: ("wgmma", "mma", "wgmma"),
-    FUSED_CASES[1]: ("wgmma", "mma", "wgmma"),
+    LC_MAIN: ("wgmma", "wgmma", "wgmma"),
+    FUSED_CASES[1]: ("wgmma", "wgmma", "wgmma"),
     FUSED_CASES[6]: ("mma", "mma", "mma"),
-    FUSED_CASES[7]: ("wgmma", "mma", "wgmma"),
-    LC_DH32: ("wgmma", "mma", "wgmma"),
+    FUSED_CASES[7]: ("wgmma", "wgmma", "wgmma"),
+    LC_DH32: ("wgmma", "wgmma", "wgmma"),
     LC_F32: ("fma", "fma", "fma"),
 }
 
 
-#: the Hopper kernels of the wgmma route (csrc/fused_attention.cu)
-WGMMA_KERNELS = ("fwd_wgmma_kernel", "dkv_wgmma_kernel")
+#: the Hopper kernels (wgmma, TMA) of each library, each with two
+#: instantiations: Dh 32 and 64 (fused_attention), one pass and two
+#: (short_attention)
+WGMMA_KERNELS = {
+    "fused_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel"),
+    "short_attention": ("short_fwd_wgmma_kernel",),
+}
 
 
-def _wgmma_name(mangled: str) -> str | None:
-    """``fwd_wgmma_kernel<64>`` for a mangled instantiation, else None."""
+def _wgmma_name(mangled: str, kernels: tuple[str, ...]) -> str | None:
+    """``fwd_wgmma_kernel<64>`` for a mangled instantiation of one of
+    ``kernels`` (the name right after its length prefix), else None."""
     import re
 
-    found = re.search(r"(%s)ILi(\d+)E" % "|".join(WGMMA_KERNELS), mangled)
+    found = re.search(r"(?<=\d)(%s)ILi(\d+)E" % "|".join(kernels), mangled)
     return f"{found.group(1)}<{found.group(2)}>" if found else None
 
 
-def check_wgmma_build(report: str) -> None:
-    """The wgmma kernels as built: ``ptxas``' register, shared-memory and
-    spill report (no spills allowed), and the SASS of the built library
-    (``cuobjdump -sass``), which must hold ``HGMMA`` (wgmma) and
-    ``UTMALDG`` (TMA loads) in each of them."""
+def check_wgmma_build(library: str) -> None:
+    """The wgmma kernels of ``library`` as built: ``ptxas``' register,
+    shared-memory and spill report (no spills allowed), and the SASS of the
+    built library (``cuobjdump -sass``), which must hold ``HGMMA`` (wgmma)
+    and ``UTMALDG`` (TMA loads) in each of them."""
     from distributed_learning_simulator_tpu_torch.ops import build
 
+    kernels, report = WGMMA_KERNELS[library], build.report(library)
     ptxas, current = {}, None
     for line in report.splitlines():
         if "Compiling entry function" in line:
-            current = _wgmma_name(line)
+            current = _wgmma_name(line, kernels)
             if current:
                 ptxas[current] = []
         elif current and ("registers" in line or "spill" in line):
             ptxas[current].append(line.replace("ptxas info    :", "").strip())
-    check(len(ptxas) == 2 * len(WGMMA_KERNELS), f"ptxas entries of the wgmma kernels: {sorted(ptxas)}")
+    check(len(ptxas) == 2 * len(kernels), f"ptxas entries of the wgmma kernels: {sorted(ptxas)}")
     for line in sorted({x.strip() for x in report.splitlines() if "warning" in x.lower()}):
         print(f"  {line}")
     for name, lines in sorted(ptxas.items()):
@@ -368,18 +418,18 @@ def check_wgmma_build(report: str) -> None:
         check(any("0 bytes spill stores, 0 bytes spill loads" in x for x in lines), f"{name} spills: {lines}")
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run(
-        [cuobjdump, "-sass", build.library_path("fused_attention")], capture_output=True, text=True, check=True
+        [cuobjdump, "-sass", build.library_path(library)], capture_output=True, text=True, check=True
     ).stdout
     counts, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            current = _wgmma_name(line)
+            current = _wgmma_name(line, kernels)
             if current:
                 counts[current] = dict.fromkeys(("HGMMA", "UTMALDG", "SYNCS", "HMMA"), 0)
         elif current:
             for op in counts[current]:
                 counts[current][op] += f" {op}." in line or f" {op} " in line
-    check(len(counts) == 2 * len(WGMMA_KERNELS), f"SASS functions of the wgmma kernels: {sorted(counts)}")
+    check(len(counts) == 2 * len(kernels), f"SASS functions of the wgmma kernels: {sorted(counts)}")
     for name, ops in sorted(counts.items()):
         print(f"  SASS {name}: " + ", ".join(f"{op} x{n}" for op, n in ops.items()))
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{name} has no wgmma or TMA load in its SASS: {ops}")
@@ -516,7 +566,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
             f" lse 1e-4 absolute); routes {' '.join(routes)}"
         )
         if dtype == "bfloat16" and dh == 32:
-            _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref[1:]))
+            _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref))
         if case not in (LC_MAIN, LC_F32):
             continue
         flops, nbytes = _fused_work(case, mask)
@@ -550,6 +600,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
         # (a yardstick within this run)
         earlier = {
             "fwd": lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="mma"),
+            "dq": lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="mma"),
             "dkv": lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="mma"),
         }
         for part, (kernel, plain, library, err) in timed.items():
@@ -564,7 +615,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
                 # SDPA's backward also computes all three gradients
                 "library_ms": cuda_ms(library, iters=5, warmup=1),
                 "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
-                "family": fa.kernel_route(q, k, v, dout) if part != "dq" else fa.dq_route(fa.kernel_route(q, k, v)),
+                "family": fa.kernel_route(q, k, v, dout),
             }
             if part in earlier and rows[ids[part]]["family"] == "wgmma":
                 rows[ids[part]]["mma_sync_ms"] = cuda_ms(earlier[part], iters=5, warmup=1)
@@ -573,19 +624,21 @@ def check_fused_attention(gen) -> dict[str, dict]:
 
 
 def _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref) -> None:
-    """The forward and dk/dv on both bf16 kernel families at Dh 32, each
-    checked against the plain version and timed in this run: the route
-    rule serves Dh 32 from the family that is faster here.  The times go
-    into K6's and K8's rows as ``dh32_ms``."""
+    """The forward, dq and dk/dv on both bf16 kernel families at Dh 32, each
+    checked against the plain version (``ref``: out, dq, dk, dv) and timed
+    in this run: the route rule serves Dh 32 from the family that is
+    faster here.  The times go into K6's, K7's and K8's rows as
+    ``dh32_ms``."""
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
 
     b, h, t, dh, dtype, causal, _ = case
     calls = {
         "fwd": lambda r: fa.attention_fwd(q, k, v, mask, causal, tier, route=r)[:1],
+        "dq": lambda r: (fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route=r),),
         "dkv": lambda r: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route=r),
     }
-    wants = {"fwd": ref[:1], "dkv": ref[1:]}
-    for part, kid in (("fwd", "K6"), ("dkv", "K8")):
+    wants = {"fwd": ref[:1], "dq": ref[1:2], "dkv": ref[2:]}
+    for part, kid in (("fwd", "K6"), ("dq", "K7"), ("dkv", "K8")):
         ms = {}
         for route in ("wgmma", "mma"):
             for got, want in zip(calls[part](route), wants[part]):
@@ -681,7 +734,7 @@ def _kernel_group(name: str) -> str:
         return "port kernels (K6-K11)"
     if any(k in name for k in ("encode_kernel", "absmax_kernel", "decode_kernel")):
         return "port kernels (K2, K3)"
-    if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "weighted_accum_kernel")):
+    if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "short_fwd_wgmma_kernel", "weighted_accum_kernel")):
         return "port kernels (K1, K4, K5)"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")):
         return "matrix products (cuBLAS)"
@@ -729,6 +782,14 @@ def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float
         for e in host:
             print(f"    {e.self_cpu_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
     return busy / wall
+
+
+def check_short_routes(routes: dict[str, int], k4: int, k5: int, path: str) -> None:
+    """Every K4 launch of a main path on the Hopper forward, every K5 launch
+    on the backward (``ops/short_attention.py::route_launches``)."""
+    want = {"fwd/fma": 0, "fwd/wgmma": k4, "bwd/fma": k5}
+    print(f"  {path} K4/K5 launches by kernel: {routes}")
+    check(routes == want, f"{path} K4/K5 kernels {routes}, want {want}")
 
 
 def profile_round(workdir: str) -> None:
@@ -802,7 +863,7 @@ def _reset_launches() -> None:
 
     wa.launches = sa.fwd_launches = sa.bwd_launches = 0
     qsgd.encode_launches = qsgd.decode_launches = 0
-    for counts in (fa.launches, fa.route_launches):
+    for counts in (fa.launches, fa.route_launches, sa.route_launches):
         for key in counts:
             counts[key] = 0
 
@@ -918,8 +979,8 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
         check(moved["K7"] == moved["K8"] == layers * steps, f"{model} K7/K8 launches {moved}")
         check(moved["K1"] == config.round, f"{model} K1 launches {moved['K1']} (one chunk a round)")
         check(moved["K9"] == moved["K10"] == moved["K11"] == 0, f"{model} stream-tier launches {moved}")
-        # the main path runs the wgmma forward and dk/dv, and dq on mma.sync
-        want = {"fwd/wgmma": moved["K6"], "dq/mma": moved["K7"], "dkv/wgmma": moved["K8"]}
+        # the main path runs the wgmma forward, dq and dk/dv
+        want = {"fwd/wgmma": moved["K6"], "dq/wgmma": moved["K7"], "dkv/wgmma": moved["K8"]}
         check(routes == want, f"{model} kernel families {routes}, want {want}")
     return total, round_seconds
 
@@ -1206,6 +1267,7 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
     import numpy as np
     import torch
 
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
     from distributed_learning_simulator_tpu_torch.training import build_task, run_task
 
     config = obd_config(os.path.join(workdir, "obd_main"))
@@ -1229,7 +1291,7 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
         perf = run_task(ctx)["performance"]
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    launches = _read_launches()
+    launches, short_routes = _read_launches(), dict(sa.route_launches)
     k2, k3 = expected_qsgd_launches(ctx)
     params = sum(t.numel() for t in ctx.model_ctx.module.state_dict().values())
     ratios = [r for e in [ctx.server._endpoint, *(w._endpoint for w in ctx.workers)] for r in e.compression_ratios]
@@ -1255,6 +1317,7 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
     check(phases == want, f"phases in round_record.json {phases}")
     check((launches["K2"], launches["K3"]) == (k2, k3), f"K2/K3 launches {launches['K2']}/{launches['K3']}, want {k2}/{k3}")
     check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
+    check_short_routes(short_routes, launches["K4"], launches["K5"], "fed_obd_sq")
     others = [kid for kid in ("K1", "K6", "K7", "K8", "K9", "K10", "K11") if launches[kid]]
     check(not others, f"kernels off this path launched: {others}")
     check(all(0.27 < r < 0.30 for r in ratios), f"compression ratios {min(ratios)}-{max(ratios)}, want about 9/32")
@@ -1310,7 +1373,8 @@ def main(argv: list[str]) -> int:
     for name in sources:
         regs = [line.split(":", 1)[1].strip() for line in build.report(name).splitlines() if "registers" in line]
         print(f"  {name}.cu: {'; '.join(regs)}")
-    check_wgmma_build(build.report("fused_attention"))
+    for library in WGMMA_KERNELS:
+        check_wgmma_build(library)
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1319,8 +1383,8 @@ def main(argv: list[str]) -> int:
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
     check_planted_faults(gen)
-    if kernels_only:  # phases 1-2 of the K6-K11 kernels: the quickest check of a kernel change
-        print(json.dumps({kid: fused[kid] for kid in sorted(fused)}))
+    if kernels_only:  # phases 1-2 of K1 and K4-K11: the quickest check of a kernel change
+        print(json.dumps({"K1": k1, "K4": k4, "K5": k5, **{kid: fused[kid] for kid in sorted(fused)}}))
         return 0
     k2, k3 = check_qsgd(gen)
 
@@ -1333,17 +1397,19 @@ def main(argv: list[str]) -> int:
     # 4. the main path
     config = dense_config(os.path.join(workdir, "main"))
     torch.cuda.reset_peak_memory_stats()
-    wa.launches = sa.fwd_launches = sa.bwd_launches = 0
+    _reset_launches()
     t0 = time.monotonic()
     perf = train(config)["performance"]
     wall = time.monotonic() - t0
     launches = {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches}
+    short_routes = dict(sa.route_launches)
     last = perf[ROUNDS]
     print(
         f"main path: {ROUNDS} rounds in {wall:.2f} s (setup included); round {ROUNDS}"
         f" {last['round_seconds']:.3f} s = {1 / last['round_seconds']:.3f} rounds/s;"
         f" test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f};"
-        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches}"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches};"
+        f" K4/K5 by kernel {short_routes}"
     )
     for r, row in perf.items():
         check(np.isfinite(row["test_loss"]), f"round {r} test loss {row['test_loss']}")
@@ -1351,6 +1417,7 @@ def main(argv: list[str]) -> int:
         check(row["test_count"] == 256.0, f"round {r} evaluated {row['test_count']} samples")
     check(launches["K1"] == ROUNDS * WORKERS // CHUNK, f"K1 launches {launches['K1']}")
     check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
+    check_short_routes(short_routes, launches["K4"], launches["K5"], "ViT-small")
     profile_round(workdir)
 
     # 4b. the long-context main path (K6-K8, K1) and its profile

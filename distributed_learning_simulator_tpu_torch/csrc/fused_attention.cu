@@ -25,13 +25,14 @@
 //   * wgmma (route 2): bf16 at Dh 32 or 64 where TMA can describe q, k, v
 //     (and dout): 16-byte-aligned bases, nested strides whose byte sizes
 //     are multiples of 16.  The long-context and causal-LM main paths.
-//     fwd_wgmma_kernel (K6/K9) and dkv_wgmma_kernel (K8/K11), below the
-//     mma.sync kernels: products on wgmma from shared-memory descriptors,
-//     tiles brought by TMA into a ring of stages with full/empty mbarriers,
-//     one producer warp and two consumer warpgroups of 64 rows each, the
-//     block owning 128 query rows (forward) or 128 keys (dk/dv);
+//     fwd_wgmma_kernel (K6/K9), dkv_wgmma_kernel (K8/K11) and
+//     dq_wgmma_kernel (K7/K10), below the mma.sync kernels: products on
+//     wgmma from shared-memory descriptors, tiles brought by TMA into a
+//     ring of stages with full/empty mbarriers, one producer warp and two
+//     consumer warpgroups of 64 rows each, the block owning 128 query rows
+//     (forward, dq) or 128 keys (dk/dv);
 //   * mma.sync (route 1): bf16 at Dh <= 64 on any other layout (a ragged Dh
-//     such as 20, a misaligned stride), and dq at every bf16 Dh <= 64:
+//     such as 20, a misaligned stride):
 //     fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel, mma.sync.m16n8k16
 //     on 64-row tiles loaded by all threads between barriers;
 //   * FMA (route 0): f32 (whose products must stay exact f32) and Dh 128
@@ -78,10 +79,7 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <mutex>
 #include <type_traits>
-#include <utility>
-#include <vector>
 
 #include "hopper.cuh"
 
@@ -459,8 +457,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ----------------------------------------------------------------------------
-// mma.sync path: bf16 at Dh <= 64 off the wgmma route, and every bf16 dq
-// (K7/K10) at Dh <= 64.  The same three
+// mma.sync path: bf16 at Dh <= 64 off the wgmma route.  The same three
 // functions with the same roundings, the products on mma.sync.m16n8k16
 // (bf16 in, f32 accumulate: bf16 products are exact in f32, so only the
 // summation order differs from the FMA kernels).  One block of 4 warps per
@@ -858,13 +855,14 @@ __global__ void __launch_bounds__(kMmaThreads)
 
 // ----------------------------------------------------------------------------
 // Hopper path: bf16 at Dh 32 and 64 on layouts TMA can describe (the long-
-// context and causal-LM main paths), for the forward (K6/K9) and dk/dv
-// (K8/K11).  The same functions and roundings as the mma.sync kernels
-// above; the products run on wgmma (bf16 in, f32 accumulate), the tiles
-// arrive by TMA into a ring of shared-memory stages guarded by full/empty
-// mbarriers, and the block (384 threads, one a SM) is warp-specialised:
+// context and causal-LM main paths), for the forward (K6/K9), dk/dv
+// (K8/K11) and dq (K7/K10, after dk/dv).  The same functions and
+// roundings as the mma.sync kernels above; the products run on wgmma
+// (bf16 in, f32 accumulate), the tiles arrive by TMA into a ring of
+// shared-memory stages guarded by full/empty mbarriers, and the block
+// (384 threads, one a SM) is warp-specialised:
 //   * warpgroups 0 and 1 consume: each owns 64 rows of the block's 128
-//     (query rows in the forward, keys in dk/dv) and keeps its
+//     (query rows in the forward and dq, keys in dk/dv) and keeps its
 //     accumulators in registers;
 //   * the first warp of warpgroup 2 produces: lane 0 issues the TMA
 //     loads, all 32 lanes write the per-tile side data (key validity; in
@@ -873,21 +871,26 @@ __global__ void __launch_bounds__(kMmaThreads)
 //     so the data reaches the consumers with the tile.
 // Scores come back as wgmma accumulators and turn into the bf16 A operand
 // of the next product in registers (hopper.cuh), never through shared
-// memory.  In dk/dv a tile whose scores are all valid (every key valid,
-// every query inside T, no causal cut) skips the per-element masking.
+// memory.  In dk/dv and dq a tile whose scores are all valid (every key
+// valid, every query inside T, no causal cut) skips the per-element
+// masking.
 // Rows past T and Dh columns past the tile read as TMA's zero fill.
 //
-// What bounds them: both are bound by operations (the forward's 3
-// products, dk/dv's 4).  The exp of every score (MUFU, 16 a clock an SM)
-// costs about as much as the tensor-core time of the products around it
-// at Dh 64, so the forward's second pass is bound by both together, and
-// the kernels reach the bound only where one warpgroup's exp runs while
-// the other's products do.  dk/dv issues the next stage's products behind
-// this stage's (below); the forward waits for each tile's scores, and its
+// What bounds them: all are bound by operations (the forward's 3
+// products, dq's 3, dk/dv's 4).  The exp of every score (MUFU, 16 a clock
+// an SM) costs about as much as the tensor-core time of the products
+// around it at Dh 64, so the forward's second pass is bound by both
+// together, and the kernels reach the bound only where one warpgroup's
+// exp runs while the other's products do.  dk/dv and dq issue the next
+// stage's products behind this stage's (below); the forward waits for each tile's scores, and its
 // two warpgroups fill each other's gaps only as the scheduler happens to
 // interleave them (a paced ping-pong between them is a later step).
 
+using hopper::aligned16;
+using hopper::allow_smem;
 using hopper::desc_add;
+using hopper::make_map;
+using hopper::Strides;
 
 constexpr int kWgConsumers = 2;
 // two consumer warpgroups and a producer warpgroup, of which one warp
@@ -1332,6 +1335,220 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// dq (K7/K10) on the Hopper path: dq_wgmma_kernel, dk/dv's kernel with the
+// roles of queries and keys swapped.  The block owns 128 query rows, one
+// consumer warpgroup a 64-row half; Q and dO arrive once, then K and V
+// tiles of 64 keys through a 4-stage ring.  Per key tile a warpgroup
+// issues S = Q K^T and dP = dO V^T from K-major descriptors, forms
+// p = exp(s * scale - lse) (0 where the pair is invalid) and
+// ds = p (dP - delta) in registers, rounds ds to bf16 into A fragments,
+// and accumulates dq += dS K with K as the MN-major B operand (the
+// forward's P.V with K for V); the next tile's S and dP are issued right
+// behind it, so the tensor cores see two groups back to back.  The scale
+// comes at the end.
+//
+// What bounds it: operations (3 products a valid pair).  The producer
+// reads each tile's key validity before it loads the tile and passes over
+// a tile whose 64 keys are all invalid (masked or past T): every p of it
+// is 0, so it adds exactly 0 to dq, and the padded text batches mask a
+// third of their keys (on an H100 SXM at 700 W this took dq at the
+// long-context shape from 6.37 ms to 3.39 ms: PERF.md).  It ends the walk with a stage whose
+// tile index is -1, so the consumers never count tiles themselves.
+constexpr int kDqKeys = 64;  // keys a dq stage carries
+constexpr int kDqStages = 4;
+
+template <int DH>
+struct DqSmem {
+  static constexpr int kRowBytes = 2 * DH;
+  static constexpr int kQ = kWgBlock * kRowBytes;      // the block's Q (or dO) rows
+  static constexpr int kTile = kDqKeys * kRowBytes;    // a K or V tile
+  static constexpr int kStages0 = 2 * kQ;
+  static constexpr int kInfo = kStages0 + kDqStages * 2 * kTile;  // per stage: tile index, all keys valid
+  static constexpr int kValid = kInfo + kDqStages * 2 * static_cast<int>(sizeof(int));
+  static constexpr int kBars = kValid + kDqStages * kDqKeys;
+  static constexpr size_t kBytes = kBars + (2 * kDqStages + 1) * sizeof(uint64_t) + 1024;
+};
+
+// S = Q K^T and dP = dO V^T of one stage as one group (Q, dO: this
+// warpgroup's 64 rows; K, V: the stage's 64 keys)
+template <int DH>
+__device__ __forceinline__ void dq_scores(float (&s)[32], float (&dp)[32], uint64_t dq_a, uint64_t ddo_a,
+                                          const unsigned char* Kst) {
+  constexpr int RB = 2 * DH;
+  const uint64_t dk_b = hopper::desc_k_major<RB>(Kst);
+  const uint64_t dv_b = hopper::desc_k_major<RB>(Kst + kDqKeys * RB);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss_init(s, dq_a, dk_b);
+#pragma unroll
+  for (int ks = 1; ks < DH / 16; ++ks) hopper::wgmma_ss_acc(s, desc_add(dq_a, 32 * ks), desc_add(dk_b, 32 * ks));
+  hopper::wgmma_ss_init(dp, ddo_a, dv_b);
+#pragma unroll
+  for (int ks = 1; ks < DH / 16; ++ks) hopper::wgmma_ss_acc(dp, desc_add(ddo_a, 32 * ks), desc_add(dv_b, 32 * ks));
+  hopper::wgmma_commit();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                    const float* __restrict__ mask, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dq, Layout L) {
+  using S = DqSmem<DH>;
+  constexpr int RB = S::kRowBytes;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* Qs = base;
+  unsigned char* dOs = base + S::kQ;
+  int* info = reinterpret_cast<int*>(base + S::kInfo);
+  uint8_t* kvalid = base + S::kValid;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* empty = full + kDqStages;
+  uint64_t* qbar = empty + kDqStages;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kWgBlock;
+  const int ntiles = (L.n + kDqKeys - 1) / kDqKeys;
+  // under causal, key tiles wholly after the block's last query see none of it
+  const int nk = L.causal ? min(ntiles, (q0 + kWgBlock - 1) / kDqKeys + 1) : ntiles;
+  const int wg = threadIdx.x / 128;  // kWgConsumers: the producer
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 128 * kWgConsumers);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % 128 >= 32) return;
+    // producer: Q and dO once, then K, V and their keys' validity per tile
+    const int lane = threadIdx.x % 32;
+    const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(qbar, 2 * S::kQ);
+      hopper::tma_load_4d(Qs, &tm_q, qbar, 0, h, q0, b);
+      hopper::tma_load_4d(dOs, &tm_do, qbar, 0, h, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < nk; ++kt) {
+      uint32_t word = 0;  // keys kt * 64 + 2 lane and + 1: inside T and mask != 0, a byte each
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int key = kt * kDqKeys + 2 * lane + e;
+        word |= static_cast<uint32_t>(key < L.n && (mrow == nullptr || mrow[key] != 0.f)) << (8 * e);
+      }
+      if (!__any_sync(0xffffffffu, word != 0)) continue;  // no valid key: adds 0 to dq
+      const bool all = __all_sync(0xffffffffu, word == 0x0101u);
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      reinterpret_cast<uint16_t*>(kvalid + stage * kDqKeys)[lane] = static_cast<uint16_t>(word);
+      unsigned char* Kst = base + S::kStages0 + stage * 2 * S::kTile;
+      if (lane == 0) {
+        info[2 * stage] = kt;
+        info[2 * stage + 1] = all;
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * S::kTile);
+        hopper::tma_load_4d(Kst, &tm_k, &full[stage], 0, h, kt * kDqKeys, b);
+        hopper::tma_load_4d(Kst + S::kTile, &tm_v, &full[stage], 0, h, kt * kDqKeys, b);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == kDqStages) { stage = 0; phase ^= 1; }
+    }
+    // the end of the walk: a stage with tile index -1 and no data
+    hopper::mbar_wait(&empty[stage], phase ^ 1);
+    if (lane == 0) info[2 * stage] = -1;
+    hopper::mbar_arrive(&full[stage]);
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int row0 = q0 + 64 * wg, lo = row0 + tid / 32 * 16 + tid % 32 / 4, hi = lo + 8;
+  const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+  const float sl2 = L.scale * kLog2e;
+  // the rows' lse (times log2 e) and delta, once
+  const float lse_lo = lo < L.n ? lse[stat0 + lo] * kLog2e : 0.f, lse_hi = hi < L.n ? lse[stat0 + hi] * kLog2e : 0.f;
+  const float dl_lo = lo < L.n ? delta[stat0 + lo] : 0.f, dl_hi = hi < L.n ? delta[stat0 + hi] : 0.f;
+  const uint64_t dq_a = hopper::desc_k_major<RB>(Qs + 64 * wg * RB);
+  const uint64_t ddo_a = hopper::desc_k_major<RB>(dOs + 64 * wg * RB);
+  float acc[DH / 2], s[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[k][r] = 0u;
+  int stage = 0, pending = -1;
+  uint32_t phase = 0;
+  hopper::mbar_wait(qbar, 0);
+  hopper::mbar_wait(&full[0], 0);
+  int kt = info[0];
+  if (kt >= 0) dq_scores<DH>(s, dp, dq_a, ddo_a, base + S::kStages0);
+  while (kt >= 0) {
+    const int st_now = stage;
+    const unsigned char* Kst = base + S::kStages0 + st_now * 2 * S::kTile;
+    const uint8_t* kv = kvalid + st_now * kDqKeys;
+    const int key0 = kt * kDqKeys;
+    hopper::wgmma_wait<0>();  // this tile's S and dP, the last tile's dS K
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    hopper::fence_regs(acc);
+    hopper::fence_regs(da);
+    if (pending >= 0) hopper::mbar_arrive(&empty[pending]);
+    // no pair is invalid when every key is valid, every row inside T and
+    // (causal) the tile's last key at or before this warpgroup's first row
+    const bool fast = info[2 * st_now + 1] != 0 && row0 + 63 < L.n && (!L.causal || key0 + kDqKeys - 1 <= row0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e, key = key0 + col;
+        float p_lo = hopper::ex2(fmaf(s[4 * j + e], sl2, -lse_lo));
+        float p_hi = hopper::ex2(fmaf(s[4 * j + 2 + e], sl2, -lse_hi));
+        if (!fast) {
+          const bool k_in = kv[col] != 0;
+          p_lo = k_in && lo < L.n && (!L.causal || lo >= key) ? p_lo : 0.f;
+          p_hi = k_in && hi < L.n && (!L.causal || hi >= key) ? p_hi : 0.f;
+        }
+        dp[4 * j + e] = p_lo * (dp[4 * j + e] - dl_lo);
+        dp[4 * j + 2 + e] = p_hi * (dp[4 * j + 2 + e] - dl_hi);
+      }
+    // dq += round(dS) K, K MN-major
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) da[k][r] = hopper::pack_bf16x2(dp[8 * k + 2 * r], dp[8 * k + 2 * r + 1]);
+    const uint64_t dk_mn = hopper::desc_mn_major<RB>(Kst);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) hopper::wgmma_rs(acc, da[k], desc_add(dk_mn, k * 16 * RB));
+    hopper::wgmma_commit();
+    pending = st_now;
+    if (++stage == kDqStages) { stage = 0; phase ^= 1; }
+    hopper::mbar_wait(&full[stage], phase);
+    kt = info[2 * stage];
+    if (kt >= 0) dq_scores<DH>(s, dp, dq_a, ddo_a, base + S::kStages0 + stage * 2 * S::kTile);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::fence_regs(da);
+
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? hi : lo;
+    if (row >= L.n) continue;
+    uint32_t* dst = reinterpret_cast<uint32_t*>(dq + obase + static_cast<int64_t>(row) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      dst[4 * j + t] = hopper::pack_bf16x2(acc[4 * j + 2 * half] * L.scale, acc[4 * j + 2 * half + 1] * L.scale);
+  }
+}
+
 constexpr size_t rows_bytes(int dh) { return sizeof(bf16) * kTile * (dh + 8); }
 constexpr size_t fwd_mma_smem(int dh) { return 3 * rows_bytes(dh) + kTile; }
 constexpr size_t dq_mma_smem(int dh) { return 4 * rows_bytes(dh) + kTile; }
@@ -1348,24 +1565,6 @@ constexpr size_t dq_smem(int dh) { return 4 * tile_bytes(dh) + p_bytes() + kTile
 constexpr size_t dkv_smem(int dh) {
   return 4 * tile_bytes(dh) + 2 * p_bytes() + 2 * sizeof(float) * kTile + kTile;
 }
-
-// the dynamic shared-memory limit of a kernel, raised once per kernel and
-// device rather than on every launch
-cudaError_t allow_smem(const void* kernel, size_t bytes) {
-  static std::mutex mu;
-  static std::vector<std::pair<const void*, int>> done;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const auto& d : done)
-    if (d.first == kernel && d.second == dev) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err == cudaSuccess) done.emplace_back(kernel, dev);
-  return err;
-}
-
-bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // `operands` are the row-major bf16/f32 operands the kernels load rows of
 Layout make_layout(long long sb, long long st, long long sh, int T, int H, int Dh, float scale,
@@ -1384,34 +1583,6 @@ Layout make_layout(long long sb, long long st, long long sh, int T, int H, int D
   return L;
 }
 
-// ---------------------------------------------------------- tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
-// the library links nothing new
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err =
-        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
-                                                                       : nullptr;
-  }();
-  return fn;
-}
-
-// element strides over (head, token, batch) of one operand
-struct Strides {
-  long long sh, st, sb;
-};
-
 // The layouts the TMA route takes (ops/fused_attention.py::kernel_route
 // states the same rule): bf16 at Dh 32 or 64, 16-byte-aligned bases, and
 // strides nested as a tensor map describes them (each dimension's byte
@@ -1424,23 +1595,6 @@ bool tma_strides(Strides& s, int B, int T, int H, int Dh) {
   for (long long x : {s.sh, s.st, s.sb})
     if (x <= 0 || (2 * x) % 16 != 0) return false;
   return s.sh >= Dh && s.st >= s.sh * H && s.sb >= s.st * T;
-}
-
-// a 4-d map (Dh, H, T, B) of one bf16 operand, boxes of `rows` tokens x
-// Dh, in the swizzle of a Dh-wide row
-cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * s.sh, 2ull * s.st, 2ull * s.sb};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Dh), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              Dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // the maps of q, k and v (rows `qrows` and `kvrows` a box), or an error
@@ -1485,6 +1639,23 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const float* mask, co
   const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
   dkv_wgmma_kernel<DH><<<grid, kWgThreads, DkvSmem<DH>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], mask, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int dq_wgmma(const void* q, const void* k, const void* v, const float* mask, const void* dout, const float* lse,
+             const float* delta, void* dq, int B, const Layout& L, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kWgBlock, kDqKeys);
+  // dout is contiguous [B, T, H, Dh]
+  const long long row = static_cast<long long>(L.heads) * DH;
+  if (err == cudaSuccess && !aligned16(dout)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = make_map(&maps[3], dout, Strides{DH, row, row * L.n}, B, L.n, L.heads, DH, kWgBlock);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(dq_wgmma_kernel<DH>), DqSmem<DH>::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
+  dq_wgmma_kernel<DH><<<grid, kWgThreads, DqSmem<DH>::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, delta, static_cast<bf16*>(dq), L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1556,8 +1727,8 @@ int dh_pad(int Dh) { return Dh <= 0 ? 0 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 
 
 // routes, chosen by the caller from the layout (ops/fused_attention.py::
 // kernel_route): 0 the FMA kernels (f32; bf16 at Dh 128), 1 the mma.sync
-// kernels (bf16 up to Dh 64), 2 the wgmma/TMA kernels (forward and dk/dv
-// only; bf16 at Dh 32 or 64 on a layout TMA describes)
+// kernels (bf16 up to Dh 64), 2 the wgmma/TMA kernels (bf16 at Dh 32 or
+// 64 on a layout TMA describes)
 constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
 
 // the route the FMA/mma.sync dispatch below takes for (dtype, Dh)
@@ -1606,6 +1777,7 @@ int fused_attention_dq(int dtype, int route, const void* q, const void* k, const
                        int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma) DISPATCH_WGMMA(dq_wgmma, q, k, v, mask, dout, lse, delta, dq, B, L, s);
   if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dq_launch, q, k, v, mask, dout, lse, delta, dq, B, L, s);
 }

@@ -1,8 +1,10 @@
-// hopper.cuh: the Hopper (sm_90a) building blocks of fused_attention.cu's
-// wgmma kernels, in raw PTX: mbarriers, TMA tile loads, shared-memory
-// matrix descriptors and warpgroup matrix products (wgmma).  Kept apart so
-// that the kernels read as the algorithm; ops/build.py hashes this header
-// with the sources that include it.
+// hopper.cuh: the Hopper (sm_90a) building blocks of the wgmma kernels of
+// fused_attention.cu and short_attention.cu, in raw PTX: mbarriers, TMA
+// tile loads, shared-memory matrix descriptors and warpgroup matrix
+// products (wgmma); and their host side: 4-d tensor maps and the dynamic
+// shared-memory limit.  Kept apart so that the kernels read as the
+// algorithm; ops/build.py hashes this header with the sources that
+// include it.
 //
 // Layouts.  A tile of `rows` x Dh bf16 lands in shared memory by TMA as
 // row-major rows of Dh * 2 bytes in the swizzle of that width (Dh 64:
@@ -26,7 +28,12 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace hopper {
 
@@ -251,6 +258,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// the THREADS threads (a multiple of 32) that name barrier ID wait for
+// each other, and their shared-memory writes become visible to each other
+template <int ID, int THREADS>
+__device__ __forceinline__ void named_barrier() {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "n"(THREADS) : "memory");
+}
+
 // ------------------------------------------------------------ registers
 // move registers between warpgroups: every warp of the warpgroup runs it,
 // and the paths after it must not join again (ptxas ignores it otherwise)
@@ -258,5 +272,69 @@ template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() { asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N)); }
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() { asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N)); }
+
+// ------------------------------------------------------------------ host
+inline bool aligned16(const void* p) { return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// the dynamic shared-memory limit of a kernel, raised once per kernel and
+// device rather than on every launch
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::vector<std::pair<const void*, int>> done;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : done)
+    if (d.first == kernel && d.second == dev) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) done.emplace_back(kernel, dev);
+  return err;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver the runtime already loaded, so
+// the library links nothing new
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                                                       : nullptr;
+  }();
+  return fn;
+}
+
+// element strides over (head, token, batch) of one operand
+struct Strides {
+  long long sh, st, sb;
+};
+
+// a 4-d map (Dh, H, T, B) of one bf16 operand, boxes of `rows` tokens x
+// Dh, in the swizzle of a Dh-wide row (Dh 32 or 64); tokens past T read
+// as 0
+inline cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {2ull * s.sh, 2ull * s.st, 2ull * s.sb};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Dh), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              Dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace hopper

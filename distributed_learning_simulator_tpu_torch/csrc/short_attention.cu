@@ -8,16 +8,24 @@
 //   (:266), and with _bwd_kernel (:159), reached through _short_bwd (:283).
 //
 // What bounds it on the H100.  At the slice's shape (B = 128, S = 64, H = 6,
-// Dh = 64) one call moves ~19 MB (bf16) and does ~0.8 GFLOP: with the
-// tensor cores it would be bound by bytes, at 3.35 TB/s.  These kernels are
-// the simple, correct first version: they do the products on the f32 FMA
-// units (67 TFLOP/s peak), which makes them bound by operations instead.
-// wgmma, TMA and a pipelined K/V ring are later work.
+// Dh = 64) one forward moves 25.4 MB (bf16) and does 0.8 GFLOP: with the
+// tensor cores it is bound by bytes, at 3.35 TB/s.  Two forward routes
+// compute the same function; the caller picks one from dtype, Dh and
+// layout (ops/short_attention.py::fwd_route) and the entry refuses a route
+// it cannot take:
+//   * wgmma (route 1): bf16 at Dh 64 (the ViT and fed_obd_sq paths):
+//     short_fwd_wgmma_kernel, at the end of the kernels below, with TMA
+//     loads and wgmma products (its own note says how);
+//   * FMA (route 0): f32 (whose products must stay exact f32), Dh 128 and
+//     rows the tensor maps cannot describe: fwd_kernel, the first version,
+//     with the products on the f32 FMA units (67 TFLOP/s peak), which makes
+//     it bound by operations instead.
+// The backward (dq_kernel, dkv_kernel) is the first version at every dtype.
 //
-// Design (not the TPU's): the TPU kernel holds one batch group's whole S x S
-// score matrix in VMEM and stacks 128 // S batch elements into one MXU
-// product.  Above S ~ 200 an f32 S x S tile no longer fits one block's
-// 227 KB of shared memory, so here
+// Design of the FMA kernels (not the TPU's): the TPU kernel holds one batch
+// group's whole S x S score matrix in VMEM and stacks 128 // S batch
+// elements into one MXU product.  Above S ~ 200 an f32 S x S tile no longer
+// fits one block's 227 KB of shared memory, so here
 //   * one block of 256 threads owns one (batch, head, 64-row tile); heads
 //     are column slices of the packed rows, loaded into shared memory as f32
 //     (bf16 products are exact in f32), so no head split/transpose ever
@@ -47,10 +55,13 @@
 // launches; all pointers are device pointers; launches are asynchronous on
 // `stream`.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -408,6 +419,333 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ----------------------------------------------------------------------------
+// Hopper forward: short_fwd_wgmma_kernel, K4 at bf16 and Dh 64 (the ViT and
+// fed_obd_sq paths: S = 64), the same function and roundings as fwd_kernel.
+//
+// What bounds it on the H100: bytes.  At the ViT-small shape (qkv
+// [128, 64, 1152] bf16, 6 heads) a call moves 25.4 MB against 0.81 GFLOP,
+// 7.6 us at 3.35 TB/s against 0.8 us of tensor-core time, so the design
+// keeps many bytes in flight and stores whole 16-byte pieces; the products
+// are minor.  fwd_kernel (the route of f32 and Dh 128) widens every bf16
+// element to f32 in shared memory with a 2-byte load, computes Q.K^T twice
+// and holds 66.6 KB of f32 tiles a block.
+//
+// Design:
+//   * a block owns one batch element, a 64-row query tile and a pair of
+//     heads, one consumer warpgroup a head.  One warp fills each stage:
+//     lane 0 brings the heads' tiles by TMA straight from the packed rows
+//     (three 4-d tensor maps over the [B, S, 3, H, Dh] view, rows past S
+//     zero-filled) while all 32 lanes write the tile's key states
+//     (present and unmasked, masked, or past S) and an all-present-and-
+//     unmasked flag, arriving on the stage's full barrier with them;
+//   * S <= 64 (PASSES 1): a single pass.  The first warp of warpgroup 0
+//     fills the one stage (Q, K and V) and then consumes.  S = Q.K^T on
+//     wgmma from two K-major descriptors; the exact row maximum, sum and
+//     lse from the accumulator in registers (quad shuffles);
+//     p = exp(s - lse) rounded to bf16 straight into A fragments;
+//     O = P.V on wgmma with V as the MN-major B operand.  256 threads and
+//     about 50 KB a block: three blocks an SM (at most 85 registers a
+//     thread), so the ViT-small call (384 blocks) is one wave of loads;
+//   * 64 < S <= 1024 (PASSES 2): the two passes the function needs over
+//     64-key tiles through a 2-stage mbarrier ring filled by a producer
+//     warp of its own (pass 1: K tiles, online maximum and sum; pass 2:
+//     K and V tiles, p and P.V);
+//   * the epilogue writes O as bf16 into the warpgroup's own Q tile (free
+//     once its last score product has completed) in the tile's 128-byte
+//     swizzle, then stores whole rows with 16-byte stores into
+//     [B, S, H*Dh]; lse [B, H, S] f32 as before.
+constexpr int kSwHeads = 2;  // heads a block owns, a consumer warpgroup each
+// threads of a block: the consumers, and for two passes a producer warp
+__host__ __device__ constexpr int sw_threads(int passes) { return 128 * kSwHeads + (passes == 1 ? 0 : 32); }
+constexpr int kSwRow = 128;              // bytes of a 64-wide bf16 row
+constexpr int kSwTile = kTile * kSwRow;  // a 64-row Q, K or V tile
+constexpr int kSwStages = 2;             // the ring of the two-pass walk
+
+// byte offsets from the 1024-aligned base of a block's shared memory with
+// `nst` stages: the heads' Q tiles, then per stage the heads' K tiles and
+// V tiles, the key states (a byte a key), the all-valid flags, the barriers
+__host__ __device__ constexpr int sw_stage(int s) { return kSwHeads * kSwTile + s * 2 * kSwHeads * kSwTile; }
+__host__ __device__ constexpr int sw_codes(int nst) { return sw_stage(nst); }
+__host__ __device__ constexpr int sw_flags(int nst) { return sw_codes(nst) + nst * kTile; }
+__host__ __device__ constexpr int sw_bars(int nst) { return sw_flags(nst) + 8 * nst; }
+constexpr size_t sw_smem_bytes(int nst) { return sw_bars(nst) + (2 * nst + 1) * sizeof(uint64_t) + 1024; }
+
+// key states of one 64-key tile
+constexpr uint32_t kKeyAbsent = 0, kKeyMasked = 1, kKeyValid = 2;
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// S = Q . K^T of one 64-key tile as one group (m64n64, 4 k16 steps)
+__device__ __forceinline__ void sw_scores(float (&s)[32], uint64_t dq, const unsigned char* Kt) {
+  const uint64_t dk = hopper::desc_k_major<kSwRow>(Kt);
+  hopper::wgmma_fence();
+  hopper::wgmma_ss_init(s, dq, dk);
+#pragma unroll
+  for (int ks = 1; ks < 4; ++ks) hopper::wgmma_ss_acc(s, hopper::desc_add(dq, 32 * ks), hopper::desc_add(dk, 32 * ks));
+  hopper::wgmma_commit();
+}
+
+// scale, then mask, this thread's scores of one tile (accumulator layout,
+// hopper.cuh: s[4j + 2h + e] is row lo + 8h, key 8j + 2t + e): keys past S
+// -> -inf (absent), kv_mask <= 0 -> -1e30
+__device__ __forceinline__ void sw_mask(float (&s)[32], const uint8_t* code, bool all_valid, float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const uint32_t c = all_valid ? kKeyValid : code[8 * j + 2 * t + e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& x = s[4 * j + 2 * h + e];
+        x = c == kKeyValid ? x * scale : (c == kKeyMasked ? kMasked : -INFINITY);
+      }
+    }
+}
+
+// p = exp(s - lse) rounded to bf16 into the A fragments of P.V (hopper.cuh)
+__device__ __forceinline__ void sw_probs(const float (&s)[32], uint32_t (&pa)[4][4], float lse_lo, float lse_hi) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float l = r % 2 ? lse_hi : lse_lo;  // s[8k + 2r + e] is row lo + 8 (r % 2)
+      pa[k][r] = hopper::pack_bf16x2(expf(s[8 * k + 2 * r] - l), expf(s[8 * k + 2 * r + 1] - l));
+    }
+}
+
+// o += P . V as one group, V MN-major
+__device__ __forceinline__ void sw_pv(float (&o)[32], const uint32_t (&pa)[4][4], const unsigned char* Vt) {
+  const uint64_t dv = hopper::desc_mn_major<kSwRow>(Vt);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k) hopper::wgmma_rs(o, pa[k], hopper::desc_add(dv, k * 16 * kSwRow));
+  hopper::wgmma_commit();
+}
+
+template <int PASSES>
+__global__ void __launch_bounds__(sw_threads(PASSES), PASSES == 1 ? 3 : 1)
+    short_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ mask,
+                           __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int S, int H, float scale) {
+  constexpr int nst = PASSES == 1 ? 1 : kSwStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~uintptr_t(1023));
+  uint8_t* codes = base + sw_codes(nst);
+  int* flags = reinterpret_cast<int*>(base + sw_flags(nst));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + sw_bars(nst));
+  uint64_t* empty = full + nst;
+  uint64_t* qbar = empty + nst;
+  const int q0 = blockIdx.x * kTile, h0 = blockIdx.y * kSwHeads, b = blockIdx.z;
+  const int heads = min(kSwHeads, H - h0);  // 1 in the last block of an odd H
+  const int nk = (S + kTile - 1) / kTile;   // 1 when PASSES == 1
+  const int wg = threadIdx.x / 128;  // kSwHeads: the producer warp
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < nst; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 128 * kSwHeads);
+    }
+    if constexpr (PASSES == 2) hopper::mbar_init(qbar, 1);  // one pass: Q rides with the stage
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  // one warp fills stage `stage` with key tile kt: the keys' states and
+  // flag, then (lane 0) the heads' K tiles, V tiles `with_v` and Q tiles
+  // `with_q`, all on the stage's full barrier
+  const int lane = threadIdx.x % 32;
+  const float* mrow = mask ? mask + static_cast<int64_t>(b) * S : nullptr;
+  const CUtensorMap *map_q = &tm_q, *map_k = &tm_k, *map_v = &tm_v;
+  auto fill = [&](int stage, int kt, bool with_v, bool with_q) {
+    uint32_t word = 0;  // the states of keys kt * 64 + 2 lane and + 1, a byte each
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = kt * kTile + 2 * lane + e;
+      const uint32_t c = key >= S ? kKeyAbsent : (mrow != nullptr && !(mrow[key] > 0.f) ? kKeyMasked : kKeyValid);
+      word |= c << (8 * e);
+    }
+    reinterpret_cast<uint16_t*>(codes + stage * kTile)[lane] = static_cast<uint16_t>(word);
+    const bool all = __all_sync(0xffffffffu, word == (kKeyValid | kKeyValid << 8));
+    unsigned char* st = base + sw_stage(stage);
+    if (lane == 0) {
+      flags[stage] = all;
+      hopper::mbar_arrive_expect_tx(&full[stage], heads * (1 + with_v + with_q) * kSwTile);
+      for (int w = 0; w < heads; ++w) {
+        if (with_q) hopper::tma_load_4d(base + w * kSwTile, map_q, &full[stage], 0, h0 + w, q0, b);
+        hopper::tma_load_4d(st + w * kSwTile, map_k, &full[stage], 0, h0 + w, kt * kTile, b);
+        if (with_v)
+          hopper::tma_load_4d(st + (kSwHeads + w) * kSwTile, map_v, &full[stage], 0, h0 + w, kt * kTile, b);
+      }
+    } else {
+      hopper::mbar_arrive(&full[stage]);
+    }
+  };
+
+  if constexpr (PASSES == 1) {
+    if (threadIdx.x < 32) fill(0, 0, true, true);
+  } else if (wg == kSwHeads) {
+    // the producer: Q once, then pass 1's K tiles, then pass 2's K and V
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(qbar, heads * kSwTile);
+      for (int w = 0; w < heads; ++w) hopper::tma_load_4d(base + w * kSwTile, map_q, qbar, 0, h0 + w, q0, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int it = 0; it < 2 * nk; ++it) {
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      fill(stage, it < nk ? it : it - nk, it >= nk, false);
+      if (++stage == nst) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes head h0 + wg, if the block has it
+  if (wg >= heads) {
+    if constexpr (PASSES == 2) {  // release each stage of the walk with the other warpgroup
+      for (int it = 0, stage = 0, phase = 0; it < 2 * nk; ++it) {
+        hopper::mbar_wait(&full[stage], phase);
+        hopper::mbar_arrive(&empty[stage]);
+        if (++stage == nst) { stage = 0; phase ^= 1; }
+      }
+    }
+    return;
+  }
+  const int h = h0 + wg, tid = threadIdx.x % 128, t = tid % 4;
+  const int r_lo = tid / 32 * 16 + tid % 32 / 4;  // this thread's rows of the tile: r_lo and r_lo + 8
+  unsigned char* Qs = base + wg * kSwTile;
+  const uint64_t dq = hopper::desc_k_major<kSwRow>(Qs);
+  float s[32], o[32], lse_lo, lse_hi;
+  uint32_t pa[4][4];
+  if constexpr (PASSES == 1) {
+    const unsigned char* st = base + sw_stage(0);
+    hopper::mbar_wait(&full[0], 0);
+    sw_scores(s, dq, st + wg * kSwTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    sw_mask(s, codes, flags[0] != 0, scale, t);
+    // the exact row maximum and sum of the one tile
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        m_lo = fmaxf(m_lo, s[4 * j + e]);
+        m_hi = fmaxf(m_hi, s[4 * j + 2 + e]);
+      }
+    m_lo = quad_max(m_lo);
+    m_hi = quad_max(m_hi);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        l_lo += expf(s[4 * j + e] - m_lo);
+        l_hi += expf(s[4 * j + 2 + e] - m_hi);
+      }
+    lse_lo = m_lo + logf(quad_sum(l_lo));
+    lse_hi = m_hi + logf(quad_sum(l_hi));
+    sw_probs(s, pa, lse_lo, lse_hi);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    sw_pv(o, pa, st + (kSwHeads + wg) * kSwTile);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    hopper::fence_regs(pa);
+  } else {
+    int stage = 0;
+    uint32_t phase = 0;
+    hopper::mbar_wait(qbar, 0);
+    // pass 1: online row maximum and sum (partial sums per thread against
+    // the quad's common maximum)
+    float m_lo = -INFINITY, m_hi = -INFINITY, l_lo = 0.f, l_hi = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      hopper::mbar_wait(&full[stage], phase);
+      sw_scores(s, dq, base + sw_stage(stage) + wg * kSwTile);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      sw_mask(s, codes + stage * kTile, flags[stage] != 0, scale, t);
+      hopper::mbar_arrive(&empty[stage]);
+      if (++stage == nst) { stage = 0; phase ^= 1; }
+      float t_lo = m_lo, t_hi = m_hi;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          t_lo = fmaxf(t_lo, s[4 * j + e]);
+          t_hi = fmaxf(t_hi, s[4 * j + 2 + e]);
+        }
+      t_lo = quad_max(t_lo);
+      t_hi = quad_max(t_hi);
+      l_lo *= expf(m_lo - t_lo);
+      l_hi *= expf(m_hi - t_hi);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l_lo += expf(s[4 * j + e] - t_lo);
+          l_hi += expf(s[4 * j + 2 + e] - t_hi);
+        }
+      m_lo = t_lo;
+      m_hi = t_hi;
+    }
+    lse_lo = m_lo + logf(quad_sum(l_lo));
+    lse_hi = m_hi + logf(quad_sum(l_hi));
+    // pass 2: p = exp(s - lse) rounded, o += P V
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int kt = 0; kt < nk; ++kt) {
+      hopper::mbar_wait(&full[stage], phase);
+      const unsigned char* st = base + sw_stage(stage);
+      sw_scores(s, dq, st + wg * kSwTile);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(s);
+      sw_mask(s, codes + stage * kTile, flags[stage] != 0, scale, t);
+      sw_probs(s, pa, lse_lo, lse_hi);
+      sw_pv(o, pa, st + (kSwHeads + wg) * kSwTile);
+      hopper::wgmma_wait<0>();
+      hopper::fence_regs(o);
+      hopper::fence_regs(pa);
+      hopper::mbar_arrive(&empty[stage]);
+      if (++stage == nst) { stage = 0; phase ^= 1; }
+    }
+  }
+
+  // O as bf16 into this warpgroup's Q tile, 16-byte chunk c of row r at
+  // chunk c ^ (r % 8) (the tile's swizzle, so the writes of a warp fall in
+  // distinct banks), then whole rows out with 16-byte stores
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r_lo + 8 * hh;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(Qs + r * kSwRow + ((j ^ (r & 7)) << 4) + 4 * t) =
+          hopper::pack_bf16x2(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
+  }
+  if (wg == 0)
+    hopper::named_barrier<1, 128>();
+  else
+    hopper::named_barrier<2, 128>();
+  const int64_t D = static_cast<int64_t>(H) * 64;
+  for (int i = tid; i < kTile * 8; i += 128) {
+    const int r = i / 8, c = i % 8, row = q0 + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * S + row) * D + h * 64 + c * 8) =
+          *reinterpret_cast<const uint4*>(Qs + r * kSwRow + ((c ^ (r & 7)) << 4));
+  }
+  if (t == 0) {
+    const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
+    if (q0 + r_lo < S) lse[stat0 + q0 + r_lo] = lse_lo;
+    if (q0 + r_lo + 8 < S) lse[stat0 + q0 + r_lo + 8] = lse_hi;
+  }
+}
+
 constexpr size_t tile_bytes(int dh) { return sizeof(float) * kTile * (dh + 1); }
 constexpr size_t p_bytes() { return sizeof(float) * kTile * kPLd; }
 // Dh^-0.5 rounded once from double, as the TPU kernel's `dh**-0.5` is
@@ -417,12 +755,40 @@ template <typename T, int DH>
 int fwd(const void* qkv, const float* mask, void* out, float* lse, int B, int S, int H,
         cudaStream_t stream) {
   const size_t bytes = 3 * tile_bytes(DH) + p_bytes();
-  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  const cudaError_t err = hopper::allow_smem(reinterpret_cast<const void*>(fwd_kernel<T, DH>), bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   fwd_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(qkv), mask, static_cast<T*>(out), lse, S, H, softmax_scale(DH));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the Hopper forward (bf16, Dh 64): three tensor maps over the packed
+// [B, S, 3, H, 64] view, then one pass (S <= 64) or two
+int fwd_wgmma(const void* qkv, const float* mask, void* out, float* lse, int B, int S, int H,
+              cudaStream_t stream) {
+  if (!hopper::aligned16(qkv) || !hopper::aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const long long row = 3LL * H * 64;
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err = hopper::make_map(&maps[i], static_cast<const __nv_bfloat16*>(qkv) + i * H * 64,
+                                             hopper::Strides{64, row, row * S}, B, S, H, 64, kTile);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int passes = S <= kTile ? 1 : 2;
+  const void* kernel = passes == 1 ? reinterpret_cast<const void*>(short_fwd_wgmma_kernel<1>)
+                                   : reinterpret_cast<const void*>(short_fwd_wgmma_kernel<2>);
+  const size_t bytes = sw_smem_bytes(passes == 1 ? 1 : kSwStages);
+  const cudaError_t err = hopper::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((S + kTile - 1) / kTile, (H + kSwHeads - 1) / kSwHeads, B);
+  auto* out_bf16 = static_cast<__nv_bfloat16*>(out);
+  if (passes == 1)
+    short_fwd_wgmma_kernel<1><<<grid, sw_threads(1), bytes, stream>>>(maps[0], maps[1], maps[2], mask, out_bf16, lse,
+                                                                   S, H, softmax_scale(64));
+  else
+    short_fwd_wgmma_kernel<2><<<grid, sw_threads(2), bytes, stream>>>(maps[0], maps[1], maps[2], mask, out_bf16, lse,
+                                                                   S, H, softmax_scale(64));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -431,11 +797,9 @@ int bwd(const void* qkv, const float* mask, const void* dout, const float* lse, 
         void* dqkv, int B, int S, int H, cudaStream_t stream) {
   const size_t dq_bytes = 4 * tile_bytes(DH) + p_bytes();
   const size_t dkv_bytes = 4 * tile_bytes(DH) + 2 * p_bytes() + 2 * sizeof(float) * kTile;
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<T, DH>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, dq_bytes);
+  cudaError_t err = hopper::allow_smem(reinterpret_cast<const void*>(dq_kernel<T, DH>), dq_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dkv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             dkv_bytes);
+  err = hopper::allow_smem(reinterpret_cast<const void*>(dkv_kernel<T, DH>), dkv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kTile - 1) / kTile, H, B);
   const float scale = softmax_scale(DH);
@@ -450,15 +814,25 @@ int bwd(const void* qkv, const float* mask, const void* dout, const float* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
+// the forward's routes, chosen by the caller from dtype, Dh and layout
+// (ops/short_attention.py::fwd_route): 0 fwd_kernel (FMA), 1 the Hopper
+// kernel (bf16 at Dh 64 on 16-byte-aligned rows)
+constexpr int kRouteFma = 0, kRouteWgmma = 1;
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  qkv [B, S, 3*H*Dh]; mask [B, S] f32 or
-// null; out [B, S, H*Dh]; lse [B, H, S] f32.
-int short_attention_fwd(int dtype, const void* qkv, const float* mask, void* out, float* lse,
+// dtype: 0 = float32, 1 = bfloat16; route as above (cudaErrorInvalidValue
+// for one the dtype, Dh or layout cannot take).  qkv [B, S, 3*H*Dh]; mask
+// [B, S] f32 or null; out [B, S, H*Dh]; lse [B, H, S] f32.
+int short_attention_fwd(int dtype, int route, const void* qkv, const float* mask, void* out, float* lse,
                         int B, int S, int H, int Dh, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma)
+    return dtype == 1 && Dh == 64 ? fwd_wgmma(qkv, mask, out, lse, B, S, H, s)
+                                  : static_cast<int>(cudaErrorInvalidValue);
+  if (route != kRouteFma) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && Dh == 64) return fwd<float, 64>(qkv, mask, out, lse, B, S, H, s);
   if (dtype == 0 && Dh == 128) return fwd<float, 128>(qkv, mask, out, lse, B, S, H, s);
   if (dtype == 1 && Dh == 64) return fwd<__nv_bfloat16, 64>(qkv, mask, out, lse, B, S, H, s);

@@ -19,11 +19,10 @@ route chosen before the launch, never a fallback):
 
 * ``"wgmma"``: bf16 at Dh 32 or 64 on a layout TMA can describe (16-byte
   aligned bases; nested strides whose byte sizes are multiples of 16).
-  The forward and dk/dv run Hopper kernels: TMA tile loads into a ring of
-  shared-memory stages with mbarriers, one producer warp, two consumer
-  warpgroups on ``wgmma``.  The long-context and causal-LM main paths
-  (packed ``[B, T, 3, H, Dh]`` projections) take it; dq has no such
-  kernel and runs the mma.sync one;
+  The forward, dq and dk/dv run Hopper kernels: TMA tile loads into a
+  ring of shared-memory stages with mbarriers, one producer warp, two
+  consumer warpgroups on ``wgmma``.  The long-context and causal-LM main
+  paths (packed ``[B, T, 3, H, Dh]`` projections) take it;
 * ``"mma"``: bf16 at Dh <= 64 on any other layout (a ragged Dh such as
   20, a misaligned stride): ``mma.sync.m16n8k16`` on 64-row tiles;
 * ``"fma"``: f32 (exact f32 products) and Dh 128, on the f32 FMA units.
@@ -154,12 +153,11 @@ def _tma_describable(x, others) -> bool:
 
 
 def kernel_route(q, k, v, *others) -> str:
-    """The kernel family that serves the forward and dk/dv for these
+    """The kernel family that serves the forward, dq and dk/dv for these
     operands (``others``: dout, contiguous ``[B, T, H, Dh]``): ``"wgmma"``
     for bf16 at Dh 32 or 64 where TMA can describe q, k, v (sharing their
     strides) and the others; ``"mma"`` for any other bf16 at Dh <= 64;
-    ``"fma"`` for f32 and Dh above 64.  dq runs ``"mma"`` where this says
-    ``"wgmma"`` (:func:`dq_route`)."""
+    ``"fma"`` for f32 and Dh above 64."""
     d = q.shape[-1]
     if q.dtype != torch.bfloat16 or d > 64:
         return "fma"
@@ -167,11 +165,6 @@ def kernel_route(q, k, v, *others) -> str:
         if all(_tma_describable(x, ()) for x in others):
             return "wgmma"
     return "mma"
-
-
-def dq_route(route: str) -> str:
-    """dq's kernel family on a layout :func:`kernel_route` gave ``route``."""
-    return "mma" if route == "wgmma" else route
 
 
 def _named_route(route):
@@ -370,10 +363,9 @@ def _bwd_operands(q, dout, lse, delta):
 
 
 def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
-    """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``;
-    ``route`` defaults to :func:`dq_route` of the layout's route."""
+    """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
-    route = _named_route(route) or dq_route(kernel_route(q, k, v, dout))
+    route = _named_route(route) or kernel_route(q, k, v, dout)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)

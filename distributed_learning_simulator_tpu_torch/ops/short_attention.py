@@ -8,6 +8,15 @@ projection.  Scores and softmax are f32, the probabilities are rounded to
 the input dtype before ``P·V`` (as the TPU kernel casts ``p``), keys with
 ``kv_mask <= 0`` score ``-1e30``.
 
+:func:`fwd_route` picks the forward's kernel from dtype, Dh and layout
+alone (a route chosen before the launch, never a fallback): ``"wgmma"``,
+the Hopper kernel (TMA loads of the packed rows, ``wgmma`` products, one
+pass at S <= 64), for bf16 at Dh 64 on a layout three tensor maps
+describe (:func:`_tma_describable`): the ViT and fed_obd_sq paths;
+``"fma"``, the first kernel (products on the f32 FMA units), for f32,
+Dh 128 and any other layout.  The backward has the FMA kernel only.
+``route_launches`` counts launches per kernel and route.
+
 :func:`short_attention_fwd` and :func:`short_attention_bwd` launch the
 kernels for CUDA tensors and raise on anything they do not take; for CPU
 tensors they compute :func:`short_attention_fwd_plain` and
@@ -32,6 +41,11 @@ _VMEM_BUDGET = 13 * 1024 * 1024
 #: launches of the forward / backward kernels since last set to 0
 fwd_launches = 0
 bwd_launches = 0
+
+#: the forward's kernels, by the code the C entry takes
+ROUTES = {"fma": 0, "wgmma": 1}
+#: launches per kernel and route ("fwd/wgmma", ...) since last set to 0
+route_launches = {"fwd/fma": 0, "fwd/wgmma": 0, "bwd/fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
@@ -58,7 +72,7 @@ def _library():
     if _bound is None:
         lib = build.load("short_attention")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.short_attention_fwd.argtypes = [i, p, p, p, p, i, i, i, i, p]
+        lib.short_attention_fwd.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
         lib.short_attention_fwd.restype = i
         lib.short_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
         lib.short_attention_bwd.restype = i
@@ -149,10 +163,43 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _tma_describable(qkv) -> bool:
+    """Can three 4-d tensor maps ``(Dh, H, S, B)`` describe the Q, K and V
+    blocks of ``qkv`` viewed as ``[B, S, 3, H, Dh]``: contiguous rows on a
+    16-byte-aligned base, a row (``3·H·Dh`` values) and each block's offset
+    in it (``H·Dh``) multiples of 16 bytes."""
+    width = qkv.shape[2]
+    item = qkv.element_size()
+    return (
+        qkv.is_contiguous()
+        and qkv.data_ptr() % 16 == 0
+        and (width * item) % 16 == 0
+        and (width // 3 * item) % 16 == 0
+    )
+
+
+def fwd_route(qkv, num_heads: int) -> str:
+    """The forward's kernel for this packed projection: ``"wgmma"`` for
+    bf16 at Dh 64 where :func:`_tma_describable`, else ``"fma"``."""
+    dh = qkv.shape[2] // 3 // num_heads
+    if qkv.dtype == torch.bfloat16 and dh == 64 and _tma_describable(qkv):
+        return "wgmma"
+    return "fma"
+
+
 def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
     """Forward over the packed projection: ``(out, lse)``."""
+    return _fwd(qkv, num_heads, kv_mask, None)
+
+
+def _fwd(qkv, num_heads: int, kv_mask, route):
+    """:func:`short_attention_fwd` on ``route`` (None: :func:`fwd_route`);
+    the C entry refuses a route the dtype, Dh or layout cannot take."""
     global fwd_launches
     b, s, dh = _check(qkv, num_heads, kv_mask)
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {tuple(ROUTES)}, got {route!r}")
+    route = route or fwd_route(qkv, num_heads)
     if qkv.device.type == "cpu":
         return short_attention_fwd_plain(qkv, num_heads, kv_mask)
     out = torch.empty(b, s, num_heads * dh, dtype=qkv.dtype, device=qkv.device)
@@ -160,6 +207,7 @@ def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
     with torch.cuda.device(qkv.device):
         err = _library().short_attention_fwd(
             _DTYPE_CODES[qkv.dtype],
+            ROUTES[route],
             qkv.data_ptr(),
             _ptr(kv_mask),
             out.data_ptr(),
@@ -171,9 +219,10 @@ def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"short_attention forward launch failed: CUDA error {err}")
+        raise RuntimeError(f"short_attention forward launch ({route} route) failed: CUDA error {err}")
     with build.launch_lock:
         fwd_launches += 1
+        route_launches[f"fwd/{route}"] += 1
     return out, lse
 
 
@@ -204,6 +253,7 @@ def short_attention_bwd(qkv, dout, lse, num_heads: int, kv_mask=None):
         raise RuntimeError(f"short_attention backward launch failed: CUDA error {err}")
     with build.launch_lock:
         bwd_launches += 1
+        route_launches["bwd/fma"] += 1
     return dqkv
 
 
@@ -239,7 +289,9 @@ def short_attention(qkv, num_heads: int, kv_mask=None):
 
 __all__ = [
     "MAX_SHORT_T",
+    "ROUTES",
     "ShortAttentionFunction",
+    "fwd_route",
     "short_attention",
     "short_attention_bwd",
     "short_attention_bwd_plain",

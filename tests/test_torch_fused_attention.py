@@ -313,13 +313,19 @@ def _packed(b, t, h, d, dtype, extra=0, offset=0):
         (lambda: _packed(2, 128, 4, 20, torch.float32), "fma"),
     ],
 )
-def test_kernel_route_follows_the_layout_rule(make, route):
+def test_kernel_route_follows_the_layout_rule(make, route, monkeypatch):
     q, k, v = make()
     dout = torch.zeros(q.shape, dtype=q.dtype)
     assert tfa.kernel_route(q, k, v) == route
     assert tfa.kernel_route(q, k, v, dout) == route
-    # dq has no wgmma kernel: it runs the mma.sync one on the same layouts
-    assert tfa.dq_route(route) == ("mma" if route == "wgmma" else route)
+    # dq follows the same rule as dk/dv (no dq-specific family): its wrapper
+    # asks kernel_route, with dout
+    asked = []
+    monkeypatch.setattr(tfa, "kernel_route", lambda *xs: asked.append(xs) or "fma")
+    stat = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    tfa.attention_dq(q, k, v, None, dout, stat, stat)
+    assert len(asked) == 1 and all(a is b for a, b in zip(asked[0], (q, k, v, dout)))
+    assert not hasattr(tfa, "dq_route")
 
 
 def test_kernel_route_needs_a_describable_dout():

@@ -188,3 +188,67 @@ def test_short_attention_rejects(shape, heads, exc):
 def test_short_attention_rejects_float16():
     with pytest.raises(TypeError):
         tsa.short_attention_fwd(torch.zeros(2, 64, 384, dtype=torch.float16), 2)
+
+
+# ------------------------------------------------------- K4 forward routes
+def _packed_qkv(b, s, h, dh, dtype, offset=0, extra=0):
+    """A ``[B, S, 3·H·Dh]`` projection; ``offset`` elements shift its base
+    (a contiguous but misaligned view), ``extra`` pad each row (a strided
+    view)."""
+    width = 3 * h * dh
+    flat = torch.zeros(b * s * (width + extra) + offset, dtype=dtype)
+    return flat[offset:].view(b, s, width + extra)[..., :width]
+
+
+@pytest.mark.parametrize(
+    "shape,dtype,offset,extra,route",
+    [
+        # the ViT-small and vit_base paths: bf16, Dh 64, contiguous
+        ((4, 64, 6, 64), torch.bfloat16, 0, 0, "wgmma"),
+        ((2, 64, 12, 64), torch.bfloat16, 0, 0, "wgmma"),
+        ((2, 50, 3, 64), torch.bfloat16, 0, 0, "wgmma"),  # S 50, an odd head count
+        ((1, 1024, 2, 64), torch.bfloat16, 0, 0, "wgmma"),  # the two-pass walk
+        ((2, 64, 6, 64), torch.float32, 0, 0, "fma"),  # f32 products stay f32
+        ((2, 64, 2, 128), torch.bfloat16, 0, 0, "fma"),  # Dh 128
+        ((2, 64, 6, 64), torch.bfloat16, 1, 0, "fma"),  # base off by 2 bytes
+        ((2, 64, 6, 64), torch.bfloat16, 0, 8, "fma"),  # rows on a wider stride
+    ],
+)
+def test_short_fwd_route_follows_the_layout_rule(shape, dtype, offset, extra, route):
+    qkv = _packed_qkv(*shape, dtype, offset, extra)
+    assert tsa.fwd_route(qkv, shape[2]) == route
+
+
+@pytest.mark.parametrize(
+    "shape,offset,extra,describable",
+    [
+        ((4, 64, 6, 64), 0, 0, True),
+        ((1, 1, 1, 64), 0, 0, True),  # one row, one head
+        ((2, 64, 6, 64), 1, 0, False),
+        ((2, 64, 6, 64), 8, 0, True),  # 16 bytes off: aligned
+        ((2, 64, 6, 64), 0, 8, False),
+        ((2, 64, 1, 4), 0, 0, False),  # a 24-byte row
+        ((2, 64, 1, 8), 0, 0, True),  # 48-byte rows, 16-byte blocks
+    ],
+)
+def test_short_tma_describable_on_the_packed_view(shape, offset, extra, describable):
+    """Three ``(Dh, H, S, B)`` maps over ``[B, S, 3, H, Dh]`` need contiguous
+    rows, a 16-byte-aligned base, and rows and Q/K/V blocks whose byte
+    sizes are multiples of 16."""
+    qkv = _packed_qkv(*shape, torch.bfloat16, offset, extra)
+    assert tsa._tma_describable(qkv) is describable
+
+
+def test_short_fwd_named_routes_compute_the_same_function_on_the_cpu():
+    """On CPU tensors every route is the plain version; an unknown route is
+    refused before any work."""
+    qkv, _, mask = _inputs(2, 50, 2, 64, True, seed=9)
+    x = torch.from_numpy(qkv).to(torch.bfloat16)
+    m = torch.from_numpy(mask)
+    want = tsa.short_attention_fwd(x, 2, m)
+    for route in tsa.ROUTES:
+        got = tsa._fwd(x, 2, m, route)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="route"):
+        tsa._fwd(x, 2, m, "tensor_core")
+    assert tsa.route_launches == dict.fromkeys(tsa.route_launches, 0)  # the CPU path launches nothing
