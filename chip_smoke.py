@@ -8,9 +8,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use; the
    wgmma kernels (``WGMMA_KERNELS``: K6-K8's ``fwd_wgmma_kernel``,
-   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel`` and K4's
-   ``short_fwd_wgmma_kernel``) must build without spills, and their SASS
-   (``cuobjdump -sass``) must hold ``HGMMA`` and ``UTMALDG``;
+   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel``, K4's
+   ``short_fwd_wgmma_kernel`` and K5's ``short_bwd_wgmma_kernel``) must
+   build without spills, and their SASS (``cuobjdump -sass``) must hold
+   ``HGMMA`` and ``UTMALDG``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
    ``vit_base`` attention shape (K4, K5), at the long-context
@@ -18,16 +19,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
    K2's in-kernel Philox against its own stream), and at the edge shapes
    the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
-   kernel (K2/K3/K4: their device time from the profiler, since a wrapper
-   call's host cost is of its size; K4's yardstick too), plain version,
-   bound and one library call where one exists (a yardstick only: the port
-   never calls it); K4 and K6-K11 also check which kernel each case ran
-   (``short_attention.fwd_route``: wgmma or FMA; ``kernel_route``: wgmma,
-   mma.sync, FMA), time the kernels the wgmma ones replaced beside them
-   (the FMA K4, the mma.sync K6/K7/K8), and show the C entries refusing
-   the wgmma route off its layouts; faults planted at the ViT-small
-   shape (one) and the main attention shape (two), and two at the
-   largest codec leaf, must fail the same comparisons;
+   kernel (K2-K5: their device time from the profiler, since a wrapper
+   call's host cost is of its size; K4's and K5's yardsticks too), plain
+   version, bound and one library call where one exists (a yardstick
+   only: the port never calls it); K4, K5 and K6-K11 also check which
+   kernel each case ran (``short_attention.fwd_route`` / ``bwd_route``:
+   wgmma or FMA; ``kernel_route``: wgmma, mma.sync, FMA), time the
+   kernels the wgmma ones replaced beside them (the FMA K4 and K5, the
+   mma.sync K6/K7/K8), and show the C entries refusing the wgmma route
+   off its layouts; faults planted at the ViT-small shape (two: K4 and
+   K5) and the main attention shape (two), and two at the largest codec
+   leaf, must fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -42,8 +44,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
    exactly (and all on the wgmma kernels), then one long-context training
-   round under the profiler; every K4 launch of the ViT and fed_obd_sq
-   main paths must take the Hopper forward;
+   round under the profiler; every K4 and K5 launch of the ViT and
+   fed_obd_sq main paths must take the Hopper forward and backward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
    for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
@@ -108,42 +110,68 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(fn, names: tuple[str, ...] | None, iters: int = 20, warmup: int = 3) -> float:
+def host_ms(fn, iters: int = 200) -> float:
+    """Host time per call of ``fn`` over ``iters`` calls back to back after
+    a sync: what enqueueing a call costs the host while the card keeps up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / iters * 1e3
+
+
+def kernel_device_ms(fn, names: tuple[str, ...] | None, iters: int = 20, warmup: int = 3, attempts: int = 3) -> float:
     """Device time per call of ``fn`` spent in the kernels whose names hold
     one of ``names`` (None: every kernel it launches), from
     ``torch.profiler`` over ``iters`` back-to-back calls (warm L2): the
     kernels' own time, without the host's cost of each call.  The
     profiler's schedule traces a warm-up step of ``iters`` calls first and
     keeps only the step after it, since the first kernels of a trace can
-    go unrecorded while tracing starts.  Fails unless each named kernel
-    ran once a call (None: unless at least one kernel ran a call)."""
+    go unrecorded while tracing starts; each step idles 50 ms on the host
+    before its first call and after its sync, so kernels whose device
+    timestamps lead or lag the host's clock still fall inside the step
+    (unpadded traces have kept 0, 0, 14 and 16 of 20 K5 launches).  A step
+    counts only if each named kernel ran once a call (None: at least one
+    kernel a call); a trace that dropped launches all the same is taken
+    again, up to ``attempts`` traces, and then fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    steps = schedule(wait=0, warmup=1, active=1, repeat=1)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=steps) as prof:
-        for _ in range(2):  # the warm-up step, then the one kept
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            prof.step()
-    # the schedule's step annotation ("ProfilerStep#") spans the step, not device work
-    device = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-    if names is None:
-        print("  device work of one profiled step: " + "; ".join(f"{k[:80]} x{n} {t:.1f} us" for k, n, t in device))
-        counts = {"all kernels": sum(n for _, n, _ in device)}
-        launched = counts["all kernels"] >= iters
-    else:
-        device = [d for d in device if any(name in d[0] for name in names)]
-        counts = {name: sum(n for k, n, _ in device if name in k) for name in names}
-        launched = all(c == iters for c in counts.values())
-    total = sum(t for _, _, t in device)
-    check(launched and total > 0, f"profiled kernels {counts}, {total} us")
-    return total / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        steps = schedule(wait=0, warmup=1, active=1, repeat=1)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=steps) as prof:
+            for _ in range(2):  # the warm-up step, then the one kept
+                time.sleep(0.05)
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.05)
+                prof.step()
+        # the schedule's step annotation ("ProfilerStep#") spans the step, not device work
+        device = [(e.key, e.count, e.self_device_time_total) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+        if names is None:
+            counts = {"all kernels": sum(n for _, n, _ in device)}
+            launched = counts["all kernels"] >= iters
+        else:
+            device = [d for d in device if any(name in d[0] for name in names)]
+            counts = {name: sum(n for k, n, _ in device if name in k) for name in names}
+            launched = all(c == iters for c in counts.values())
+        total = sum(t for _, _, t in device)
+        if launched and total > 0:
+            if names is None:
+                print("  device work of one profiled step: " + "; ".join(f"{k[:80]} x{n} {t:.1f} us" for k, n, t in device))
+            return total / 1e3 / iters
+        print(f"  profiled step {attempt} of {attempts}: kernels {counts} of {iters} calls, {total} us")
+    check(False, f"profiled kernels {counts}, {total} us in each of {attempts} traces")
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -232,37 +260,66 @@ def check_weighted_accum(d: int, gen) -> dict:
     return result
 
 
+#: (B, S, H, Dh, masked, dtype) of the K4/K5 checks: the ViT-small round's
+#: shape and the fed_obd_sq path's vit_base shape (batch 64, 12 heads, a
+#: 2304-wide packed row) in both dtypes, then the edges: S = 50 with a
+#: kv_mask (a partial tile, masked keys), Dh 128, S = 1024, and bf16 at
+#: S = 128 and at S = 197 with a kv_mask (K4's two-pass walk with a full
+#: and a partial last tile; K5 on its FMA route above S = 64)
+SHORT_MAIN = (BATCH, 64, 6, 64, False, "bfloat16")
+SHORT_CASES = [
+    SHORT_MAIN,
+    (BATCH, 64, 6, 64, False, "float32"),
+    (64, 64, 12, 64, False, "bfloat16"),
+    (64, 64, 12, 64, False, "float32"),
+    (8, 50, 6, 64, True, "bfloat16"),
+    (8, 50, 6, 64, True, "float32"),
+    (8, 128, 4, 128, False, "bfloat16"),
+    (8, 128, 4, 128, True, "float32"),
+    (2, 1024, 6, 64, True, "bfloat16"),
+    (2, 1024, 6, 64, False, "float32"),
+    (8, 128, 6, 64, False, "bfloat16"),
+    (8, 197, 6, 64, True, "bfloat16"),
+]
+
+
+def _short_blocks(dqkv, d: int) -> dict:
+    """The dq, dk and dv blocks of a packed ``[B, S, 3·D]`` gradient."""
+    return dict(zip(("dq", "dk", "dv"), dqkv.split(d, dim=-1)))
+
+
+def _refused(call, what: str) -> None:
+    """``call`` must raise the C entry's refusal (cudaErrorInvalidValue)."""
+    try:
+        call()
+    except RuntimeError as err:
+        check(str(err).endswith("CUDA error 1"), f"{what} refused with {err}")
+    else:
+        raise RuntimeError(f"chip smoke failed: {what} ran")
+
+
 def check_short_attention(gen) -> tuple[dict, dict]:
-    """K4 and K5 against their plain versions at the ViT-small round's shape
-    and the fed_obd_sq path's ``vit_base`` shape (batch 64, 12 heads, a
-    2304-wide packed row), both dtypes, and the edge shapes: S = 50 with a
-    kv_mask, Dh = 128, S = 1024; each case's forward kernel (bf16 at Dh 64
-    the Hopper kernel, else the FMA one) checked, bf16 also by the relative
-    check of ``attention_mismatch``.  At the ViT-small shape a planted fault
-    (p not rounded) must fail that check, and K4, the FMA K4 it replaced
-    (``fma_ms``) and SDPA's forward are timed by their device time (the
-    profiler's; a wrapper call's host cost is of the same size), the
-    wrapper's calls back to back as ``call_ms``."""
+    """K4 and K5 against their plain versions at ``SHORT_CASES``; each
+    case's kernels checked (``short_attention.fwd_route``: bf16 at Dh 64 the
+    Hopper forward; ``bwd_route``: bf16 at Dh 64 and S <= 64 the Hopper
+    backward; else FMA), bf16 also by the relative check of
+    ``attention_mismatch`` on out and on each of the dq, dk and dv blocks;
+    the C entries refuse the wgmma backward off its cases.  At the
+    ViT-small shape a planted fault in each kernel (K4: p not rounded; K5:
+    p and dS not rounded) must fail that check, and K4 and K5, the FMA
+    kernels they replaced (``fma_ms``) and SDPA's forward and backward are
+    timed by their device time (the profiler's; a wrapper call's host cost
+    is of the same size), the calls back to back as ``call_ms`` and
+    ``library_call_ms``."""
     import torch
     import torch.nn.functional as F
 
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
 
-    cases = [
-        (BATCH, 64, 6, 64, False, torch.bfloat16),
-        (BATCH, 64, 6, 64, False, torch.float32),
-        (64, 64, 12, 64, False, torch.bfloat16),
-        (64, 64, 12, 64, False, torch.float32),
-        (8, 50, 6, 64, True, torch.bfloat16),
-        (8, 50, 6, 64, True, torch.float32),
-        (8, 128, 4, 128, False, torch.bfloat16),
-        (8, 128, 4, 128, True, torch.float32),
-        (2, 1024, 6, 64, True, torch.bfloat16),
-        (2, 1024, 6, 64, False, torch.float32),
-    ]
     fwd_row, bwd_row = {}, {}
-    for b, s, h, dh, masked, dtype in cases:
-        d = h * dh
+    for case in SHORT_CASES:
+        b, s, h, dh, masked, dtype_name = case
+        dtype, d = getattr(torch, dtype_name), h * dh
         qkv = torch.randn(b, s, 3 * d, generator=gen, device="cuda").to(dtype)
         dout = torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
         mask = None
@@ -276,8 +333,12 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         ref_dqkv = sa.short_attention_bwd_plain(qkv, dout, ref_lse, h, mask)
         torch.cuda.synchronize()
         routes = sorted(key for key, n in sa.route_launches.items() if n != before[key])
-        family = "wgmma" if dtype == torch.bfloat16 and dh == 64 else "fma"
-        check(routes == sorted([f"fwd/{family}", "bwd/fma"]), f"short_attention {b, s, h, dh, dtype} ran {routes}")
+        fwd_family = "wgmma" if dtype == torch.bfloat16 and dh == 64 else "fma"
+        bwd_family = "wgmma" if fwd_family == "wgmma" and s <= sa.WGMMA_BWD_MAX_S else "fma"
+        want = sorted([f"fwd/{fwd_family}", f"bwd/{bwd_family}"])
+        check(routes == want, f"short_attention {case} ran {routes}, want {want}")
+        if bwd_family == "fma":  # the wgmma backward refuses f32, Dh 128 and S > 64
+            _refused(lambda: sa._bwd(qkv, dout, lse, h, mask, "wgmma"), f"the wgmma backward at {case}")
         errs = (max_err(out, ref_out), max_err(lse, ref_lse), max_err(dqkv, ref_dqkv))
         # f32: summation order only.  bf16: p and dS are rounded to bf16 on
         # both sides, so a value at a rounding boundary moves an output by
@@ -285,23 +346,24 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
         rel = ""
         if dtype == torch.bfloat16:
-            rel_max, rel_rms, ok = attention_mismatch(out, ref_out, "bfloat16")
-            rel = f"; out relative max/rms {rel_max:.2g}/{rel_rms:.2g} (tol {ATTN_TOL['bfloat16'][0]:.3g}/{ATTN_TOL['bfloat16'][1]:g})"
-            check(ok, f"short_attention {b, s, h, dh} out: max {rel_max:.3g} rms {rel_rms:.3g} of the reference's")
+            parts = [("out", out, ref_out)]
+            parts += [(n, got, _short_blocks(ref_dqkv, d)[n]) for n, got in _short_blocks(dqkv, d).items()]
+            rel_parts = []
+            for name, got, want_t in parts:
+                rel_max, rel_rms, ok = attention_mismatch(got, want_t, "bfloat16")
+                rel_parts.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
+                check(ok, f"short_attention {case} {name}: max {rel_max:.3g} rms {rel_rms:.3g} of the reference's")
+            rel = (f"; relative max/rms {', '.join(rel_parts)}"
+                   f" (tol {ATTN_TOL['bfloat16'][0]:.3g}/{ATTN_TOL['bfloat16'][1]:g})")
         print(
-            f"K4/K5 {str(dtype)[6:]} B={b} S={s} H={h} Dh={dh} mask={masked}: max_abs_err "
+            f"K4/K5 {dtype_name} B={b} S={s} H={h} Dh={dh} mask={masked}: max_abs_err "
             f"out {errs[0]:.3g} lse {errs[1]:.3g} dqkv {errs[2]:.3g} (tol {tol:g}, lse 1e-5){rel}; routes {' '.join(routes)}"
         )
-        check(errs[0] <= tol and errs[2] <= tol and errs[1] <= 1e-5, f"short_attention {b,s,h,dh,dtype}")
-        if (b, s, h, dh, dtype) != (BATCH, 64, 6, 64, torch.bfloat16):
+        check(errs[0] <= tol and errs[2] <= tol and errs[1] <= 1e-5, f"short_attention {case}")
+        check(bool(torch.isfinite(dqkv.float()).all()), f"short_attention {case} dqkv not finite")
+        if case != SHORT_MAIN:
             continue
-        # a kernel that does not round p to bf16: the plain version on the
-        # f32 values of the same inputs, rounded to bf16 at the end
-        unrounded = sa.short_attention_fwd_plain(qkv.float(), h, mask)[0].to(dtype)
-        rel_max, rel_rms, ok = attention_mismatch(unrounded, ref_out, "bfloat16")
-        check(not ok, "a K4 that does not round p passes the check")
-        print(f"planted fault at the ViT-small shape, a K4 that does not round p: relative max/rms"
-              f" {rel_max:.2g}/{rel_rms:.2g} (rejected)")
+        check_short_planted_faults(qkv, dout, mask, h, ref_out, ref_lse, ref_dqkv)
         itemsize, name = qkv.element_size(), "bfloat16"
         mm = 2 * b * h * s * s * dh  # one [S, S] x [S, Dh] product, all heads
         fwd_bound = bound_ms(b * s * 3 * d * itemsize + b * s * d * itemsize + b * h * s * 4, 2 * mm, name)
@@ -312,6 +374,10 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         do4 = dout.view(b, s, h, dh).transpose(1, 2).contiguous()
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
         sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
+
         fwd_row = {
             "max_abs_err": max(errs[0], errs[1]),
             "ms": kernel_device_ms(lambda: sa.short_attention_fwd(qkv, h, mask), ("short_fwd_wgmma_kernel",)),
@@ -325,20 +391,68 @@ def check_short_attention(gen) -> tuple[dict, dict]:
             "library_ms": kernel_device_ms(lambda: F.scaled_dot_product_attention(q, k, v), None),
             "library_call_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "shape": f"qkv [{b}, {s}, {3 * d}] bf16",
-            "family": family,
+            "family": fwd_family,
         }
         bwd_row = {
             "max_abs_err": errs[2],
-            "ms": cuda_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
+            "ms": kernel_device_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask), ("short_bwd_wgmma_kernel",)),
+            "call_ms": cuda_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
+            # the FMA kernels this route replaced, on the same inputs
+            "fma_ms": kernel_device_ms(lambda: sa._bwd(qkv, dout, lse, h, mask, "fma"), ("dq_kernel", "dkv_kernel")),
             "plain_ms": cuda_ms(lambda: sa.short_attention_bwd_plain(qkv, dout, lse, h, mask)),
             "bound_ms": bwd_bound[0],
             "bound_by": bwd_bound[1],
-            "library_ms": cuda_ms(
-                lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
-            ),
+            # every kernel SDPA's backward launches (all three gradients), by the same clock
+            "library_ms": kernel_device_ms(sdpa_bwd, None),
+            "library_call_ms": cuda_ms(sdpa_bwd),
+            # the host's cost of a call: the whole wrapper, and its C entry
+            # alone (ctypes, four tensor-map encodes, the launch)
+            "host_ms": host_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
+            "entry_host_ms": host_ms(lambda: short_bwd_entry(qkv, dout, lse, h, dqkv)),
             "shape": f"qkv, dout [{b}, {s}, {3 * d}], [{b}, {s}, {d}] bf16",
+            "family": bwd_family,
         }
+        del sdpa_out, qg, kg, vg
     return fwd_row, bwd_row
+
+
+def short_bwd_entry(qkv, dout, lse, h: int, dqkv) -> None:
+    """K5's C entry on the wgmma route, called as the wrapper calls it,
+    without the wrapper's checks and allocation."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+
+    b, s, _ = qkv.shape
+    err = sa._library().short_attention_bwd(
+        1, sa.ROUTES["wgmma"], qkv.data_ptr(), None, dout.data_ptr(), lse.data_ptr(), None, dqkv.data_ptr(),
+        b, s, h, 64, torch.cuda.current_stream().cuda_stream,
+    )
+    check(err == 0, f"K5's C entry returned {err}")
+
+
+def check_short_planted_faults(qkv, dout, mask, h: int, ref_out, ref_lse, ref_dqkv) -> None:
+    """The relative check of ``check_short_attention`` must reject, at the
+    ViT-small shape, a K4 that does not round p to bf16 (out) and a K5
+    that rounds neither p nor dS to bf16 (each of dq, dk and dv): the plain
+    versions on the f32 values of the same inputs, rounded to bf16 at the
+    end; the backward takes the true lse."""
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+
+    d = dout.shape[-1]
+    unrounded = sa.short_attention_fwd_plain(qkv.float(), h, mask)[0].to(qkv.dtype)
+    rel_max, rel_rms, ok = attention_mismatch(unrounded, ref_out, "bfloat16")
+    check(not ok, "a K4 that does not round p passes the check")
+    print(f"planted fault at the ViT-small shape, a K4 that does not round p: relative max/rms"
+          f" {rel_max:.2g}/{rel_rms:.2g} (rejected)")
+    unrounded = sa.short_attention_bwd_plain(qkv.float(), dout.float(), ref_lse, h, mask).to(qkv.dtype)
+    rel = []
+    for (name, got), want in zip(_short_blocks(unrounded, d).items(), _short_blocks(ref_dqkv, d).values()):
+        rel_max, rel_rms, ok = attention_mismatch(got, want, "bfloat16")
+        rel.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
+        check(not ok, f"a K5 that rounds neither p nor dS passes the {name} check")
+    print(f"planted fault at the ViT-small shape, a K5 that rounds neither p nor dS: relative max/rms"
+          f" {', '.join(rel)} (rejected)")
 
 
 #: (B, H, T, Dh, dtype name, causal, mask kind) of the K6-K11 checks: the
@@ -376,22 +490,30 @@ ROUTE_OF = {
 }
 
 
-#: the Hopper kernels (wgmma, TMA) of each library, each with two
-#: instantiations: Dh 32 and 64 (fused_attention), one pass and two
-#: (short_attention)
+#: the Hopper kernels (wgmma, TMA) of each library as built, one entry an
+#: instantiation: Dh 32 and 64 (fused_attention), one pass and two (the
+#: short forward), and the short backward (not a template)
 WGMMA_KERNELS = {
-    "fused_attention": ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel"),
-    "short_attention": ("short_fwd_wgmma_kernel",),
+    "fused_attention": tuple(
+        f"{name}<{dh}>" for name in ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel") for dh in (32, 64)
+    ),
+    "short_attention": ("short_fwd_wgmma_kernel<1>", "short_fwd_wgmma_kernel<2>", "short_bwd_wgmma_kernel"),
 }
 
 
 def _wgmma_name(mangled: str, kernels: tuple[str, ...]) -> str | None:
     """``fwd_wgmma_kernel<64>`` for a mangled instantiation of one of
-    ``kernels`` (the name right after its length prefix), else None."""
+    ``kernels`` (the name right after its length prefix, then its integer
+    template argument if it has one: ``short_bwd_wgmma_kernel`` has none),
+    else None."""
     import re
 
-    found = re.search(r"(?<=\d)(%s)ILi(\d+)E" % "|".join(kernels), mangled)
-    return f"{found.group(1)}<{found.group(2)}>" if found else None
+    names = "|".join(sorted({k.split("<")[0] for k in kernels}))
+    for found in re.finditer(r"(\d+)(%s)(?:ILi(\d+)E)?" % names, mangled):
+        prefix, name, arg = found.groups()
+        if prefix.endswith(str(len(name))):
+            return f"{name}<{arg}>" if arg else name
+    return None
 
 
 def check_wgmma_build(library: str) -> None:
@@ -410,7 +532,7 @@ def check_wgmma_build(library: str) -> None:
                 ptxas[current] = []
         elif current and ("registers" in line or "spill" in line):
             ptxas[current].append(line.replace("ptxas info    :", "").strip())
-    check(len(ptxas) == 2 * len(kernels), f"ptxas entries of the wgmma kernels: {sorted(ptxas)}")
+    check(sorted(ptxas) == sorted(kernels), f"ptxas entries of the wgmma kernels: {sorted(ptxas)}")
     for line in sorted({x.strip() for x in report.splitlines() if "warning" in x.lower()}):
         print(f"  {line}")
     for name, lines in sorted(ptxas.items()):
@@ -429,7 +551,7 @@ def check_wgmma_build(library: str) -> None:
         elif current:
             for op in counts[current]:
                 counts[current][op] += f" {op}." in line or f" {op} " in line
-    check(len(counts) == 2 * len(kernels), f"SASS functions of the wgmma kernels: {sorted(counts)}")
+    check(sorted(counts) == sorted(kernels), f"SASS functions of the wgmma kernels: {sorted(counts)}")
     for name, ops in sorted(counts.items()):
         print(f"  SASS {name}: " + ", ".join(f"{op} x{n}" for op, n in ops.items()))
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0, f"{name} has no wgmma or TMA load in its SASS: {ops}")
@@ -534,15 +656,11 @@ def check_fused_attention(gen) -> dict[str, dict]:
             check(routes == sorted(f"{kind_}/{r}" for kind_, r in zip(("fwd", "dq", "dkv"), want)),
                   f"fused attention {case} ran {routes}, want {want}")
         if want == ("mma", "mma", "mma"):  # the C entries refuse the wgmma route off its layouts
-            for call in (lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="wgmma"),
-                         lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
-                         lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma")):
-                try:
-                    call()
-                except RuntimeError as err:
-                    check(str(err).endswith("CUDA error 1"), f"refused with {err}")  # cudaErrorInvalidValue
-                else:
-                    raise RuntimeError(f"chip smoke failed: the wgmma route ran on {case}")
+            _refused(lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="wgmma"), f"wgmma fwd at {case}")
+            _refused(lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
+                     f"wgmma dk/dv at {case}")
+            _refused(lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
+                     f"wgmma dq at {case}")
         ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
         ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
         torch.cuda.synchronize()
@@ -734,7 +852,8 @@ def _kernel_group(name: str) -> str:
         return "port kernels (K6-K11)"
     if any(k in name for k in ("encode_kernel", "absmax_kernel", "decode_kernel")):
         return "port kernels (K2, K3)"
-    if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "short_fwd_wgmma_kernel", "weighted_accum_kernel")):
+    if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "short_fwd_wgmma_kernel",
+                               "short_bwd_wgmma_kernel", "weighted_accum_kernel")):
         return "port kernels (K1, K4, K5)"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")):
         return "matrix products (cuBLAS)"
@@ -773,7 +892,9 @@ def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float
         groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e6
     for key, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {key}: {t * 1e3:.1f} ms ({t / busy:.1%} of device time)")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:10]:
+    # the ten largest kernels, then the port's own that are not among them
+    ranked = sorted(device, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:10] + [e for e in ranked[10:] if _kernel_group(e.key).startswith("port kernels")]:
         print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
     if host_ops:
         host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_ops]
@@ -786,8 +907,8 @@ def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float
 
 def check_short_routes(routes: dict[str, int], k4: int, k5: int, path: str) -> None:
     """Every K4 launch of a main path on the Hopper forward, every K5 launch
-    on the backward (``ops/short_attention.py::route_launches``)."""
-    want = {"fwd/fma": 0, "fwd/wgmma": k4, "bwd/fma": k5}
+    on the Hopper backward (``ops/short_attention.py::route_launches``)."""
+    want = {"fwd/fma": 0, "fwd/wgmma": k4, "bwd/fma": 0, "bwd/wgmma": k5}
     print(f"  {path} K4/K5 launches by kernel: {routes}")
     check(routes == want, f"{path} K4/K5 kernels {routes}, want {want}")
 

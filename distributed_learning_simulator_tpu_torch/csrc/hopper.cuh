@@ -11,10 +11,11 @@
 // 128-byte swizzle, Dh 32: 64-byte), on a 1024-byte-aligned base.  wgmma
 // reads it through a descriptor either K-major (Dh is the product's
 // reduction axis: Q.K^T, K.Q^T, V.dO^T) or MN-major (the tile's rows are
-// the reduction axis: P.V, P^T.dO, dS^T.Q).  In both, 8 rows make one
-// swizzle atom and the stride from one atom to the next (SBO) is 8 rows.
-// A k16 step advances a K-major descriptor by 32 bytes along the row and
-// an MN-major one by 16 rows.
+// the reduction axis: P.V, P^T.dO, dS^T.Q; an A operand read from shared
+// memory can be MN-major too, as the short backward's P^T and dS^T are).
+// In both, 8 rows make one swizzle atom and the stride from one atom to
+// the next (SBO) is 8 rows.  A k16 step advances a K-major descriptor by
+// 32 bytes along the row and an MN-major one by 16 rows.
 //
 // Accumulator fragment of wgmma.m64nNk16 (f32): thread i of the warpgroup,
 // warp w = i / 32, g = (i % 32) / 4, t = i % 4 holds d[4j + 2h + e] =
@@ -256,6 +257,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], both MN-major in shared memory
+// (A's 64 rows are the contiguous axis of its tile, as B's 64 columns are
+// of its own: the transposed operands of P^T.dO and dS^T.Q)
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA), ahead of a barrier with the readers
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // the THREADS threads (a multiple of 32) that name barrier ID wait for

@@ -20,7 +20,11 @@
 //     rows the tensor maps cannot describe: fwd_kernel, the first version,
 //     with the products on the f32 FMA units (67 TFLOP/s peak), which makes
 //     it bound by operations instead.
-// The backward (dq_kernel, dkv_kernel) is the first version at every dtype.
+// The backward has two routes likewise (ops/short_attention.py::bwd_route):
+//   * wgmma (route 1): bf16 at Dh 64 and S <= 64 (the ViT and fed_obd_sq
+//     paths): short_bwd_wgmma_kernel, after the forward's, in one launch;
+//   * FMA (route 0): every other case the forward takes (f32, Dh 128,
+//     64 < S <= 1024): dq_kernel and dkv_kernel, the first version.
 //
 // Design of the FMA kernels (not the TPU's): the TPU kernel holds one batch
 // group's whole S x S score matrix in VMEM and stacks 128 // S batch
@@ -530,6 +534,56 @@ __device__ __forceinline__ void sw_pv(float (&o)[32], const uint32_t (&pa)[4][4]
   hopper::wgmma_commit();
 }
 
+// the states of keys k0 + 2 lane and + 1 (present and unmasked, masked, or
+// past S) into codes[2 lane], codes[2 lane + 1]; returns (to the whole warp)
+// whether all 64 keys of the tile are present and unmasked
+__device__ __forceinline__ bool sw_key_codes(uint8_t* codes, const float* mrow, int k0, int S, int lane) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int key = k0 + 2 * lane + e;
+    const uint32_t c = key >= S ? kKeyAbsent : (mrow != nullptr && !(mrow[key] > 0.f) ? kKeyMasked : kKeyValid);
+    word |= c << (8 * e);
+  }
+  reinterpret_cast<uint16_t*>(codes)[lane] = static_cast<uint16_t>(word);
+  return __all_sync(0xffffffffu, word == (kKeyValid | kKeyValid << 8));
+}
+
+// a bf16 pair into columns 8 j + 2 t and + 1 of row r of a 64 x 64 tile
+// in its 128-byte swizzle: 16-byte chunk j of row r sits at chunk
+// j ^ (r % 8), so the writes of a warp fall in distinct banks
+__device__ __forceinline__ void sw_put(unsigned char* tile, int r, int j, int t, uint32_t pair) {
+  *reinterpret_cast<uint32_t*>(tile + r * kSwRow + ((j ^ (r & 7)) << 4) + 4 * t) = pair;
+}
+
+// a warpgroup's accumulator (rows r_lo and r_lo + 8 of this thread) as
+// bf16 into a 64 x 64 tile
+__device__ __forceinline__ void sw_put_acc(unsigned char* tile, const float (&d)[32], int r_lo, int t) {
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sw_put(tile, r_lo + 8 * hh, j, t, hopper::pack_bf16x2(d[4 * j + 2 * hh], d[4 * j + 2 * hh + 1]));
+}
+
+// rows [0, rows) of a staged 64 x 64 bf16 tile out to dst (rows `ld`
+// elements apart) with 16-byte stores, by the warpgroup's 128 threads
+__device__ __forceinline__ void sw_store_rows(__nv_bfloat16* dst, int64_t ld, const unsigned char* tile, int rows,
+                                              int tid) {
+  for (int i = tid; i < kTile * 8; i += 128) {
+    const int r = i / 8, c = i % 8;
+    if (r < rows)
+      *reinterpret_cast<uint4*>(dst + r * ld + c * 8) = *reinterpret_cast<const uint4*>(tile + r * kSwRow + ((c ^ (r & 7)) << 4));
+  }
+}
+
+// the named barrier of consumer warpgroup wg (IDs 1 and 2; 0 is __syncthreads)
+__device__ __forceinline__ void wg_sync(int wg) {
+  if (wg == 0)
+    hopper::named_barrier<1, 128>();
+  else
+    hopper::named_barrier<2, 128>();
+}
+
 template <int PASSES>
 __global__ void __launch_bounds__(sw_threads(PASSES), PASSES == 1 ? 3 : 1)
     short_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
@@ -565,15 +619,7 @@ __global__ void __launch_bounds__(sw_threads(PASSES), PASSES == 1 ? 3 : 1)
   const float* mrow = mask ? mask + static_cast<int64_t>(b) * S : nullptr;
   const CUtensorMap *map_q = &tm_q, *map_k = &tm_k, *map_v = &tm_v;
   auto fill = [&](int stage, int kt, bool with_v, bool with_q) {
-    uint32_t word = 0;  // the states of keys kt * 64 + 2 lane and + 1, a byte each
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int key = kt * kTile + 2 * lane + e;
-      const uint32_t c = key >= S ? kKeyAbsent : (mrow != nullptr && !(mrow[key] > 0.f) ? kKeyMasked : kKeyValid);
-      word |= c << (8 * e);
-    }
-    reinterpret_cast<uint16_t*>(codes + stage * kTile)[lane] = static_cast<uint16_t>(word);
-    const bool all = __all_sync(0xffffffffu, word == (kKeyValid | kKeyValid << 8));
+    const bool all = sw_key_codes(codes + stage * kTile, mrow, kt * kTile, S, lane);
     unsigned char* st = base + sw_stage(stage);
     if (lane == 0) {
       flags[stage] = all;
@@ -717,33 +763,227 @@ __global__ void __launch_bounds__(sw_threads(PASSES), PASSES == 1 ? 3 : 1)
     }
   }
 
-  // O as bf16 into this warpgroup's Q tile, 16-byte chunk c of row r at
-  // chunk c ^ (r % 8) (the tile's swizzle, so the writes of a warp fall in
-  // distinct banks), then whole rows out with 16-byte stores
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    const int r = r_lo + 8 * hh;
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(Qs + r * kSwRow + ((j ^ (r & 7)) << 4) + 4 * t) =
-          hopper::pack_bf16x2(o[4 * j + 2 * hh], o[4 * j + 2 * hh + 1]);
-  }
-  if (wg == 0)
-    hopper::named_barrier<1, 128>();
-  else
-    hopper::named_barrier<2, 128>();
+  // O as bf16 into this warpgroup's Q tile (each warp's scores read only
+  // its own 16 rows of Q), then whole rows out with 16-byte stores
+  sw_put_acc(Qs, o, r_lo, t);
+  wg_sync(wg);
   const int64_t D = static_cast<int64_t>(H) * 64;
-  for (int i = tid; i < kTile * 8; i += 128) {
-    const int r = i / 8, c = i % 8, row = q0 + r;
-    if (row < S)
-      *reinterpret_cast<uint4*>(out + (static_cast<int64_t>(b) * S + row) * D + h * 64 + c * 8) =
-          *reinterpret_cast<const uint4*>(Qs + r * kSwRow + ((c ^ (r & 7)) << 4));
-  }
+  sw_store_rows(out + (static_cast<int64_t>(b) * S + q0) * D + h * 64, D, Qs, S - q0, tid);
   if (t == 0) {
     const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
     if (q0 + r_lo < S) lse[stat0 + q0 + r_lo] = lse_lo;
     if (q0 + r_lo + 8 < S) lse[stat0 + q0 + r_lo + 8] = lse_hi;
   }
+}
+
+// ----------------------------------------------------------------------------
+// Hopper backward: short_bwd_wgmma_kernel, K5 at bf16, Dh 64 and S <= 64
+// (the ViT and fed_obd_sq paths), the same function and roundings as
+// dq_kernel + dkv_kernel:
+//   p = exp(s * scale - lse) in f32, delta = rowsum(dP * p) with that p,
+//   dS = bf16(p (dP - delta) scale), dV = bf16(p)^T dO, dQ = dS K,
+//   dK = dS^T Q.
+//
+// What bounds it on the H100: bytes.  At the ViT-small shape (qkv
+// [128, 64, 1152], dO [128, 64, 384] bf16, 6 heads) a call reads qkv, dO
+// and lse and writes dqkv, 44.2 MB against 2.0 GFLOP: 13.2 us at
+// 3.35 TB/s against 2.0 us of tensor-core time.  dq_kernel and dkv_kernel
+// widen every element to f32 with 2-byte loads, form the scores and dP
+// three times over (dq_kernel's two passes, dkv_kernel's one) on the f32
+// FMA units, and hand delta from one launch to the next through device
+// memory.
+//
+// Design: K4's one-pass block (one batch element and two heads, a
+// consumer warpgroup each, 256 threads; two blocks an SM, since p and dP
+// live together take more than the 80 registers a third block allows, so
+// the ViT-small and vit_base calls, 384 blocks each, take 1.5 waves).
+// The first warp writes the keys' states and brings Q, K, V and dO of
+// both heads by TMA (a fourth tensor map over dO viewed as [B, S, H, 64])
+// onto one barrier.  Each warpgroup, in one launch and with no scratch in
+// device memory:
+//   1. S = Q K^T and dP = dO V^T on wgmma as one group, rows = queries;
+//   2. p from the accumulator and the row's lse; delta by quad shuffles;
+//      bf16(p) into the head's V tile (spent once dP is done); dS rounded
+//      to bf16 into A fragments;
+//   3. dQ = dS K on wgmma (K the MN-major B operand, as V in the
+//      forward's P.V), then bf16(dS) into the K tile (spent);
+//   4. dV = P^T dO, then dK = dS^T Q, on wgmma with both operands
+//      MN-major from shared memory: the tiles hold P and dS with queries
+//      as rows, and queries are the reduction axis of both products; one
+//      accumulator at a time beside dQ's bf16 values;
+//   5. dQ and dV staged in the spent dO and V tiles once dV is done, dK
+//      in the Q tile, then whole rows out with 16-byte stores into the
+//      packed dqkv.
+// wgmma reads B (and an MN-major A) across all four warps' rows, so every
+// reuse of a tile waits at the warpgroup's named barrier, and tiles
+// written by threads are fenced to the async proxy before wgmma reads
+// them.  Query rows past S read as TMA's zero fill and get p = 0; keys
+// past S score -inf, masked keys -1e30, as in the forward.
+constexpr int kBwdTiles = 4;  // Q, K, V, dO
+// byte offsets from the 1024-aligned base: tile i (0 Q, 1 K, 2 V, 3 dO) of
+// the block's head w, then the keys' states, the all-valid flag and the
+// barrier
+__host__ __device__ constexpr int bwd_tile(int i, int w) { return (i * kSwHeads + w) * kSwTile; }
+constexpr int kBwdCodes = kBwdTiles * kSwHeads * kSwTile;
+constexpr int kBwdFlag = kBwdCodes + kTile;
+constexpr int kBwdBar = kBwdFlag + 8;
+constexpr size_t kBwdSmemBytes = kBwdBar + sizeof(uint64_t) + 1024;
+
+__global__ void __launch_bounds__(sw_threads(1), 2)
+    short_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                           const float* __restrict__ mask, const float* __restrict__ lse,
+                           __nv_bfloat16* __restrict__ dqkv, int S, int H, float scale) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                                         ~uintptr_t(1023));
+  uint8_t* codes = base + kBwdCodes;
+  int* flag = reinterpret_cast<int*>(base + kBwdFlag);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kBwdBar);
+  const int h0 = blockIdx.y * kSwHeads, b = blockIdx.z;
+  const int heads = min(kSwHeads, H - h0);  // 1 in the last block of an odd H
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(full, 32);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {  // the first warp fills the block's one stage
+    const int lane = threadIdx.x;
+    const bool all = sw_key_codes(codes, mask ? mask + static_cast<int64_t>(b) * S : nullptr, 0, S, lane);
+    if (lane == 0) {
+      *flag = all;
+      hopper::mbar_arrive_expect_tx(full, heads * kBwdTiles * kSwTile);
+      for (int w = 0; w < heads; ++w) {
+        hopper::tma_load_4d(base + bwd_tile(0, w), &tm_q, full, 0, h0 + w, 0, b);
+        hopper::tma_load_4d(base + bwd_tile(1, w), &tm_k, full, 0, h0 + w, 0, b);
+        hopper::tma_load_4d(base + bwd_tile(2, w), &tm_v, full, 0, h0 + w, 0, b);
+        hopper::tma_load_4d(base + bwd_tile(3, w), &tm_do, full, 0, h0 + w, 0, b);
+      }
+    } else {
+      hopper::mbar_arrive(full);
+    }
+  }
+  if (wg >= heads) return;
+
+  // warpgroup wg takes head h0 + wg; this thread's rows r_lo and r_lo + 8
+  const int h = h0 + wg, tid = threadIdx.x % 128, t = tid % 4;
+  const int r_lo = tid / 32 * 16 + tid % 32 / 4;
+  unsigned char* Qs = base + bwd_tile(0, wg);
+  unsigned char* Ks = base + bwd_tile(1, wg);
+  unsigned char* Vs = base + bwd_tile(2, wg);
+  unsigned char* dOs = base + bwd_tile(3, wg);
+  const int64_t stat0 = (static_cast<int64_t>(b) * H + h) * S;
+  // a row past S takes lse = +inf, so its p = exp(s - lse) is 0
+  const float lse_lo = r_lo < S ? lse[stat0 + r_lo] : INFINITY;
+  const float lse_hi = r_lo + 8 < S ? lse[stat0 + r_lo + 8] : INFINITY;
+  float s[32], dp[32], acc[32];
+  uint32_t da[4][4];
+  hopper::mbar_wait(full, 0);
+
+  // 1. S = Q K^T and dP = dO V^T, one group
+  {
+    const uint64_t q_a = hopper::desc_k_major<kSwRow>(Qs), k_b = hopper::desc_k_major<kSwRow>(Ks);
+    const uint64_t do_a = hopper::desc_k_major<kSwRow>(dOs), v_b = hopper::desc_k_major<kSwRow>(Vs);
+    hopper::wgmma_fence();
+    hopper::wgmma_ss_init(s, q_a, k_b);
+#pragma unroll
+    for (int ks = 1; ks < 4; ++ks) hopper::wgmma_ss_acc(s, hopper::desc_add(q_a, 32 * ks), hopper::desc_add(k_b, 32 * ks));
+    hopper::wgmma_ss_init(dp, do_a, v_b);
+#pragma unroll
+    for (int ks = 1; ks < 4; ++ks) hopper::wgmma_ss_acc(dp, hopper::desc_add(do_a, 32 * ks), hopper::desc_add(v_b, 32 * ks));
+    hopper::wgmma_commit();
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  hopper::fence_regs(dp);
+
+  // 2. p = exp(s - lse), delta = rowsum(dP p)
+  sw_mask(s, codes, *flag != 0, scale, t);
+  float d_lo = 0.f, d_hi = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float& p_lo = s[4 * j + e];
+      float& p_hi = s[4 * j + 2 + e];
+      p_lo = expf(p_lo - lse_lo);
+      p_hi = expf(p_hi - lse_hi);
+      d_lo = fmaf(p_lo, dp[4 * j + e], d_lo);
+      d_hi = fmaf(p_hi, dp[4 * j + 2 + e], d_hi);
+    }
+  d_lo = quad_sum(d_lo);
+  d_hi = quad_sum(d_hi);
+  wg_sync(wg);  // every warp's dP has read V
+  sw_put_acc(Vs, s, r_lo, t);  // bf16(p), queries as rows
+  // dS = bf16(p (dP - delta) scale) into the A fragments of dS K
+  // (s[4j + 2h + e] is row r_lo + 8h: h = i / 2 % 2)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - ((i & 2) ? d_hi : d_lo)) * scale;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) da[k][r] = hopper::pack_bf16x2(dp[8 * k + 2 * r], dp[8 * k + 2 * r + 1]);
+
+  // 3. dQ = dS K, K MN-major; then bf16(dS) into the spent K tile
+  // (da[k][r] is row r_lo + 8 (r % 2), columns 16 k + 8 (r / 2) + 2 t)
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  sw_pv(acc, da, Ks);
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  hopper::fence_regs(da);
+  uint32_t dq[16];  // dQ as bf16 pairs: dq[2j + h] is row r_lo + 8h, columns 8j + 2t, + 1
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) dq[2 * j + hh] = hopper::pack_bf16x2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
+  wg_sync(wg);  // every warp's dQ has read K
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) sw_put(Ks, r_lo + 8 * (r % 2), 2 * k + r / 2, t, da[k][r]);
+  hopper::fence_proxy_async();
+  wg_sync(wg);  // P and dS are in place for wgmma
+
+  // 4. dV = P^T dO (A: the P tile, B: dO, both MN-major, 16 queries a step)
+  const uint64_t p_a = hopper::desc_mn_major<kSwRow>(Vs), do_b = hopper::desc_mn_major<kSwRow>(dOs);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    hopper::wgmma_ss_mn(acc, hopper::desc_add(p_a, k * 16 * kSwRow), hopper::desc_add(do_b, k * 16 * kSwRow));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  wg_sync(wg);  // every warp's dV has read P and dO
+  // dV into the V tile, dQ into the dO tile
+  sw_put_acc(Vs, acc, r_lo, t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) sw_put(dOs, r_lo + 8 * hh, j, t, dq[2 * j + hh]);
+  // dK = dS^T Q (A: the dS tile, B: Q, both MN-major)
+  const uint64_t ds_a = hopper::desc_mn_major<kSwRow>(Ks), q_b = hopper::desc_mn_major<kSwRow>(Qs);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    hopper::wgmma_ss_mn(acc, hopper::desc_add(ds_a, k * 16 * kSwRow), hopper::desc_add(q_b, k * 16 * kSwRow));
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+  wg_sync(wg);  // every warp's dK has read dS and Q
+  // 5. dK into the Q tile, then the three tiles out as whole rows
+  sw_put_acc(Qs, acc, r_lo, t);
+  wg_sync(wg);
+  const int64_t D = static_cast<int64_t>(H) * 64, ld = 3 * D;
+  __nv_bfloat16* row0 = dqkv + static_cast<int64_t>(b) * S * ld + h * 64;
+  sw_store_rows(row0, ld, dOs, S, tid);
+  sw_store_rows(row0 + D, ld, Qs, S, tid);
+  sw_store_rows(row0 + 2 * D, ld, Vs, S, tid);
 }
 
 constexpr size_t tile_bytes(int dh) { return sizeof(float) * kTile * (dh + 1); }
@@ -814,9 +1054,33 @@ int bwd(const void* qkv, const float* mask, const void* dout, const float* lse, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// the forward's routes, chosen by the caller from dtype, Dh and layout
-// (ops/short_attention.py::fwd_route): 0 fwd_kernel (FMA), 1 the Hopper
-// kernel (bf16 at Dh 64 on 16-byte-aligned rows)
+// the Hopper backward (bf16, Dh 64, S <= 64): four tensor maps, Q, K and V
+// over the packed [B, S, 3, H, 64] view and dO over [B, S, H, 64]; no
+// delta scratch
+int bwd_wgmma(const void* qkv, const float* mask, const void* dout, const float* lse, void* dqkv, int B, int S,
+              int H, cudaStream_t stream) {
+  if (S > kTile || !hopper::aligned16(qkv) || !hopper::aligned16(dout) || !hopper::aligned16(dqkv))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[4];
+  const long long row = 3LL * H * 64, drow = static_cast<long long>(H) * 64;
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 3 && err == cudaSuccess; ++i)
+    err = hopper::make_map(&maps[i], static_cast<const __nv_bfloat16*>(qkv) + i * H * 64,
+                           hopper::Strides{64, row, row * S}, B, S, H, 64, kTile);
+  if (err == cudaSuccess)
+    err = hopper::make_map(&maps[3], dout, hopper::Strides{64, drow, drow * S}, B, S, H, 64, kTile);
+  if (err == cudaSuccess) err = hopper::allow_smem(reinterpret_cast<const void*>(short_bwd_wgmma_kernel), kBwdSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(1, (H + kSwHeads - 1) / kSwHeads, B);
+  short_bwd_wgmma_kernel<<<grid, sw_threads(1), kBwdSmemBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, static_cast<__nv_bfloat16*>(dqkv), S, H, softmax_scale(64));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the routes of the forward and the backward, chosen by the caller from
+// dtype, Dh, S and layout (ops/short_attention.py::fwd_route, bwd_route):
+// 0 the FMA kernels, 1 the Hopper kernels (bf16 at Dh 64 on 16-byte-aligned
+// rows; the backward at S <= 64)
 constexpr int kRouteFma = 0, kRouteWgmma = 1;
 
 }  // namespace
@@ -840,12 +1104,17 @@ int short_attention_fwd(int dtype, int route, const void* qkv, const float* mask
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// dout [B, S, H*Dh]; lse [B, H, S] from the forward; delta [B, H, S] f32
-// scratch; dqkv [B, S, 3*H*Dh] (every element written).
-int short_attention_bwd(int dtype, const void* qkv, const float* mask, const void* dout,
+// route as the forward's; dout [B, S, H*Dh]; lse [B, H, S] from the
+// forward; delta [B, H, S] f32 scratch of the FMA route (the wgmma route
+// takes none); dqkv [B, S, 3*H*Dh] (every element written).
+int short_attention_bwd(int dtype, int route, const void* qkv, const float* mask, const void* dout,
                         const float* lse, float* delta, void* dqkv, int B, int S, int H, int Dh,
                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteWgmma)
+    return dtype == 1 && Dh == 64 ? bwd_wgmma(qkv, mask, dout, lse, dqkv, B, S, H, s)
+                                  : static_cast<int>(cudaErrorInvalidValue);
+  if (route != kRouteFma || delta == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && Dh == 64)
     return bwd<float, 64>(qkv, mask, dout, lse, delta, dqkv, B, S, H, s);
   if (dtype == 0 && Dh == 128)

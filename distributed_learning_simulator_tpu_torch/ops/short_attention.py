@@ -14,7 +14,10 @@ the Hopper kernel (TMA loads of the packed rows, ``wgmma`` products, one
 pass at S <= 64), for bf16 at Dh 64 on a layout three tensor maps
 describe (:func:`_tma_describable`): the ViT and fed_obd_sq paths;
 ``"fma"``, the first kernel (products on the f32 FMA units), for f32,
-Dh 128 and any other layout.  The backward has the FMA kernel only.
+Dh 128 and any other layout.  :func:`bwd_route` picks the backward's the
+same way: ``"wgmma"`` (one launch: S, dP, dQ, dV and dK on ``wgmma``,
+delta in registers) for bf16 at Dh 64 and ``S <= 64`` on such a layout,
+``"fma"`` (two launches and a delta scratch) otherwise.
 ``route_launches`` counts launches per kernel and route.
 
 :func:`short_attention_fwd` and :func:`short_attention_bwd` launch the
@@ -42,10 +45,13 @@ _VMEM_BUDGET = 13 * 1024 * 1024
 fwd_launches = 0
 bwd_launches = 0
 
-#: the forward's kernels, by the code the C entry takes
+#: the kernels of the forward and of the backward, by the code the C
+#: entries take
 ROUTES = {"fma": 0, "wgmma": 1}
 #: launches per kernel and route ("fwd/wgmma", ...) since last set to 0
-route_launches = {"fwd/fma": 0, "fwd/wgmma": 0, "bwd/fma": 0}
+route_launches = {"fwd/fma": 0, "fwd/wgmma": 0, "bwd/fma": 0, "bwd/wgmma": 0}
+#: the longest sequence the Hopper backward takes (one 64-row tile)
+WGMMA_BWD_MAX_S = 64
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
@@ -74,7 +80,7 @@ def _library():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.short_attention_fwd.argtypes = [i, i, p, p, p, p, i, i, i, i, p]
         lib.short_attention_fwd.restype = i
-        lib.short_attention_bwd.argtypes = [i, p, p, p, p, p, p, i, i, i, i, p]
+        lib.short_attention_bwd.argtypes = [i, i, p, p, p, p, p, p, i, i, i, i, p]
         lib.short_attention_bwd.restype = i
         _bound = lib
     return _bound
@@ -187,6 +193,24 @@ def fwd_route(qkv, num_heads: int) -> str:
     return "fma"
 
 
+def bwd_route(qkv, num_heads: int, dout=None) -> str:
+    """The backward's kernel for this packed projection: ``"wgmma"`` for
+    bf16 at Dh 64 and ``S <= 64`` where :func:`_tma_describable` (and
+    ``dout``, if given, starts on a 16-byte boundary), else ``"fma"``."""
+    dout_aligned = dout is None or dout.data_ptr() % 16 == 0
+    if fwd_route(qkv, num_heads) == "wgmma" and qkv.shape[1] <= WGMMA_BWD_MAX_S and dout_aligned:
+        return "wgmma"
+    return "fma"
+
+
+def _named_route(route):
+    """``route`` if it names a kernel or is None; anything else is refused
+    before any work."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"route must be one of {tuple(ROUTES)}, got {route!r}")
+    return route
+
+
 def short_attention_fwd(qkv, num_heads: int, kv_mask=None):
     """Forward over the packed projection: ``(out, lse)``."""
     return _fwd(qkv, num_heads, kv_mask, None)
@@ -197,9 +221,7 @@ def _fwd(qkv, num_heads: int, kv_mask, route):
     the C entry refuses a route the dtype, Dh or layout cannot take."""
     global fwd_launches
     b, s, dh = _check(qkv, num_heads, kv_mask)
-    if route is not None and route not in ROUTES:
-        raise ValueError(f"route must be one of {tuple(ROUTES)}, got {route!r}")
-    route = route or fwd_route(qkv, num_heads)
+    route = _named_route(route) or fwd_route(qkv, num_heads)
     if qkv.device.type == "cpu":
         return short_attention_fwd_plain(qkv, num_heads, kv_mask)
     out = torch.empty(b, s, num_heads * dh, dtype=qkv.dtype, device=qkv.device)
@@ -228,20 +250,28 @@ def _fwd(qkv, num_heads: int, kv_mask, route):
 
 def short_attention_bwd(qkv, dout, lse, num_heads: int, kv_mask=None):
     """Backward: ``d(qkv)`` from the forward's input, ``lse`` and ``dout``."""
+    return _bwd(qkv, dout, lse, num_heads, kv_mask, None)
+
+
+def _bwd(qkv, dout, lse, num_heads: int, kv_mask, route):
+    """:func:`short_attention_bwd` on ``route`` (None: :func:`bwd_route`);
+    the C entry refuses a route the dtype, Dh, S or layout cannot take."""
     global bwd_launches
     b, s, dh = _check(qkv, num_heads, kv_mask, dout, lse)
+    route = _named_route(route) or bwd_route(qkv, num_heads, dout)
     if qkv.device.type == "cpu":
         return short_attention_bwd_plain(qkv, dout, lse, num_heads, kv_mask)
     dqkv = torch.empty_like(qkv)
-    delta = torch.empty_like(lse)
+    delta = torch.empty_like(lse) if route == "fma" else None
     with torch.cuda.device(qkv.device):
         err = _library().short_attention_bwd(
             _DTYPE_CODES[qkv.dtype],
+            ROUTES[route],
             qkv.data_ptr(),
             _ptr(kv_mask),
             dout.data_ptr(),
             lse.data_ptr(),
-            delta.data_ptr(),
+            _ptr(delta),
             dqkv.data_ptr(),
             b,
             s,
@@ -250,10 +280,10 @@ def short_attention_bwd(qkv, dout, lse, num_heads: int, kv_mask=None):
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"short_attention backward launch failed: CUDA error {err}")
+        raise RuntimeError(f"short_attention backward launch ({route} route) failed: CUDA error {err}")
     with build.launch_lock:
         bwd_launches += 1
-        route_launches["bwd/fma"] += 1
+        route_launches[f"bwd/{route}"] += 1
     return dqkv
 
 
@@ -291,6 +321,8 @@ __all__ = [
     "MAX_SHORT_T",
     "ROUTES",
     "ShortAttentionFunction",
+    "WGMMA_BWD_MAX_S",
+    "bwd_route",
     "fwd_route",
     "short_attention",
     "short_attention_bwd",

@@ -252,3 +252,87 @@ def test_short_fwd_named_routes_compute_the_same_function_on_the_cpu():
     with pytest.raises(ValueError, match="route"):
         tsa._fwd(x, 2, m, "tensor_core")
     assert tsa.route_launches == dict.fromkeys(tsa.route_launches, 0)  # the CPU path launches nothing
+
+
+# ------------------------------------------------------ K5 backward routes
+@pytest.mark.parametrize(
+    "shape,dtype,offset,extra,route",
+    [
+        # the ViT-small and vit_base paths: bf16, Dh 64, S <= 64, contiguous
+        ((4, 64, 6, 64), torch.bfloat16, 0, 0, "wgmma"),
+        ((2, 64, 12, 64), torch.bfloat16, 0, 0, "wgmma"),
+        ((2, 50, 3, 64), torch.bfloat16, 0, 0, "wgmma"),  # S 50, an odd head count
+        ((2, 65, 6, 64), torch.bfloat16, 0, 0, "fma"),  # S past one tile
+        ((1, 1024, 2, 64), torch.bfloat16, 0, 0, "fma"),
+        ((2, 64, 6, 64), torch.float32, 0, 0, "fma"),  # f32 products stay f32
+        ((2, 64, 2, 128), torch.bfloat16, 0, 0, "fma"),  # Dh 128
+        ((2, 64, 6, 64), torch.bfloat16, 1, 0, "fma"),  # base off by 2 bytes
+        ((2, 64, 6, 64), torch.bfloat16, 0, 8, "fma"),  # rows on a wider stride
+    ],
+)
+def test_short_bwd_route_follows_the_layout_rule(shape, dtype, offset, extra, route):
+    qkv = _packed_qkv(*shape, dtype, offset, extra)
+    assert tsa.bwd_route(qkv, shape[2]) == route
+
+
+@pytest.mark.parametrize("offset,route", [(0, "wgmma"), (8, "wgmma"), (1, "fma")])
+def test_short_bwd_route_needs_a_16_byte_aligned_dout(offset, route):
+    """The fourth tensor map reads dO from its base: 16 bytes off is
+    aligned, 2 bytes off is not."""
+    b, s, h, dh = 2, 64, 6, 64
+    qkv = _packed_qkv(b, s, h, dh, torch.bfloat16)
+    dout = torch.zeros(b * s * h * dh + offset, dtype=torch.bfloat16)[offset:].view(b, s, h * dh)
+    assert tsa.bwd_route(qkv, h, dout) == route
+
+
+def test_short_bwd_named_routes_compute_the_same_function_on_the_cpu():
+    """On CPU tensors every backward route is the plain version; an unknown
+    route is refused before any work."""
+    qkv, dout, mask = _inputs(2, 50, 2, 64, True, seed=10)
+    x = torch.from_numpy(qkv).to(torch.bfloat16)
+    do = torch.from_numpy(dout).to(torch.bfloat16)
+    m = torch.from_numpy(mask)
+    _, lse = tsa.short_attention_fwd(x, 2, m)
+    want = tsa.short_attention_bwd_plain(x, do, lse, 2, m)
+    assert torch.equal(tsa.short_attention_bwd(x, do, lse, 2, m), want)
+    for route in tsa.ROUTES:
+        assert torch.equal(tsa._bwd(x, do, lse, 2, m, route), want)
+    with pytest.raises(ValueError, match="route"):
+        tsa._bwd(x, do, lse, 2, m, "tensor_core")
+    assert tsa.route_launches == dict.fromkeys(tsa.route_launches, 0)  # the CPU path launches nothing
+    assert "bwd/wgmma" in tsa.route_launches
+
+
+def _relative_mismatch(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    """``(max |got - want| / max |want|, rms(got - want) / rms(want))``."""
+    err = got.astype(np.float64) - want.astype(np.float64)
+    return (
+        float(np.abs(err).max() / np.abs(want).max()),
+        float(np.sqrt(np.mean(err**2)) / np.sqrt(np.mean(want.astype(np.float64) ** 2))),
+    )
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 64, 6), (2, 64, 12)])
+def test_short_bwd_plain_matches_jax_short_bwd_bf16(b, s, h):
+    """The plain backward against the JAX ``_short_bwd`` (its Pallas
+    ``_bwd_kernel`` under the interpreter) in bf16 at the main paths' head
+    layouts: ViT-small's 6 heads and vit_base's 12, Dh 64, S 64, no mask.
+    Tolerance on each of the dq, dk and dv blocks, relative to the JAX
+    block: max 2^-6 of its largest magnitude, RMS 1e-3 of its RMS (the
+    tolerance the CUDA kernel is held to on the card).  Both round p and dS
+    to bf16 at the same points; the JAX kernel forms p as exp(s - m) / l,
+    the port as exp(s - lse), so a value at a bf16 rounding boundary can
+    land on either side (one bf16 ulp, 2^-8 of a value)."""
+    qkv, dout, _ = _inputs(b, s, h, 64, False, seed=21 + h)
+    qkv_t = torch.from_numpy(qkv).to(torch.bfloat16)
+    dout_t = torch.from_numpy(dout).to(torch.bfloat16)
+    _, lse = tsa.short_attention_fwd(qkv_t, h)
+    got = _bf16_numpy(tsa.short_attention_bwd_plain(qkv_t, dout_t, lse, h))
+    qkv_j = jnp.asarray(_bf16_numpy(qkv_t)).astype(jnp.bfloat16)
+    dout_j = jnp.asarray(_bf16_numpy(dout_t)).astype(jnp.bfloat16)
+    dqkv_j, _ = jsa._short_bwd(h, s, (qkv_j, None), dout_j)
+    want = np.asarray(dqkv_j.astype(jnp.float32))
+    d = h * 64
+    for i, name in enumerate(("dq", "dk", "dv")):
+        rel_max, rel_rms = _relative_mismatch(got[..., i * d : (i + 1) * d], want[..., i * d : (i + 1) * d])
+        assert rel_max <= 2.0**-6 and rel_rms <= 1e-3, (name, rel_max, rel_rms)
