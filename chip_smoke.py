@@ -8,7 +8,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use; the
    wgmma kernels (``WGMMA_KERNELS``: K6-K8's ``fwd_wgmma_kernel``,
-   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel``, K4's
+   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel``, K9's and K11's 3xTF32
+   ``fwd_tf32x3_kernel`` and ``dkv_tf32x3_kernel``, K4's
    ``short_fwd_wgmma_kernel`` and K5's ``short_bwd_wgmma_kernel``) must
    build without spills, and their SASS (``cuobjdump -sass``) must hold
    ``HGMMA`` and ``UTMALDG``;
@@ -24,12 +25,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    version, bound and one library call where one exists (a yardstick
    only: the port never calls it); K4, K5 and K6-K11 also check which
    kernel each case ran (``short_attention.fwd_route`` / ``bwd_route``:
-   wgmma or FMA; ``kernel_route``: wgmma, mma.sync, FMA), time the
-   kernels the wgmma ones replaced beside them (the FMA K4 and K5, the
-   mma.sync K6/K7/K8), and show the C entries refusing the wgmma route
-   off its layouts; faults planted at the ViT-small shape (two: K4 and
-   K5) and the main attention shape (two), and two at the largest codec
-   leaf, must fail the same comparisons;
+   wgmma or FMA; ``kernel_route``: wgmma, mma.sync, 3xTF32, FMA), time
+   the kernels the Hopper ones replaced beside them (the FMA K4 and K5,
+   the mma.sync K6/K7/K8, the FMA K9/K11), print the kernels SDPA's f32
+   forward and backward launch, and show the C entries refusing the wgmma
+   and 3xTF32 routes off their layouts; faults planted at the ViT-small
+   shape (two: K4 and K5), the main attention shape (two) and the f32
+   task's shape (1xTF32 products), and two at the largest codec leaf, must
+   fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
@@ -44,7 +47,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
    exactly (and all on the wgmma kernels), then one long-context training
-   round under the profiler; every K4 and K5 launch of the ViT and
+   round under the profiler; then one full-width f32 long-context round
+   (``use_amp`` off: K9-K11, every forward and dk/dv launch on the 3xTF32
+   kernels and every dq launch on FMA) and one more under the profiler;
+   every K4 and K5 launch of the ViT and
    fed_obd_sq main paths must take the Hopper forward and backward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
@@ -71,7 +77,7 @@ PACKAGE = "distributed_learning_simulator_tpu_torch"
 
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32: outside the tensor cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}  # f32: outside the tensor cores
 
 ROUNDS = 2
 WORKERS, SAMPLES, BATCH, CHUNK = 10, 512, 128, 2
@@ -180,6 +186,20 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_bound_ms(nbytes: float, flops: float, dtype: str) -> dict:
+    """``bound_ms`` of K6-K11: in f32 the least time of products held to
+    f32 accuracy on the tensor cores, three TF32 products for each
+    (``max(bytes / 3.35 TB/s, 3 x flops / 495 TFLOP/s)``, ``bound_rate``
+    3xTF32), with the FMA units' bound beside it as ``fma_bound_ms``; in
+    bf16 the bf16 tensor-core bound."""
+    if dtype != "float32":
+        bound, by = bound_ms(nbytes, flops, dtype)
+        return {"bound_ms": bound, "bound_by": by}
+    bound, by = bound_ms(nbytes, 3 * flops, "tf32")
+    return {"bound_ms": bound, "bound_by": by, "bound_rate": "3xTF32 at 495 TFLOP/s",
+            "fma_bound_ms": bound_ms(nbytes, flops, "float32")[0]}
 
 
 def max_err(a, b) -> float:
@@ -474,28 +494,41 @@ FUSED_CASES = [
     (2, 4, 2048, 128, "float32", True, "pad"),  # Dh 128
     (2, 4, 2048, 128, "bfloat16", False, "pad"),  # Dh 128 in bf16 (FMA path)
     (2, 4, 1024, 64, "float32", True, "empty"),  # fully masked rows
+    (2, 4, 2048, 32, "float32", False, "pad"),  # f32 at Dh 32
+    (2, 4, 1000, 64, "float32", True, "pad"),  # f32, T not a multiple of 64, causal
 ]
 #: the f32 task's attention shape (K9-K11's path): batch 2, 2 heads of 64
 LC_F32 = (2, 2, 8192, 64, "float32", False, "pad")
 #: the (fwd, dq, dkv) kernel families some cases must run: the packed bf16
 #: layouts at Dh 64 and 32 take the wgmma kernels, the ragged Dh 20 the
-#: mma.sync kernels, f32 the FMA kernels
+#: mma.sync kernels; the packed f32 layouts at Dh 32 and 64 the 3xTF32
+#: forward and dk/dv with the FMA dq, other f32 (Dh 20, Dh 128) the FMA kernels
+F32_WGMMA = ("tf32x3", "fma", "tf32x3")
 ROUTE_OF = {
     LC_MAIN: ("wgmma", "wgmma", "wgmma"),
     FUSED_CASES[1]: ("wgmma", "wgmma", "wgmma"),
+    FUSED_CASES[2]: F32_WGMMA,
+    FUSED_CASES[5]: ("fma", "fma", "fma"),
     FUSED_CASES[6]: ("mma", "mma", "mma"),
     FUSED_CASES[7]: ("wgmma", "wgmma", "wgmma"),
     LC_DH32: ("wgmma", "wgmma", "wgmma"),
-    LC_F32: ("fma", "fma", "fma"),
+    FUSED_CASES[9]: ("fma", "fma", "fma"),
+    FUSED_CASES[11]: F32_WGMMA,
+    FUSED_CASES[12]: F32_WGMMA,
+    FUSED_CASES[13]: F32_WGMMA,
+    LC_F32: F32_WGMMA,
 }
 
 
 #: the Hopper kernels (wgmma, TMA) of each library as built, one entry an
-#: instantiation: Dh 32 and 64 (fused_attention), one pass and two (the
-#: short forward), and the short backward (not a template)
+#: instantiation: Dh 32 and 64 (fused_attention: bf16 and 3xTF32), one pass
+#: and two (the short forward), and the short backward (not a template)
 WGMMA_KERNELS = {
     "fused_attention": tuple(
-        f"{name}<{dh}>" for name in ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel") for dh in (32, 64)
+        f"{name}<{dh}>"
+        for name in ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel", "fwd_tf32x3_kernel",
+                     "dkv_tf32x3_kernel")
+        for dh in (32, 64)
     ),
     "short_attention": ("short_fwd_wgmma_kernel<1>", "short_fwd_wgmma_kernel<2>", "short_bwd_wgmma_kernel"),
 }
@@ -661,6 +694,14 @@ def check_fused_attention(gen) -> dict[str, dict]:
                      f"wgmma dk/dv at {case}")
             _refused(lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
                      f"wgmma dq at {case}")
+        # the C entries refuse the 3xTF32 route for f32 off Dh 32/64 (Dh 20,
+        # 128) and for bf16; dq's entry refuses it on every layout
+        if want == ("fma", "fma", "fma") or case == FUSED_CASES[7]:
+            _refused(lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="tf32x3"), f"tf32x3 fwd at {case}")
+            _refused(lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="tf32x3"),
+                     f"tf32x3 dk/dv at {case}")
+        if want == F32_WGMMA:
+            _refused(lambda: _dq_entry("tf32x3", q, k, v, mask, dout, lse, delta, causal), f"tf32x3 dq at {case}")
         ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
         ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
         torch.cuda.synchronize()
@@ -688,6 +729,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
         if case not in (LC_MAIN, LC_F32):
             continue
         flops, nbytes = _fused_work(case, mask)
+        route = fa.kernel_route(q, k, v, dout)
         sdpa = [x.transpose(1, 2).contiguous() for x in (q, k, v)]
         attn_mask = mask.bool()[:, None, None, :]
         qg, kg, vg = (x.detach().requires_grad_(True) for x in sdpa)
@@ -714,31 +756,151 @@ def check_fused_attention(gen) -> dict[str, dict]:
             ),
         }
         ids = {"fwd": fa._FWD_ID[tier], "dq": fa._DQ_ID[tier], "dkv": fa._DKV_ID[tier]}
-        # the mma.sync kernels the wgmma route replaced, on the same inputs
-        # (a yardstick within this run)
-        earlier = {
-            "fwd": lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="mma"),
-            "dq": lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="mma"),
-            "dkv": lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="mma"),
+        # the kernels a Hopper family replaced, on the same inputs (a
+        # yardstick within this run): mma.sync for bf16, FMA for f32
+        calls = {
+            "fwd": lambda r: fa.attention_fwd(q, k, v, mask, causal, tier, route=r),
+            "dq": lambda r: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route=r),
+            "dkv": lambda r: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route=r),
         }
+        replaced = {"wgmma": ("mma", "mma_sync_ms"), "tf32x3": ("fma", "fma_ms")}
         for part, (kernel, plain, library, err) in timed.items():
-            bound, by = bound_ms(nbytes[part], flops[part], dtype)
+            family = fa.family(part, route)
             rows[ids[part]] = {
                 "max_abs_err": err,
                 "ms": cuda_ms(kernel, iters=5, warmup=1),
                 # the plain backward computes dq, dk and dv in one call
                 "plain_ms": cuda_ms(plain, iters=2, warmup=1),
-                "bound_ms": bound,
-                "bound_by": by,
+                **attention_bound_ms(nbytes[part], flops[part], dtype),
                 # SDPA's backward also computes all three gradients
                 "library_ms": cuda_ms(library, iters=5, warmup=1),
                 "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
-                "family": fa.kernel_route(q, k, v, dout),
+                "family": family,
             }
-            if part in earlier and rows[ids[part]]["family"] == "wgmma":
-                rows[ids[part]]["mma_sync_ms"] = cuda_ms(earlier[part], iters=5, warmup=1)
+            if family in replaced:
+                old, key = replaced[family]
+                rows[ids[part]][key] = cuda_ms(lambda: calls[part](old), iters=5, warmup=1)
+            if dtype == "float32" and part != "dq":  # dq's yardstick is the same backward
+                print(f"SDPA's f32 {'forward' if part == 'fwd' else 'backward'} at {case}, by the profiler:")
+                kernel_device_ms(library, None, iters=2, warmup=1)
         del sdpa_out, qg, kg, vg
     return rows
+
+
+def _dq_entry(route: str, q, k, v, mask, dout, lse, delta, causal) -> None:
+    """dq's C entry called with ``route``'s code as it is (the wrapper
+    refuses a route with no dq kernel before any launch)."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    head = fa._head(q, k, v, mask, "fma")
+    head[1] = fa.ROUTES[route]
+    err = fa._library().fused_attention_dq(
+        *head, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *fa._tail(q, causal)
+    )
+    fa._raise_on(err, "dq", route)
+
+
+def check_tf32x3_refuses_a_misaligned_base(gen) -> None:
+    """f32 q/k/v at Dh 64 whose base lies 4 bytes off 16 (strides still
+    multiples of 16 bytes): the route rule gives FMA, and the C entries
+    refuse the 3xTF32 route."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    b, t, h, dh = 2, 1024, 4, 64
+    flat = torch.randn(b, t, 3 * h * dh + 4, generator=gen, device="cuda")
+    q, k, v = flat[..., 1:1 + 3 * h * dh].view(b, t, 3, h, dh).unbind(dim=2)
+    dout = torch.randn(b, t, h, dh, generator=gen, device="cuda")
+    lse = torch.zeros(b, h, t, device="cuda")
+    check(fa.kernel_route(q, k, v, dout) == "fma", "a misaligned f32 base routes to the 3xTF32 kernels")
+    _refused(lambda: fa.attention_fwd(q, k, v, None, False, "fused", route="tf32x3"), "tf32x3 fwd, misaligned base")
+    _refused(lambda: fa.attention_dkv(q, k, v, None, dout, lse, lse, False, "fused", route="tf32x3"),
+             "tf32x3 dk/dv, misaligned base")
+    print("3xTF32 route refused at a misaligned f32 base (fwd, dk/dv), and for dq on every layout")
+
+
+def _tf32(x):
+    """``x`` (f32) with the low 13 mantissa bits dropped: a TF32 value."""
+    import torch
+
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes: int):
+    """``a @ b`` as ``passes`` TF32 products summed in f32: 3 adds
+    ``a_small b_big + a_big b_small`` to ``a_big b_big`` (the small parts:
+    what the big ones dropped), 1 keeps the big parts' product alone."""
+    import torch
+
+    ab, bb = _tf32(a), _tf32(b)
+    out = torch.matmul(ab, bb)
+    if passes == 3:
+        out = torch.matmul(a - ab, bb) + torch.matmul(ab, b - bb) + out
+    return out
+
+
+def tf32_products_attention(q, k, v, kv_mask, dout, lse, delta, causal: bool, passes: int):
+    """``(out, dk, dv)`` of the f32 attention (the plain versions' function:
+    the forward against each row's global maximum, the backward from the
+    given lse and delta) with every matrix product taken as ``passes`` TF32
+    products (``_mm_tf32``): 3 is the 3xTF32 kernels' arithmetic, 1 a
+    kernel that takes f32 products in TF32 alone (a planted fault)."""
+    import math
+
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    out, dk, dv = (torch.empty(b, t, h, d, dtype=torch.float32, device=q.device) for _ in range(3))
+    for bi, hs in fa._head_groups(b, h, t):
+        qf, kf, vf, dof = (fa._heads_first(x, bi, hs) for x in (q, k, v, dout))
+        s = _mm_tf32(qf, kf.transpose(-1, -2), passes) * scale
+        valid = fa._valid(kv_mask, bi, t, causal, q.device)
+        masked = s if valid is None else torch.where(valid, s, fa._NEG_INF)
+        m = masked.amax(dim=-1, keepdim=True)
+        p = torch.exp(masked - m)
+        bp = torch.exp(s - lse[bi, hs][..., None])
+        if valid is not None:
+            p, bp = torch.where(valid, p, 0.0), torch.where(valid, bp, 0.0)
+        l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+        ds = bp * (_mm_tf32(dof, vf.transpose(-1, -2), passes) - delta[bi, hs][..., None])
+        values = (
+            _mm_tf32(p, vf, passes) / l,
+            _mm_tf32(ds.transpose(-1, -2), qf, passes) * scale,
+            _mm_tf32(bp.transpose(-1, -2), dof, passes),
+        )
+        for grad, value in zip((out, dk, dv), values):
+            grad[bi, :, hs] = value.transpose(0, 1)
+    return out, dk, dv
+
+
+def check_tf32_planted_fault(gen) -> None:
+    """At the f32 task's shape the comparison ``check_fused_attention``
+    makes passes 3xTF32 products (the new kernels' arithmetic, emulated in
+    plain PyTorch) and must reject 1xTF32 products on each of out, dk and
+    dv."""
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, mask, dout = _fused_inputs(LC_F32, gen)
+    causal, dtype = LC_F32[5], LC_F32[4]
+    out, lse = fa.attention_fwd_plain(q, k, v, mask, causal)
+    delta = fa.attention_delta(dout, out)
+    ref = (out, *fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)[1:])
+    for passes in (3, 1):
+        got = tf32_products_attention(q, k, v, mask, dout, lse, delta, causal, passes)
+        rel = []
+        for name, g, w in zip(("out", "dk", "dv"), got, ref):
+            rel_max, rel_rms, ok = attention_mismatch(g, w, dtype)
+            rel.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
+            check(ok == (passes == 3), f"{passes}xTF32 products at the f32 shape: {name} passes {ok}")
+        verdict = "passes" if passes == 3 else "rejected: a planted fault"
+        print(f"{passes}xTF32 products at the f32 task's shape: relative max/rms {', '.join(rel)} ({verdict})")
 
 
 def _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref) -> None:
@@ -1026,7 +1188,9 @@ def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
     from distributed_learning_simulator_tpu_torch.models import convert
 
     np.savez(init, **convert.to_jax(session.engine.init_params(0)))
-    results, launches = {}, {}
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+
+    results, launches, routes = {}, {}, {}
     for device in ("cuda", "cpu"):
         cfg = lc_config(
             os.path.join(workdir, f"lc_{device}"), algorithm_kwargs={"global_model_path": init}, **small
@@ -1035,6 +1199,7 @@ def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
         perf = train(cfg, device=device)["performance"][1]
         if device == "cuda":
             launches = _read_launches()
+            routes = {key: n for key, n in fa.route_launches.items() if n}
         with np.load(os.path.join(cfg.save_dir, "aggregated_model", "round_1.npz")) as blob:
             results[device] = (perf, {k: blob[k] for k in blob.files})
     (gpu_perf, gpu_params), (cpu_perf, cpu_params) = results["cuda"], results["cpu"]
@@ -1043,13 +1208,15 @@ def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
     print(
         f"long-context f32 task card vs CPU (T 8192): test loss {gpu_perf['test_loss']:.6f} vs"
         f" {cpu_perf['test_loss']:.6f} (rel {loss_rel:.2g}), max |param diff| {param_err:.3g};"
-        f" card launches {launches}"
+        f" card launches {launches}; by kernel family {routes}"
     )
     # f32 on both (TF32 off); 2 SGD steps in other summation orders
     check(loss_rel <= 1e-3 and param_err <= 1e-3, "long-context f32 task: card and CPU disagree")
     # 2 layers x (1 step per client x 2 clients; 1 eval batch)
     check(launches["K9"] == 2 * 3 and launches["K10"] == launches["K11"] == 2 * 2, f"stream-tier launches {launches}")
     check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"one-level launches on the f32 task {launches}")
+    want = {"fwd/tf32x3": launches["K9"], "dq/fma": launches["K10"], "dkv/tf32x3": launches["K11"]}
+    check(routes == want, f"f32 task kernel families {routes}, want {want}")
     return launches
 
 
@@ -1116,6 +1283,50 @@ def profile_long_context_round(workdir: str, round_seconds: float) -> None:
     alone = f"main path round {LC_ROUNDS} (eval included) {round_seconds:.3f} s"
     weights = session._base_weight_row(1)
     _profiled(lambda: session.run_round(vec, weights), " (long context)", alone, "training round (no eval)")
+
+
+def run_long_context_f32_round(workdir: str) -> dict[str, int]:
+    """One full-width f32 round of the long-context configuration
+    (``lc_config`` with ``use_amp`` off: T 8192 in f32 is the stream tier,
+    K9-K11 in every attention layer), its launches checked exactly (every
+    forward and dk/dv launch on the 3xTF32 kernels, every dq launch on
+    FMA); then one more round under the profiler.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    layers = 6
+    config = lc_config(os.path.join(workdir, "main_f32"), use_amp=False, round=1)
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    perf = train(config)["performance"]
+    wall = time.monotonic() - t0
+    launches = _read_launches()
+    routes = {key: n for key, n in fa.route_launches.items() if n}
+    last = perf[config.round]
+    print(
+        f"f32 long-context round: {wall:.2f} s (setup included); round 1 {last['round_seconds']:.3f} s;"
+        f" test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f} over {last['test_count']:.0f};"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches};"
+        f" by kernel family {routes}"
+    )
+    check(np.isfinite(last["test_loss"]) and 0.0 <= last["test_accuracy"] <= 1.0, f"f32 round: {last}")
+    session = build_session(lc_config(os.path.join(workdir, "f32_profile"), use_amp=False, round=1))
+    steps = sum(1 for client in session._counts for n in client if n > 0)
+    evals = LC_TEST // config.batch_size
+    check(launches["K9"] == layers * (steps + evals), f"f32 round K9 launches {launches['K9']}")
+    check(launches["K10"] == launches["K11"] == layers * steps, f"f32 round K10/K11 launches {launches}")
+    check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"f32 round one-level launches {launches}")
+    want = {"fwd/tf32x3": launches["K9"], "dq/fma": launches["K10"], "dkv/tf32x3": launches["K11"]}
+    check(routes == want, f"f32 round kernel families {routes}, want {want}")
+    vec = session._init_global_params()
+    weights = session._base_weight_row(1)
+    alone = f"f32 round 1 (eval included) {last['round_seconds']:.3f} s"
+    _profiled(lambda: session.run_round(vec, weights), " (long context, f32)", alone, "training round (no eval)")
+    return launches
 
 
 # ------------------------------------------------------- fed_obd_sq slice
@@ -1503,7 +1714,9 @@ def main(argv: list[str]) -> int:
     k1 = check_weighted_accum(d, gen)
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
+    check_tf32x3_refuses_a_misaligned_base(gen)
     check_planted_faults(gen)
+    check_tf32_planted_fault(gen)
     if kernels_only:  # phases 1-2 of K1 and K4-K11: the quickest check of a kernel change
         print(json.dumps({"K1": k1, "K4": k4, "K5": k5, **{kid: fused[kid] for kid in sorted(fused)}}))
         return 0
@@ -1546,7 +1759,12 @@ def main(argv: list[str]) -> int:
     profile_long_context_round(workdir, lc_round)
     launches.update({kid: lc_launches[kid] for kid in ("K6", "K7", "K8")})
     launches["K1"] += lc_launches["K1"]
-    launches.update({kid: stream_launches[kid] for kid in ("K9", "K10", "K11")})
+    # the full-width f32 round: K9-K11's main path (the small task's
+    # launches, checked above, are a card-vs-CPU check)
+    f32_launches = run_long_context_f32_round(workdir)
+    launches.update({kid: f32_launches[kid] for kid in ("K9", "K10", "K11")})
+    launches["K1"] += f32_launches["K1"]
+    print(f"small f32 task launches (card vs CPU): {stream_launches}")
 
     # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5) and its profile
     obd_launches, obd_record = run_obd_main_path(workdir)

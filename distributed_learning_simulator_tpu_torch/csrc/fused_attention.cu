@@ -19,7 +19,7 @@
 // (batch, head), 1.10e12 flop, against 0.3 GB of operands: bound by
 // operations (1.11 ms at 989 TFLOP/s on the tensor cores); dq needs 3
 // products, dkv 4.  The forward's max pass makes it compute 3 products, so
-// its own ceiling is 1.5 x that bound.  Three routes compute the same
+// its own ceiling is 1.5 x that bound.  Four routes compute the same
 // function; the caller picks one from the layout (ops/fused_attention.py::
 // kernel_route) and an entry refuses a route the layout cannot take:
 //   * wgmma (route 2): bf16 at Dh 32 or 64 where TMA can describe q, k, v
@@ -35,9 +35,14 @@
 //     such as 20, a misaligned stride):
 //     fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel, mma.sync.m16n8k16
 //     on 64-row tiles loaded by all threads between barriers;
-//   * FMA (route 0): f32 (whose products must stay exact f32) and Dh 128
-//     (whose tensor-core accumulators would spill): fwd_kernel, dq_kernel
-//     and dkv_kernel on the f32 FMA units (67 TFLOP/s peak) with 4 x 4
+//   * 3xTF32 (route 3): f32 at Dh 32 or 64 on the layouts of route 2, the
+//     forward and dk/dv only: fwd_tf32x3_kernel (K9/K6) and
+//     dkv_tf32x3_kernel (K11/K8), after the dq wgmma kernel: each f32
+//     product as three tf32 products on wgmma, f32 accuracy (their note
+//     below); dq's entry refuses route 3;
+//   * FMA (route 0): every other f32 call, f32 dq, and Dh 128 (whose
+//     tensor-core accumulators would spill): fwd_kernel, dq_kernel and
+//     dkv_kernel on the f32 FMA units (67 TFLOP/s peak) with 4 x 4
 //     register tiles per thread, as K4/K5 do.
 //
 // Design (not the TPU's), every route:
@@ -46,12 +51,13 @@
 //     scratch);
 //   * columns past the true Dh and rows past T read as 0, so no padded copy
 //     of q/k/v exists in memory;
-//   * the forward makes two passes over the key tiles: the first finds each
-//     row's maximum score, the second forms p = exp(s - m) against that
-//     global maximum, sums it unrounded into l, rounds p to the input dtype
-//     before P.V and divides by l at the end.  That is the one-level TPU
-//     kernel's arithmetic exactly (the streaming kernel rounds p against a
-//     running maximum instead; in f32 the two agree to rounding);
+//   * the forward (route 3's aside) makes two passes over the key tiles:
+//     the first finds each row's maximum score, the second forms
+//     p = exp(s - m) against that global maximum, sums it unrounded into l,
+//     rounds p to the input dtype before P.V and divides by l at the end.
+//     That is the one-level TPU kernel's arithmetic exactly (the streaming
+//     kernel rounds p against a running maximum instead; in f32 the two
+//     agree to rounding);
 //   * dq walks key tiles for one query tile: p = exp(s - lse),
 //     ds = p * (dP - delta) rounded to the input dtype, dq += ds K, times the
 //     scale at the end; dk/dv walks query tiles for one key tile:
@@ -890,6 +896,7 @@ using hopper::aligned16;
 using hopper::allow_smem;
 using hopper::desc_add;
 using hopper::make_map;
+using hopper::make_map_f32;
 using hopper::Strides;
 
 constexpr int kWgConsumers = 2;
@@ -1549,6 +1556,605 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+// ----------------------------------------------------------------------------
+// f32 Hopper path (route 3, "tf32x3"): f32 at Dh 32 and 64 on layouts TMA can
+// describe, for the forward (K9; K6's function in f32) and dk/dv (K11; K8's
+// in f32).  dq (K10, K7's function in f32) stays on the FMA dq_kernel.
+//   * fwd_tf32x3_kernel replaces _fwd_stream (ops/fused_attention.py:425,
+//     body _fwd_stream_kernel :307);
+//   * dkv_tf32x3_kernel replaces _bwd_stream dkv (:490, body
+//     _dkv_stream_kernel :384).
+//
+// What bounds them: operations.  The FMA kernels run every f32 product on
+// the FMA units (67 TFLOP/s).  Here each f32 product is three tf32 products
+// on wgmma (hopper.cuh: a_small.b_big + a_big.b_small + a_big.b_big, the
+// low product of f32's 24-bit significands left out, about 2^-22 of each
+// term), so the least time is 3 x the operations at 495 TFLOP/s: 2.2x less
+// than the FMA units' bound.  A wgmma .tf32 operand in shared memory must
+// be K-major, so a product whose reduction axis is the tile's rows (P.V;
+// P^T.dO and dS^T.Q) needs its B tile transposed, which TMA cannot do.
+// Design:
+//   * warp-specialised blocks of 384 threads as the bf16 kernels: consumer
+//     warpgroups on wgmma (two in the forward, one in dk/dv), one producer
+//     warp issuing TMA loads into a ring of stages (full/empty mbarriers),
+//     and worker warps (three in the forward, seven in dk/dv) that turn
+//     each landed tile into the operands wgmma takes: big (cvt.rna to
+//     tf32) written
+//     over the tile in place and small (x - big) beside it, and, for the
+//     tiles a product reduces over their rows (V in the forward; Q and dO
+//     in dk/dv), a transposed copy, big and small, written in the same
+//     128-byte swizzle with the key (query) order permuted within each 8
+//     (x3_row), so that the scores' accumulator registers are the A
+//     fragment of the next product as they lie (never staged through
+//     shared memory); the workers arrive on a `ready` barrier the
+//     consumers wait on;
+//   * an f32 row is 256 bytes at Dh 64, twice the 128-byte swizzle's
+//     widest row, so every tile lies in shared memory as Dh / 32 halves of
+//     32-value rows (two TMA boxes), and the descriptors walk the k8
+//     steps of one half, then the other;
+//   * the forward makes one pass over the key tiles with the online
+//     recurrence (running maximum m, alpha = exp(m_old - m_new)), the JAX
+//     stream kernel's arithmetic: in f32 no rounding of p sits between,
+//     so it is the plain version's function to rounding; its producer
+//     skips key tiles with no valid key (masked or past T) and, under
+//     causal, tiles wholly after the block's rows, and ends the walk with a
+//     stage of tile index -1;
+//   * dk/dv: a block owns 64 keys (one consumer warpgroup) and walks
+//     32-query stages; a block whose keys are all masked writes zeros and
+//     walks nothing, and under causal the walk starts at the first query
+//     tile that sees the block's keys;
+//   * a long sum (P.V over the keys, dV and dK over the queries) is taken
+//     a tile at a time on wgmma and added up in registers (x3_acc): the
+//     tensor cores' accumulation truncates, and carried through a whole
+//     walk it drifts past what f32 products allow.
+// Shared memory set the tile sizes (227 KB a block): the split doubles
+// each tile and the transposed copies double the reduced ones again.  The
+// forward at Dh 64 holds Q (128 rows, big and small: 64 KB) and 2 stages of
+// 64 keys (K big and small, V, V^T big and small: 80 KB each); dk/dv at Dh
+// 64 holds its 64 keys' K and V (big and small: 64 KB), 2 stages of 32
+// queries (Q and dO in both majors, big and small: 64 KB each) and the
+// consumers' running dK and dV (32 KB).  Dh 32 takes 4 stages.
+constexpr int kX3Keys = 64;     // keys a forward stage carries; keys a dk/dv block owns
+constexpr int kX3Queries = 32;  // queries a dk/dv stage carries
+constexpr int kX3Workers = 96;      // the forward's three worker warps, beside its producer warp
+constexpr int kX3DkvWorkers = 224;  // dk/dv's seven (one consumer warpgroup: the rest of the block)
+
+// the row of a tile that slot s of its transposed copy holds: within each
+// 8, row 2u + e sits at slot u + 4e, so that the accumulator's columns 2t
+// and 2t + 1 (a thread's pair) land at the A fragment's columns t and t + 4
+__device__ __forceinline__ int x3_row(int s) { return (s & ~7) | ((s & 3) << 1) | ((s & 7) >> 2); }
+
+// byte offset of value c (< 32) of row r in a tile of 128-byte rows under
+// the 128-byte swizzle (16-byte chunk c / 4 of row r moves to c / 4 ^ r % 8)
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((((c >> 2) ^ r) & 7) << 4) + ((c & 3) << 2));
+}
+
+__device__ __forceinline__ float tf32_big(float x) { return __uint_as_float(hopper::to_tf32(x)); }
+
+// `bytes` of f32 at x split in place: big over x, small to the same offset
+// of `small` (the swizzle moves both alike); `worker` < W, the workers
+template <int W>
+__device__ __forceinline__ void x3_split(unsigned char* x, unsigned char* small, int bytes, int worker) {
+#pragma unroll 4
+  for (int i = 16 * worker; i < bytes; i += 16 * W) {
+    const float4 v = *reinterpret_cast<const float4*>(x + i);
+    const float4 big = make_float4(tf32_big(v.x), tf32_big(v.y), tf32_big(v.z), tf32_big(v.w));
+    *reinterpret_cast<float4*>(x + i) = big;
+    *reinterpret_cast<float4*>(small + i) = make_float4(v.x - big.x, v.y - big.y, v.z - big.z, v.w - big.w);
+  }
+}
+
+// the transpose of a tile of R rows x DH (DH / 32 halves of R 128-byte
+// rows, as TMA lands it), big and small, into `tbig` and `tsmall` (R / 32
+// halves of DH 128-byte rows: row d holds the tile's R values of column d
+// in slot order); with `small`, the tile is also split in place (big over
+// it, small to `small`).  A warp writes 8 columns x 4 slots of one 16-byte
+// chunk at a time, and reads 8 columns of 4 rows whose row % 8 differ by
+// an even amount: both without bank conflicts.
+template <int DH, int R, int W>
+__device__ __forceinline__ void x3_transpose(unsigned char* tile, unsigned char* small, unsigned char* tbig,
+                                             unsigned char* tsmall, int worker) {
+  const int lane = worker % 32;
+  constexpr int kItems = (DH / 8) * (R / 4);
+#pragma unroll 4
+  for (int it = worker / 32; it < kItems; it += W / 32) {
+    const int d = it % (DH / 8) * 8 + (lane & 7);
+    const int slot = it / (DH / 8) * 4 + (lane >> 3);
+    const int r = x3_row(slot);
+    const uint32_t from = (d >> 5) * (R * 128) + sw128(r, d & 31);
+    const uint32_t to = (slot >> 5) * (DH * 128) + sw128(d, slot & 31);
+    const float x = *reinterpret_cast<const float*>(tile + from);
+    const float big = tf32_big(x);
+    *reinterpret_cast<float*>(tbig + to) = big;
+    *reinterpret_cast<float*>(tsmall + to) = x - big;
+    if (small != nullptr) {
+      *reinterpret_cast<float*>(tile + from) = big;
+      *reinterpret_cast<float*>(small + from) = x - big;
+    }
+  }
+}
+
+// D = A . B^T in 3xTF32 over DH (D's old value neither read nor kept; A, B:
+// K-major tiles of Dh / 32 halves, `*_half` bytes apart, their small parts
+// `*_small` bytes after the big).  One wgmma group, not committed.
+template <int DH, int N>
+__device__ __forceinline__ void x3_dot(float (&d)[N], const unsigned char* a, int a_half, int a_small,
+                                       const unsigned char* b, int b_half, int b_small) {
+#pragma unroll
+  for (int ks = 0; ks < DH / 8; ++ks) {
+    const int c = ks / 4, off = ks % 4 * 32;
+    const uint64_t ab = hopper::desc_add(hopper::desc_k_major<128>(a + c * a_half), off);
+    const uint64_t as = hopper::desc_add(hopper::desc_k_major<128>(a + a_small + c * a_half), off);
+    const uint64_t bb = hopper::desc_add(hopper::desc_k_major<128>(b + c * b_half), off);
+    const uint64_t bs = hopper::desc_add(hopper::desc_k_major<128>(b + b_small + c * b_half), off);
+    hopper::wgmma_tf32(d, as, bb, ks > 0);
+    hopper::wgmma_tf32(d, ab, bs, 1);
+    hopper::wgmma_tf32(d, ab, bb, 1);
+  }
+}
+
+// D = P . X over one tile's rows in 3xTF32 (D's old value neither read nor
+// kept), P's big and small parts in accumulator order (pb, ps: a thread's
+// values of K8 column blocks as the scores' accumulator holds them), X
+// transposed (x3_transpose: tb, ts, halves of N 128-byte rows); K8 k8
+// steps.  Not committed.  The caller adds D to its running sum in
+// registers: the tensor cores' f32 accumulation truncates, so a sum
+// carried through every tile's products (T / 8 x 3 of them) drifts by
+// about 3e-5 of its size at T 8192, against 1e-5 that f32 products allow;
+// a tile's own 3 K8 products keep that drift near 1e-7.
+template <int K8, int N>
+__device__ __forceinline__ void x3_acc(float (&d)[N / 2], const uint32_t (&pb)[4 * K8], const uint32_t (&ps)[4 * K8],
+                                       const unsigned char* tb, const unsigned char* ts) {
+#pragma unroll
+  for (int j = 0; j < K8; ++j) {
+    const int c = j / 4, off = j % 4 * 32;
+    const uint64_t db = hopper::desc_add(hopper::desc_k_major<128>(tb + c * N * 128), off);
+    const uint64_t ds = hopper::desc_add(hopper::desc_k_major<128>(ts + c * N * 128), off);
+    hopper::wgmma_tf32_rs(d, ps[4 * j], ps[4 * j + 2], ps[4 * j + 1], ps[4 * j + 3], db, j > 0);
+    hopper::wgmma_tf32_rs(d, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1], pb[4 * j + 3], ds, 1);
+    hopper::wgmma_tf32_rs(d, pb[4 * j], pb[4 * j + 2], pb[4 * j + 1], pb[4 * j + 3], db, 1);
+  }
+}
+
+__device__ __forceinline__ void x3_parts(float x, uint32_t& big, uint32_t& small) {
+  big = hopper::to_tf32(x);
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+template <int DH>
+struct X3FwdSmem {
+  static constexpr int kHalves = DH / 32;
+  static constexpr int kStages = DH == 64 ? 2 : 4;
+  static constexpr int kQ = kWgBlock * 128 * kHalves;    // Q (big, in place), then Q small
+  static constexpr int kTile = kX3Keys * 128 * kHalves;  // a K or V tile, or V^T (Dh rows of 64 slots)
+  static constexpr int kStage = 5 * kTile;               // K, K small, V, V^T big, V^T small
+  static constexpr int kStages0 = 2 * kQ;
+  static constexpr int kInfo = kStages0 + kStages * kStage;  // per stage: tile index, all keys valid
+  static constexpr int kValid = kInfo + kStages * 2 * static_cast<int>(sizeof(int));
+  static constexpr int kBars = kValid + kStages * kX3Keys;
+  static constexpr size_t kBytes = kBars + (3 * kStages + 2) * sizeof(uint64_t) + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    fwd_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ mask,
+                      float* __restrict__ out, float* __restrict__ lse, Layout L) {
+  using S = X3FwdSmem<DH>;
+  constexpr int NH = S::kHalves;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  unsigned char* Qs = base;
+  int* info = reinterpret_cast<int*>(base + S::kInfo);
+  uint8_t* kvalid = base + S::kValid;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* ready = full + S::kStages;
+  uint64_t* empty = ready + S::kStages;
+  uint64_t* qbar = empty + S::kStages;
+  uint64_t* qready = qbar + 1;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kWgBlock;
+  const int ntiles = (L.n + kX3Keys - 1) / kX3Keys;
+  // under causal, key tiles wholly after the block's last row see none of it
+  const int nk = L.causal ? min(ntiles, (q0 + kWgBlock - 1) / kX3Keys + 1) : ntiles;
+  const int wg = threadIdx.x / 128;  // kWgConsumers: producer and workers
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&ready[s], kX3Workers);
+      hopper::mbar_init(&empty[s], 128 * kWgConsumers);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_init(qready, kX3Workers);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x % 128 < 32) {
+      // producer: Q once, then K, V and their keys' validity per tile
+      const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(qbar, S::kQ);
+        for (int c = 0; c < NH; ++c) hopper::tma_load_4d(Qs + c * kWgBlock * 128, &tm_q, qbar, 32 * c, h, q0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        uint32_t word = 0;  // keys kt * 64 + 2 lane and + 1: inside T and mask != 0, a byte each
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int key = kt * kX3Keys + 2 * lane + e;
+          word |= static_cast<uint32_t>(key < L.n && (mrow == nullptr || mrow[key] != 0.f)) << (8 * e);
+        }
+        if (!__any_sync(0xffffffffu, word != 0)) continue;  // no valid key: p = 0 for every row
+        const bool all = __all_sync(0xffffffffu, word == 0x0101u);
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        reinterpret_cast<uint16_t*>(kvalid + stage * kX3Keys)[lane] = static_cast<uint16_t>(word);
+        unsigned char* st = base + S::kStages0 + stage * S::kStage;
+        if (lane == 0) {
+          info[2 * stage] = kt;
+          info[2 * stage + 1] = all;
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * S::kTile);
+          for (int c = 0; c < NH; ++c) {
+            hopper::tma_load_4d(st + c * kX3Keys * 128, &tm_k, &full[stage], 32 * c, h, kt * kX3Keys, b);
+            hopper::tma_load_4d(st + 2 * S::kTile + c * kX3Keys * 128, &tm_v, &full[stage], 32 * c, h,
+                                kt * kX3Keys, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[stage]);
+        }
+        if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+      }
+      // the end of the walk: a stage with tile index -1 and no data
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) info[2 * stage] = -1;
+      hopper::mbar_arrive(&full[stage]);
+      return;
+    }
+    // workers: Q into big and small once, then each stage's K into big and
+    // small and V into V^T big and small
+    const int worker = threadIdx.x % 128 - 32;
+    hopper::mbar_wait(qbar, 0);
+    x3_split<kX3Workers>(Qs, Qs + S::kQ, S::kQ, worker);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(qready);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      hopper::mbar_wait(&full[stage], phase);
+      const int kt = info[2 * stage];
+      if (kt >= 0) {
+        unsigned char* st = base + S::kStages0 + stage * S::kStage;
+        x3_split<kX3Workers>(st, st + S::kTile, S::kTile, worker);
+        x3_transpose<DH, kX3Keys, kX3Workers>(st + 2 * S::kTile, nullptr, st + 3 * S::kTile, st + 4 * S::kTile,
+                                                 worker);
+        hopper::fence_proxy_async();
+      }
+      hopper::mbar_arrive(&ready[stage]);
+      if (kt < 0) return;
+      if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+    }
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63.  Per tile:
+  // S = Q K^T (3xTF32), the rows' new maxima, p = exp(s - m) and the
+  // rescale of l by alpha, then the tile's P V from P's registers into ot,
+  // added as o = o alpha + ot.  A warpgroup waits for each product; the
+  // two warpgroups fill each other's waits (at 168 registers a thread, the
+  // most 384 threads have, the next tile's S cannot be in flight beside
+  // P V's operands and both sums).
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int row0 = q0 + 64 * wg, lo = row0 + tid / 32 * 16 + tid % 32 / 4, hi = lo + 8;
+  const unsigned char* q_rows = Qs + 64 * wg * 128;  // this warpgroup's rows of each half
+  const float sl2 = L.scale * kLog2e;
+  float s[32], o[DH / 2], ot[DH / 2];
+  uint32_t pb[32], ps[32];
+  float m_lo = kMasked, m_hi = kMasked, l_lo = 0.f, l_hi = 0.f;
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  hopper::mbar_wait(qready, 0);
+  for (;;) {
+    hopper::mbar_wait(&ready[stage], phase);
+    const int kt = info[2 * stage];
+    if (kt < 0) break;
+    const unsigned char* st = base + S::kStages0 + stage * S::kStage;
+    const uint8_t* kv = kvalid + stage * kX3Keys;
+    const int key0 = kt * kX3Keys;
+    hopper::wgmma_fence();
+    x3_dot<DH>(s, q_rows, kWgBlock * 128, S::kQ, st, kX3Keys * 128, S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    // no pair is invalid when every key is valid, every row inside T and
+    // (causal) the tile's last key at or before this warpgroup's first row
+    const bool fast = info[2 * stage + 1] != 0 && row0 + 63 < L.n && (!L.causal || key0 + kX3Keys - 1 <= row0);
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        if (fast || fwd_valid(kv, col, lo, key0 + col, L)) mx_lo = fmaxf(mx_lo, s[4 * j + e] * L.scale);
+        if (fast || fwd_valid(kv, col, hi, key0 + col, L)) mx_hi = fmaxf(mx_hi, s[4 * j + 2 + e] * L.scale);
+      }
+    mx_lo = quad_max(mx_lo);
+    mx_hi = quad_max(mx_hi);
+    const float a_lo = exp2f((m_lo - mx_lo) * kLog2e), a_hi = exp2f((m_hi - mx_hi) * kLog2e);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    const float ml_lo = m_lo * kLog2e, ml_hi = m_hi * kLog2e;
+    l_lo *= a_lo;
+    l_hi *= a_hi;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e, i = 4 * j + e;
+        const float p_lo = fast || fwd_valid(kv, col, lo, key0 + col, L) ? exp2f(fmaf(s[i], sl2, -ml_lo)) : 0.f;
+        const float p_hi =
+            fast || fwd_valid(kv, col, hi, key0 + col, L) ? exp2f(fmaf(s[i + 2], sl2, -ml_hi)) : 0.f;
+        l_lo += p_lo;
+        l_hi += p_hi;
+        x3_parts(p_lo, pb[i], ps[i]);
+        x3_parts(p_hi, pb[i + 2], ps[i + 2]);
+      }
+    hopper::wgmma_fence();
+    x3_acc<8, DH>(ot, pb, ps, st + 3 * S::kTile, st + 4 * S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(ot);
+    hopper::fence_regs(pb);
+    hopper::fence_regs(ps);
+    hopper::mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) o[i] = fmaf(o[i], i % 4 < 2 ? a_lo : a_hi, ot[i]);
+    if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  const float d_lo = fmaxf(quad_sum(l_lo), 1e-30f), d_hi = fmaxf(quad_sum(l_hi), 1e-30f);
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+  const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? hi : lo;
+    const float denom = half ? d_hi : d_lo;
+    if (row >= L.n) continue;
+    if (t == 0) lse[stat0 + row] = (half ? m_hi : m_lo) + logf(denom);
+    float2* dst = reinterpret_cast<float2*>(out + obase + static_cast<int64_t>(row) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      dst[4 * j + t] = make_float2(o[4 * j + 2 * half] / denom, o[4 * j + 2 * half + 1] / denom);
+  }
+}
+
+template <int DH>
+struct X3DkvSmem {
+  static constexpr int kHalves = DH / 32;
+  static constexpr int kStages = DH == 64 ? 2 : 4;
+  static constexpr int kKV = kX3Keys * 128 * kHalves;       // K or V of the block's keys, big or small
+  static constexpr int kTile = kX3Queries * 128 * kHalves;  // Q or dO, big or small, either major
+  static constexpr int kStage = 8 * kTile;  // Q, Q small, dO, dO small, Q^T big, small, dO^T big, small
+  static constexpr int kStages0 = 4 * kKV;  // K, K small, V, V small
+  static constexpr int kSums = kStages0 + kStages * kStage;  // dK and dV, a column of DH values a consumer
+  static constexpr int kStats = kSums + 128 * DH * static_cast<int>(sizeof(float));  // lse log2 e, delta
+  static constexpr int kValid = kStats + kStages * 2 * kX3Queries * static_cast<int>(sizeof(float));
+  static constexpr int kBars = kValid + kX3Keys;
+  static constexpr size_t kBytes = kBars + (3 * kStages + 2) * sizeof(uint64_t) + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dkv_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                      const float* __restrict__ mask, const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, Layout L) {
+  using S = X3DkvSmem<DH>;
+  constexpr int NH = S::kHalves;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  float* sums = reinterpret_cast<float*>(base + S::kSums);
+  float* stats = reinterpret_cast<float*>(base + S::kStats);
+  uint8_t* kvalid = base + S::kValid;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* ready = full + S::kStages;
+  uint64_t* empty = ready + S::kStages;
+  uint64_t* kvbar = empty + S::kStages;
+  uint64_t* kvready = kvbar + 1;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * kX3Keys;
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+  const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+  // the block's keys: inside T and mask != 0
+  const bool mine = threadIdx.x < kX3Keys && k0 + static_cast<int>(threadIdx.x) < L.n &&
+                    (mrow == nullptr || mrow[k0 + threadIdx.x] != 0.f);
+  if (threadIdx.x < kX3Keys) kvalid[threadIdx.x] = mine;
+  const bool keys_all = __syncthreads_and(threadIdx.x >= kX3Keys || mine) != 0;
+  if (!__syncthreads_or(mine)) {
+    // no valid key: every p of these keys is 0, so dk = dv = 0
+    for (int i = threadIdx.x; i < kX3Keys * DH; i += kWgThreads) {
+      const int key = k0 + i / DH;
+      if (key >= L.n) break;
+      dk[obase + static_cast<int64_t>(key) * row_ld + i % DH] = 0.f;
+      dv[obase + static_cast<int64_t>(key) * row_ld + i % DH] = 0.f;
+    }
+    return;
+  }
+  const int nq = (L.n + kX3Queries - 1) / kX3Queries;
+  // under causal, query tiles wholly before this block's keys see none of them
+  const int qt0 = L.causal ? k0 / kX3Queries : 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&ready[s], kX3DkvWorkers);
+      hopper::mbar_init(&empty[s], 128);
+    }
+    hopper::mbar_init(kvbar, 1);
+    hopper::mbar_init(kvready, kX3DkvWorkers);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    if (threadIdx.x < 160) {
+      // producer (one lane): K and V once, then Q and dO per query tile
+      if (threadIdx.x != 128) return;
+      hopper::mbar_arrive_expect_tx(kvbar, 2 * S::kKV);
+      for (int c = 0; c < NH; ++c) {
+        hopper::tma_load_4d(base + c * kX3Keys * 128, &tm_k, kvbar, 32 * c, h, k0, b);
+        hopper::tma_load_4d(base + 2 * S::kKV + c * kX3Keys * 128, &tm_v, kvbar, 32 * c, h, k0, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int qt = qt0; qt < nq; ++qt) {
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        unsigned char* st = base + S::kStages0 + stage * S::kStage;
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * S::kTile);
+        for (int c = 0; c < NH; ++c) {
+          hopper::tma_load_4d(st + c * kX3Queries * 128, &tm_q, &full[stage], 32 * c, h, qt * kX3Queries, b);
+          hopper::tma_load_4d(st + 2 * S::kTile + c * kX3Queries * 128, &tm_do, &full[stage], 32 * c, h,
+                              qt * kX3Queries, b);
+        }
+        if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+      }
+      return;
+    }
+    // workers: K and V into big and small once; per stage Q and dO into big
+    // and small in both majors, and the queries' lse (times log2 e) and
+    // delta, loaded a stage ahead
+    const int worker = threadIdx.x - 160;
+    const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+    float lse_next = 0.f, delta_next = 0.f;
+    if (worker < kX3Queries && qt0 * kX3Queries + worker < L.n) {
+      lse_next = lse[stat0 + qt0 * kX3Queries + worker] * kLog2e;
+      delta_next = delta[stat0 + qt0 * kX3Queries + worker];
+    }
+    hopper::mbar_wait(kvbar, 0);
+    x3_split<kX3DkvWorkers>(base, base + S::kKV, S::kKV, worker);
+    x3_split<kX3DkvWorkers>(base + 2 * S::kKV, base + 3 * S::kKV, S::kKV, worker);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(kvready);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = qt0; qt < nq; ++qt) {
+      const float lse_now = lse_next, delta_now = delta_next;
+      const int row = (qt + 1) * kX3Queries + worker;
+      if (worker < kX3Queries && row < L.n) {
+        lse_next = lse[stat0 + row] * kLog2e;
+        delta_next = delta[stat0 + row];
+      }
+      hopper::mbar_wait(&full[stage], phase);
+      unsigned char* st = base + S::kStages0 + stage * S::kStage;
+      if (worker < kX3Queries) {
+        float* sts = stats + stage * 2 * kX3Queries;
+        sts[worker] = lse_now;
+        sts[kX3Queries + worker] = delta_now;
+      }
+      x3_transpose<DH, kX3Queries, kX3DkvWorkers>(st, st + S::kTile, st + 4 * S::kTile, st + 5 * S::kTile, worker);
+      x3_transpose<DH, kX3Queries, kX3DkvWorkers>(st + 2 * S::kTile, st + 3 * S::kTile, st + 6 * S::kTile,
+                                                  st + 7 * S::kTile, worker);
+      hopper::fence_proxy_async();
+      hopper::mbar_arrive(&ready[stage]);
+      if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+    }
+    return;
+  }
+
+  // consumers: the warpgroup owns the block's 64 keys; rows of every
+  // product are keys, columns queries (causal: valid when query >= key).
+  // Per stage S^T = K Q^T and dP^T = V dO^T (3xTF32), p^T = exp(s^T - lse),
+  // dS^T = p^T (dP^T - delta), then the stage's P^T dO and dS^T Q from the
+  // registers into tv and tk, added to dV and dK (x3_acc), which a thread
+  // keeps in its own column of shared memory: at 168 registers a thread,
+  // the most 384 threads have, they do not fit beside the stage's values.
+  // The warpgroup waits for each product; the seven workers transpose the
+  // next stage meanwhile.
+  const int w = threadIdx.x / 32, g = threadIdx.x % 32 / 4, t = threadIdx.x % 4;
+  const int r_lo = 16 * w + g, key_lo = k0 + r_lo, key_hi = key_lo + 8;
+  float* sum_k = sums + threadIdx.x;  // value i of dK at sum_k[128 i], of dV at sum_v[128 i]
+  float* sum_v = sum_k + 128 * (DH / 2);
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) sum_k[128 * i] = sum_v[128 * i] = 0.f;
+  const float sl2 = L.scale * kLog2e;
+  const bool kv_lo = kvalid[r_lo] != 0, kv_hi = kvalid[r_lo + 8] != 0;
+  float tk[DH / 2], tv[DH / 2], s[16], dp[16];
+  uint32_t pb[16], ps[16], db[16], dsm[16];
+  int stage = 0;
+  uint32_t phase = 0;
+  hopper::mbar_wait(kvready, 0);
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int q0 = qt * kX3Queries;
+    const unsigned char* st = base + S::kStages0 + stage * S::kStage;
+    const float* sts = stats + stage * 2 * kX3Queries;
+    hopper::mbar_wait(&ready[stage], phase);
+    hopper::wgmma_fence();
+    x3_dot<DH>(s, base, kX3Keys * 128, S::kKV, st, kX3Queries * 128, S::kTile);
+    x3_dot<DH>(dp, base + 2 * S::kKV, kX3Keys * 128, S::kKV, st + 2 * S::kTile, kX3Queries * 128, S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // no pair is invalid when every key is valid, every query inside T and
+    // (causal) the stage's first query at or after the block's last key
+    const bool fast = keys_all && q0 + kX3Queries <= L.n && (!L.causal || q0 >= k0 + kX3Keys - 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ql = 8 * j + 2 * t + e, query = q0 + ql, i = 4 * j + e;
+        const float lse_l2 = sts[ql], dl = sts[kX3Queries + ql];
+        float p_lo = exp2f(fmaf(s[i], sl2, -lse_l2));
+        float p_hi = exp2f(fmaf(s[i + 2], sl2, -lse_l2));
+        if (!fast) {
+          const bool qin = query < L.n;
+          p_lo = kv_lo && qin && (!L.causal || query >= key_lo) ? p_lo : 0.f;
+          p_hi = kv_hi && qin && (!L.causal || query >= key_hi) ? p_hi : 0.f;
+        }
+        x3_parts(p_lo, pb[i], ps[i]);
+        x3_parts(p_hi, pb[i + 2], ps[i + 2]);
+        x3_parts(p_lo * (dp[i] - dl), db[i], dsm[i]);
+        x3_parts(p_hi * (dp[i + 2] - dl), db[i + 2], dsm[i + 2]);
+      }
+    // the stage's P^T dO and dS^T Q: dO^T and Q^T as the transposed B tiles
+    hopper::wgmma_fence();
+    x3_acc<4, DH>(tv, pb, ps, st + 6 * S::kTile, st + 7 * S::kTile);
+    x3_acc<4, DH>(tk, db, dsm, st + 4 * S::kTile, st + 5 * S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(tk);
+    hopper::fence_regs(tv);
+    hopper::fence_regs(pb);
+    hopper::fence_regs(ps);
+    hopper::fence_regs(db);
+    hopper::fence_regs(dsm);
+    hopper::mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) {
+      sum_k[128 * i] += tk[i];
+      sum_v[128 * i] += tv[i];
+    }
+    if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? key_hi : key_lo;
+    if (key >= L.n) continue;
+    float2* dkr = reinterpret_cast<float2*>(dk + obase + static_cast<int64_t>(key) * row_ld);
+    float2* dvr = reinterpret_cast<float2*>(dv + obase + static_cast<int64_t>(key) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      const int i = 4 * j + 2 * half;
+      dkr[4 * j + t] = make_float2(sum_k[128 * i] * L.scale, sum_k[128 * (i + 1)] * L.scale);
+      dvr[4 * j + t] = make_float2(sum_v[128 * i], sum_v[128 * (i + 1)]);
+    }
+  }
+}
+
 constexpr size_t rows_bytes(int dh) { return sizeof(bf16) * kTile * (dh + 8); }
 constexpr size_t fwd_mma_smem(int dh) { return 3 * rows_bytes(dh) + kTile; }
 constexpr size_t dq_mma_smem(int dh) { return 4 * rows_bytes(dh) + kTile; }
@@ -1588,25 +2194,27 @@ Layout make_layout(long long sb, long long st, long long sh, int T, int H, int D
 // strides nested as a tensor map describes them (each dimension's byte
 // stride a positive multiple of 16 that spans the dimensions inside it; a
 // dimension of size 1 is free).  Returns false where they fail.
-bool tma_strides(Strides& s, int B, int T, int H, int Dh) {
+bool tma_strides(Strides& s, int B, int T, int H, int Dh, int item) {
   if (H == 1) s.sh = Dh;
   if (T == 1) s.st = s.sh * H;
   if (B == 1) s.sb = s.st * T;
   for (long long x : {s.sh, s.st, s.sb})
-    if (x <= 0 || (2 * x) % 16 != 0) return false;
+    if (x <= 0 || (item * x) % 16 != 0) return false;
   return s.sh >= Dh && s.st >= s.sh * H && s.sb >= s.st * T;
 }
 
-// the maps of q, k and v (rows `qrows` and `kvrows` a box), or an error
-// when the layout is not the TMA route's
+// the maps of q, k and v (rows `qrows` and `kvrows` a box; `item`: 2 for
+// bf16, 4 for f32), or an error when the layout is not a TMA route's
 cudaError_t qkv_maps(CUtensorMap maps[3], const void* q, const void* k, const void* v, int B, const Layout& L,
-                     int qrows, int kvrows) {
+                     int qrows, int kvrows, int item = 2) {
   Strides s{L.sh, L.st, L.sb};
-  if (!(L.dh == 32 || L.dh == 64) || !tma_strides(s, B, L.n, L.heads, L.dh)) return cudaErrorInvalidValue;
+  if (!(L.dh == 32 || L.dh == 64) || !tma_strides(s, B, L.n, L.heads, L.dh, item)) return cudaErrorInvalidValue;
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     if (ptrs[i] == nullptr || !aligned16(ptrs[i])) return cudaErrorInvalidValue;
-    const cudaError_t err = make_map(&maps[i], ptrs[i], s, B, L.n, L.heads, L.dh, i == 0 ? qrows : kvrows);
+    const int rows = i == 0 ? qrows : kvrows;
+    const cudaError_t err = item == 4 ? make_map_f32(&maps[i], ptrs[i], s, B, L.n, L.heads, L.dh, rows)
+                                      : make_map(&maps[i], ptrs[i], s, B, L.n, L.heads, L.dh, rows);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -1656,6 +2264,39 @@ int dq_wgmma(const void* q, const void* k, const void* v, const float* mask, con
   const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
   dq_wgmma_kernel<DH><<<grid, kWgThreads, DqSmem<DH>::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], mask, lse, delta, static_cast<bf16*>(dq), L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int fwd_tf32x3(const void* q, const void* k, const void* v, const float* mask, void* out, float* lse, int B,
+               const Layout& L, cudaStream_t stream) {
+  using S = X3FwdSmem<DH>;
+  CUtensorMap maps[3];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kWgBlock, kX3Keys, 4);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(fwd_tf32x3_kernel<DH>), S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
+  fwd_tf32x3_kernel<DH><<<grid, kWgThreads, S::kBytes, stream>>>(maps[0], maps[1], maps[2], mask,
+                                                                  static_cast<float*>(out), lse, L);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DH>
+int dkv_tf32x3(const void* q, const void* k, const void* v, const float* mask, const void* dout, const float* lse,
+               const float* delta, void* dk, void* dv, int B, const Layout& L, cudaStream_t stream) {
+  using S = X3DkvSmem<DH>;
+  CUtensorMap maps[4];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kX3Queries, kX3Keys, 4);
+  // dout is contiguous [B, T, H, Dh]
+  const long long row = static_cast<long long>(L.heads) * DH;
+  if (err == cudaSuccess && !aligned16(dout)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess)
+    err = make_map_f32(&maps[3], dout, Strides{DH, row, row * L.n}, B, L.n, L.heads, DH, kX3Queries);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(dkv_tf32x3_kernel<DH>), S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kX3Keys - 1) / kX3Keys, L.heads, B);
+  dkv_tf32x3_kernel<DH><<<grid, kWgThreads, S::kBytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], mask, lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1728,8 +2369,9 @@ int dh_pad(int Dh) { return Dh <= 0 ? 0 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 
 // routes, chosen by the caller from the layout (ops/fused_attention.py::
 // kernel_route): 0 the FMA kernels (f32; bf16 at Dh 128), 1 the mma.sync
 // kernels (bf16 up to Dh 64), 2 the wgmma/TMA kernels (bf16 at Dh 32 or
-// 64 on a layout TMA describes)
-constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2;
+// 64 on a layout TMA describes), 3 the 3xTF32 wgmma/TMA kernels (f32 at
+// Dh 32 or 64 on a layout TMA describes; the forward and dk/dv only)
+constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2, kRouteTf32x3 = 3;
 
 // the route the FMA/mma.sync dispatch below takes for (dtype, Dh)
 int plain_route(int dtype, int Dh) { return dtype == 1 && dh_pad(Dh) <= 64 ? kRouteMma : kRouteFma; }
@@ -1757,6 +2399,14 @@ int plain_route(int dtype, int Dh) { return dtype == 1 && dh_pad(Dh) <= 64 ? kRo
     return static_cast<int>(cudaErrorInvalidValue);                      \
   } while (0)
 
+// the 3xTF32 route at Dh 32 or 64 (f32 only), else refused
+#define DISPATCH_TF32X3(LAUNCH, ...)                                     \
+  do {                                                                   \
+    if (dtype == 0 && Dh == 64) return LAUNCH<64>(__VA_ARGS__);          \
+    if (dtype == 0 && Dh == 32) return LAUNCH<32>(__VA_ARGS__);          \
+    return static_cast<int>(cudaErrorInvalidValue);                      \
+  } while (0)
+
 extern "C" {
 
 // out [B, T, H, Dh] (input dtype), lse [B, H, T] f32
@@ -1766,6 +2416,7 @@ int fused_attention_fwd(int dtype, int route, const void* q, const void* k, cons
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma) DISPATCH_WGMMA(fwd_wgmma, q, k, v, mask, out, lse, B, L, s);
+  if (route == kRouteTf32x3) DISPATCH_TF32X3(fwd_tf32x3, q, k, v, mask, out, lse, B, L, s);
   if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(fwd, q, k, v, mask, out, lse, B, L, s);
 }
@@ -1777,6 +2428,7 @@ int fused_attention_dq(int dtype, int route, const void* q, const void* k, const
                        int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteTf32x3) return static_cast<int>(cudaErrorInvalidValue);  // K10 has no 3xTF32 kernel
   if (route == kRouteWgmma) DISPATCH_WGMMA(dq_wgmma, q, k, v, mask, dout, lse, delta, dq, B, L, s);
   if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dq_launch, q, k, v, mask, dout, lse, delta, dq, B, L, s);
@@ -1790,6 +2442,7 @@ int fused_attention_dkv(int dtype, int route, const void* q, const void* k, cons
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma) DISPATCH_WGMMA(dkv_wgmma, q, k, v, mask, dout, lse, delta, dk, dv, B, L, s);
+  if (route == kRouteTf32x3) DISPATCH_TF32X3(dkv_tf32x3, q, k, v, mask, dout, lse, delta, dk, dv, B, L, s);
   if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dkv_launch, q, k, v, mask, dout, lse, delta, dk, dv, B, L, s);
 }

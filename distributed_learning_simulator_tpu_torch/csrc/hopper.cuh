@@ -8,7 +8,9 @@
 //
 // Layouts.  A tile of `rows` x Dh bf16 lands in shared memory by TMA as
 // row-major rows of Dh * 2 bytes in the swizzle of that width (Dh 64:
-// 128-byte swizzle, Dh 32: 64-byte), on a 1024-byte-aligned base.  wgmma
+// 128-byte swizzle, Dh 32: 64-byte), on a 1024-byte-aligned base; an f32
+// tile lands as Dh / 32 boxes of 32-value (128-byte) rows under the
+// 128-byte swizzle (make_map_f32), read by the tf32 products below.  wgmma
 // reads it through a descriptor either K-major (Dh is the product's
 // reduction axis: Q.K^T, K.Q^T, V.dO^T) or MN-major (the tile's rows are
 // the reduction axis: P.V, P^T.dO, dS^T.Q; an A operand read from shared
@@ -138,6 +140,11 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 template <int N>
 __device__ __forceinline__ void fence_regs(uint32_t (&d)[N][4]) {
@@ -276,6 +283,83 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da, uint64_
       : "l"(da), "l"(db), "r"(1));
 }
 
+// ------------------------------------------------------ tf32 (3xTF32)
+// An f32 value x is carried as two tf32 values, big = x rounded to tf32
+// (cvt.rna: the low 13 mantissa bits zero) and small = x - big (exact in
+// f32); a product a.b is taken as a_small.b_big + a_big.b_small +
+// a_big.b_big, three tf32 products summed in f32, which leaves out only
+// a_small.b_small (about 2^-22 of the product).  wgmma takes .tf32
+// operands from shared memory K-major only; a k8 step is 32 bytes, the
+// geometry of a bf16 k16 step, so the descriptors above serve f32 tiles of
+// 32-value (128-byte) rows unchanged.  The register A fragment of one k8
+// step (rows as the accumulator's) is a0 = A[g][t], a1 = A[g+8][t],
+// a2 = A[g][t+4], a3 = A[g+8][t+4].
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// D[64 x 64] (+)= A[64 x 8] . B[64 x 8]^T in tf32, both K-major in shared
+// memory; `acc` 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 32] (+)= A[64 x 8] . B[32 x 8]^T in tf32, both K-major in shared
+// memory; `acc` 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D[64 x 64] (+)= A[64 x 8] (registers, tf32) . B[64 x 8]^T (K-major in shared
+// memory); `acc` 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
+}
+
+// D[64 x 32] (+)= A[64 x 8] (registers, tf32) . B[32 x 8]^T (K-major in shared
+// memory); `acc` 0 overwrites D
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                              uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(acc));
+}
+
 // make this thread's generic-proxy writes to shared memory visible to the
 // async proxy (wgmma operands, TMA), ahead of a barrier with the readers
 __device__ __forceinline__ void fence_proxy_async() {
@@ -343,22 +427,38 @@ struct Strides {
   long long sh, st, sb;
 };
 
-// a 4-d map (Dh, H, T, B) of one bf16 operand, boxes of `rows` tokens x
-// Dh, in the swizzle of a Dh-wide row (Dh 32 or 64); tokens past T read
-// as 0
-inline cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh, int rows) {
+// a 4-d map (Dh, H, T, B) of one operand of `item`-byte elements, boxes of
+// `rows` tokens x `cols` elements of Dh, in the swizzle of a `cols`-wide
+// row (128 or 64 bytes); tokens past T read as 0
+inline cudaError_t make_map_of(CUtensorMap* map, CUtensorMapDataType type, int item, const void* base, Strides s,
+                               int B, int T, int H, int Dh, int rows, int cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {2ull * s.sh, 2ull * s.st, 2ull * s.sb};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(Dh), 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(item * s.sh), static_cast<cuuint64_t>(item * s.st),
+                                 static_cast<cuuint64_t>(item * s.sb)};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box,
-                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              Dh == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+  const CUresult res = encode(map, type, 4, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              item * cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                               CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// one bf16 operand, boxes of `rows` tokens x Dh (Dh 32 or 64: a row of 64
+// or 128 bytes)
+inline cudaError_t make_map(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh, int rows) {
+  return make_map_of(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, s, B, T, H, Dh, rows, Dh);
+}
+
+// one f32 operand, boxes of `rows` tokens x 32 values (128 bytes, the
+// widest row the 128-byte swizzle takes): a Dh-64 tile is two boxes, at
+// Dh 0 and 32
+inline cudaError_t make_map_f32(CUtensorMap* map, const void* base, Strides s, int B, int T, int H, int Dh,
+                                int rows) {
+  return make_map_of(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, s, B, T, H, Dh, rows, 32);
 }
 
 }  // namespace hopper

@@ -14,7 +14,7 @@ kernel (``csrc/fused_attention.cu``) serves both tiers:
 * dk, dv: K8 and K11.
 
 :func:`kernel_route` picks, from dtype, Dh and layout alone, which of
-three CUDA kernel families serves a call (the same function on each; a
+four CUDA kernel families serves a call (the same function on each; a
 route chosen before the launch, never a fallback):
 
 * ``"wgmma"``: bf16 at Dh 32 or 64 on a layout TMA can describe (16-byte
@@ -25,7 +25,13 @@ route chosen before the launch, never a fallback):
   paths (packed ``[B, T, 3, H, Dh]`` projections) take it;
 * ``"mma"``: bf16 at Dh <= 64 on any other layout (a ragged Dh such as
   20, a misaligned stride): ``mma.sync.m16n8k16`` on 64-row tiles;
-* ``"fma"``: f32 (exact f32 products) and Dh 128, on the f32 FMA units.
+* ``"tf32x3"``: f32 at Dh 32 or 64 on a layout TMA can describe (the f32
+  long-context path's packed projections).  The forward and dk/dv run
+  Hopper kernels whose every f32 product is three TF32 products on
+  ``wgmma`` (big and small parts: f32 accuracy); dq has no such kernel
+  yet and runs the FMA kernel (:data:`STAND_IN`);
+* ``"fma"``: every other f32 call (a ragged Dh, Dh 128, a misaligned
+  base or stride) and bf16 at Dh 128, on the f32 FMA units.
 
 All are bound by operations on the H100 (the forward at the main shape,
 q/k/v ``[8, 8192, 8, 64]`` bf16: 1.10e12 flop, 1.11 ms at 989 TFLOP/s;
@@ -76,9 +82,15 @@ _DQ_ID = {"fused": "K7", "stream": "K10"}
 _DKV_ID = {"fused": "K8", "stream": "K11"}
 
 #: the kernel families, by the code the C entries take
-ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}
+ROUTES = {"fma": 0, "mma": 1, "wgmma": 2, "tf32x3": 3}
+#: the family a kind of kernel runs where the layout's route has none of
+#: that kind: K10 (dq) has no 3xTF32 kernel yet, so f32 dq stays on FMA
+STAND_IN = {"dq": {"tf32x3": "fma"}}
 #: launches per kernel and route ("fwd/wgmma", ...) since last set to 0
-route_launches = {f"{kind}/{route}": 0 for kind in ("fwd", "dq", "dkv") for route in ROUTES}
+route_launches = {
+    f"{kind}/{route}": 0
+    for kind in ("fwd", "dq", "dkv") for route in ROUTES if route not in STAND_IN.get(kind, {})
+}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
@@ -153,24 +165,36 @@ def _tma_describable(x, others) -> bool:
 
 
 def kernel_route(q, k, v, *others) -> str:
-    """The kernel family that serves the forward, dq and dk/dv for these
-    operands (``others``: dout, contiguous ``[B, T, H, Dh]``): ``"wgmma"``
-    for bf16 at Dh 32 or 64 where TMA can describe q, k, v (sharing their
-    strides) and the others; ``"mma"`` for any other bf16 at Dh <= 64;
-    ``"fma"`` for f32 and Dh above 64."""
+    """The kernel family for these operands' layout (``others``: dout,
+    contiguous ``[B, T, H, Dh]``): at Dh 32 or 64 where TMA can describe
+    q, k, v (sharing their strides) and the others, ``"wgmma"`` for bf16
+    and ``"tf32x3"`` for f32; ``"mma"`` for any other bf16 at Dh <= 64;
+    ``"fma"`` for every other call.  The forward and dk/dv run it; dq runs
+    :func:`family` ``("dq", route)``."""
     d = q.shape[-1]
-    if q.dtype != torch.bfloat16 or d > 64:
+    tma = (
+        d in (32, 64) and k.stride() == q.stride() and v.stride() == q.stride()
+        and _tma_describable(q, (k, v)) and all(_tma_describable(x, ()) for x in others)
+    )
+    if q.dtype == torch.float32:
+        return "tf32x3" if tma else "fma"
+    if d > 64:
         return "fma"
-    if d in (32, 64) and k.stride() == q.stride() and v.stride() == q.stride() and _tma_describable(q, (k, v)):
-        if all(_tma_describable(x, ()) for x in others):
-            return "wgmma"
-    return "mma"
+    return "wgmma" if tma else "mma"
 
 
-def _named_route(route):
-    """The route a caller named (checked), or None."""
-    if route is not None and route not in ROUTES:
-        raise ValueError(f"route must be one of {tuple(ROUTES)}, got {route!r}")
+def family(kind: str, route: str) -> str:
+    """The family a ``kind`` of kernel (``"fwd"``, ``"dq"``, ``"dkv"``)
+    runs on a layout whose route is ``route``."""
+    return STAND_IN.get(kind, {}).get(route, route)
+
+
+def _named_route(route, kind: str = "fwd"):
+    """The route a caller named (checked: one with a kernel of this kind),
+    or None."""
+    if route is not None and (route not in ROUTES or route in STAND_IN.get(kind, {})):
+        choices = tuple(r for r in ROUTES if r not in STAND_IN.get(kind, {}))
+        raise ValueError(f"{kind} route must be one of {choices}, got {route!r}")
     return route
 
 
@@ -365,7 +389,7 @@ def _bwd_operands(q, dout, lse, delta):
 def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
     """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
-    route = _named_route(route) or kernel_route(q, k, v, dout)
+    route = _named_route(route, "dq") or family("dq", kernel_route(q, k, v, dout))
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -382,7 +406,7 @@ def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier:
 def attention_dkv(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
     """``(dk, dv)``, each ``[B, T, H, Dh]``."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
-    route = _named_route(route) or kernel_route(q, k, v, dout)
+    route = _named_route(route, "dkv") or kernel_route(q, k, v, dout)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[1:]
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)

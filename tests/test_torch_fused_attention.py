@@ -308,9 +308,13 @@ def _packed(b, t, h, d, dtype, extra=0, offset=0):
         (lambda: _packed(2, 128, 4, 64, torch.bfloat16, offset=1), "mma"),  # base not 16-byte aligned
         # heads outside tokens ([B, H, T, Dh] viewed as [B, T, H, Dh]): not nested
         (lambda: [torch.zeros(2, 4, 128, 64, dtype=torch.bfloat16).transpose(1, 2)] * 3, "mma"),
-        (lambda: _packed(2, 128, 4, 64, torch.float32), "fma"),
+        # f32 at Dh 64 on the packed layout: the 3xTF32 kernels
+        (lambda: _packed(2, 128, 4, 64, torch.float32), "tf32x3"),
         (lambda: _packed(2, 128, 4, 128, torch.bfloat16), "fma"),  # Dh 128 in bf16
         (lambda: _packed(2, 128, 4, 20, torch.float32), "fma"),
+        (lambda: _packed(2, 128, 4, 32, torch.float32), "tf32x3"),  # f32 at Dh 32
+        (lambda: _packed(2, 128, 4, 64, torch.float32, offset=1), "fma"),  # base 4 bytes off 16
+        (lambda: _packed(2, 128, 4, 128, torch.float32), "fma"),  # Dh 128 in f32
     ],
 )
 def test_kernel_route_follows_the_layout_rule(make, route, monkeypatch):
@@ -318,6 +322,9 @@ def test_kernel_route_follows_the_layout_rule(make, route, monkeypatch):
     dout = torch.zeros(q.shape, dtype=q.dtype)
     assert tfa.kernel_route(q, k, v) == route
     assert tfa.kernel_route(q, k, v, dout) == route
+    # dq has no 3xTF32 kernel: in f32 it runs the FMA kernel on every layout
+    assert tfa.family("dq", route) == ("fma" if route == "tf32x3" else route)
+    assert tfa.family("fwd", route) == tfa.family("dkv", route) == route
     # dq follows the same rule as dk/dv (no dq-specific family): its wrapper
     # asks kernel_route, with dout
     asked = []
@@ -357,6 +364,57 @@ def test_a_named_route_computes_the_same_function_on_the_cpu():
     for route in tfa.ROUTES:
         got = tfa.attention_fwd(x, x, x, causal=True, route=route)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_the_tf32x3_route_computes_the_plain_version_on_the_cpu():
+    """A named ``"tf32x3"`` route gives the forward's and dk/dv's plain
+    versions on CPU tensors; dq has no 3xTF32 kernel, so its wrapper
+    refuses that route and runs f32 on FMA without one."""
+    rng = np.random.default_rng(8)
+    q, k, v = (x.copy_(torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)))
+               for x in _packed(1, 96, 2, 64, torch.float32))
+    mask = torch.from_numpy((rng.random((1, 96)) > 0.3).astype(np.float32))
+    dout = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    assert tfa.kernel_route(q, k, v, dout) == "tf32x3"
+    out, lse = tfa.attention_fwd(q, k, v, mask, causal=True, route="tf32x3")
+    want_out, want_lse = tfa.attention_fwd_plain(q, k, v, mask, causal=True)
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    delta = tfa.attention_delta(dout, out)
+    want = tfa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal=True)
+    dk, dv = tfa.attention_dkv(q, k, v, mask, dout, lse, delta, causal=True, route="tf32x3")
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    assert torch.equal(tfa.attention_dq(q, k, v, mask, dout, lse, delta, causal=True), want[0])
+    with pytest.raises(ValueError, match="dq route"):
+        tfa.attention_dq(q, k, v, mask, dout, lse, delta, causal=True, route="tf32x3")
+    assert "dq/tf32x3" not in tfa.route_launches
+    assert all(n == 0 for n in tfa.route_launches.values())  # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tf32x3_products_keep_the_f32_check(monkeypatch, causal):
+    """The 3xTF32 kernels' arithmetic (``chip_smoke.tf32_products_attention``:
+    each f32 operand split into a TF32 big part, its low 13 mantissa bits
+    dropped, and the rest; three TF32 products for each f32 product)
+    agrees with the JAX stream tier (K9 ``_fwd_stream``, K11
+    ``_bwd_stream`` in interpret mode, T 384 walked in 3 x 3 blocks of
+    128) within ``chip_smoke.ATTN_TOL["float32"]`` on out, dk and dv; with
+    TF32 products alone (1xTF32) it fails that tolerance on each."""
+    import chip_smoke
+
+    monkeypatch.setattr(jfa, "_STREAM_BLK", 128)
+    q, k, v, do, mask = _inputs(1, 384, 2, 64, seed=13, mask_p=0.3)
+    jout, jlse, jgrads = _jax_run(q, k, v, do, mask, causal, "stream", jnp.float32)
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    lse = torch.from_numpy(np.array(jlse))
+    want = [torch.from_numpy(np.array(x)) for x in (jout, jgrads[1], jgrads[2])]
+    delta = tfa.attention_delta(tdo, want[0])
+    for passes in (3, 1):
+        got = chip_smoke.tf32_products_attention(
+            tq, tk, tv, torch.from_numpy(mask).float(), tdo, lse, delta, causal, passes
+        )
+        for name, g, w in zip(("out", "dk", "dv"), got, want):
+            rel_max, rel_rms, ok = chip_smoke.attention_mismatch(g, w, "float32")
+            assert ok == (passes == 3), (passes, name, rel_max, rel_rms)
 
 
 def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
@@ -422,3 +480,14 @@ def test_kernel_bound_counts_only_the_valid_pairs(causal):
         assert flops[part] == products * 2 * pairs * dh
     act, kv = b * t * h * dh * 2, int(mask.sum()) * h * dh * 2
     assert nbytes["fwd"] == 2 * act + 2 * kv + b * t * 4 + b * h * t * 4
+    # f32: the same pairs; the bound is 3 TF32 products a product on the
+    # tensor cores (495 TFLOP/s), the FMA units' bound (67 TFLOP/s) beside it
+    f32_flops, f32_bytes = chip_smoke._fused_work((b, h, t, dh, "float32", causal, "pad"), mask)
+    assert f32_flops == flops
+    for part in ("fwd", "dq", "dkv"):
+        row = chip_smoke.attention_bound_ms(f32_bytes[part], f32_flops[part], "float32")
+        t_bytes, t_ops = f32_bytes[part] / 3.35e12 * 1e3, 3 * f32_flops[part] / 495e12 * 1e3
+        assert row["bound_ms"] == pytest.approx(max(t_bytes, t_ops), rel=1e-12)
+        assert row["bound_by"] == ("operations" if t_ops >= t_bytes else "bytes")
+        assert row["fma_bound_ms"] == pytest.approx(max(t_bytes, f32_flops[part] / 67e12 * 1e3), rel=1e-12)
+    assert "fma_bound_ms" not in chip_smoke.attention_bound_ms(nbytes["fwd"], flops["fwd"], "bfloat16")
