@@ -16,7 +16,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
    ``vit_base`` attention shape (K4, K5), at the long-context
-   round's attention shape (K6-K8) and the f32 task's (K9-K11), at the
+   round's attention shape (K6-K8) and the f32 round's (K9-K11; also
+   the f32 small task's), at the
    ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
    K2's in-kernel Philox against its own stream), and at the edge shapes
    the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
@@ -497,8 +498,12 @@ FUSED_CASES = [
     (2, 4, 2048, 32, "float32", False, "pad"),  # f32 at Dh 32
     (2, 4, 1000, 64, "float32", True, "pad"),  # f32, T not a multiple of 64, causal
 ]
-#: the f32 task's attention shape (K9-K11's path): batch 2, 2 heads of 64
+#: the f32 small task's attention shape (batch 2, 2 heads of 64), also the
+#: shape of the 3xTF32 planted fault
 LC_F32 = (2, 2, 8192, 64, "float32", False, "pad")
+#: the full-width f32 round's attention shape (K9-K11's main path): the
+#: main path's shape in f32; K9-K11 are timed here
+LC_MAIN_F32 = (8, 8, 8192, 64, "float32", False, "pad")
 #: the (fwd, dq, dkv) kernel families some cases must run: the packed bf16
 #: layouts at Dh 64 and 32 take the wgmma kernels, the ragged Dh 20 the
 #: mma.sync kernels; the packed f32 layouts at Dh 32 and 64 the 3xTF32
@@ -517,6 +522,7 @@ ROUTE_OF = {
     FUSED_CASES[12]: F32_WGMMA,
     FUSED_CASES[13]: F32_WGMMA,
     LC_F32: F32_WGMMA,
+    LC_MAIN_F32: F32_WGMMA,
 }
 
 
@@ -665,7 +671,7 @@ def _fused_work(case, mask) -> tuple[dict, dict]:
 def check_fused_attention(gen) -> dict[str, dict]:
     """K6-K11's three CUDA kernels against their plain versions at the main
     path's shape and the edge shapes; at the main shape (K6-K8) and at the
-    f32 task's shape (K9-K11) also the times of kernel, plain version and
+    f32 round's shape (K9-K11) also the times of kernel, plain version and
     ``F.scaled_dot_product_attention`` forward / backward (a yardstick: the
     port never calls it), and the bound."""
     import torch
@@ -674,7 +680,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
 
     rows = {}
-    for case in [*FUSED_CASES, LC_F32]:
+    for case in [*FUSED_CASES, LC_F32, LC_MAIN_F32]:
         b, h, t, dh, dtype, causal, kind = case
         q, k, v, mask, dout = _fused_inputs(case, gen)
         tier = fa.kernel_tier(t, dh, q.element_size(), _perf_gate=False)
@@ -726,7 +732,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
         )
         if dtype == "bfloat16" and dh == 32:
             _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref))
-        if case not in (LC_MAIN, LC_F32):
+        if case not in (LC_MAIN, LC_MAIN_F32):
             continue
         flops, nbytes = _fused_work(case, mask)
         route = fa.kernel_route(q, k, v, dout)
