@@ -8,8 +8,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 1. build every CUDA kernel of the port from ``csrc/`` (one ``nvcc`` per
    source, all at once) and print the build time and register use; the
    wgmma kernels (``WGMMA_KERNELS``: K6-K8's ``fwd_wgmma_kernel``,
-   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel``, K9's and K11's 3xTF32
-   ``fwd_tf32x3_kernel`` and ``dkv_tf32x3_kernel``, K4's
+   ``dq_wgmma_kernel``, ``dkv_wgmma_kernel``, K9's, K10's and K11's 3xTF32
+   ``fwd_tf32x3_kernel``, ``dq_tf32x3_kernel`` and ``dkv_tf32x3_kernel``, K4's
    ``short_fwd_wgmma_kernel`` and K5's ``short_bwd_wgmma_kernel``) must
    build without spills, and their SASS (``cuobjdump -sass``) must hold
    ``HGMMA`` and ``UTMALDG``;
@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``vit_base`` attention shape (K4, K5), at the long-context
    round's attention shape (K6-K8) and the f32 round's (K9-K11; also
    the f32 small task's), at the
-   ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, and
-   K2's in-kernel Philox against its own stream), and at the edge shapes
+   ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, K2's
+   in-kernel Philox against its own stream, and that stream against its
+   plain numpy version), and at the edge shapes
    the kernels must cover (K2/K3 also at 3, 5 and 7 bits), and time
    kernel (K2-K5: their device time from the profiler, since a wrapper
    call's host cost is of its size; K4's and K5's yardsticks too), plain
@@ -28,7 +29,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel each case ran (``short_attention.fwd_route`` / ``bwd_route``:
    wgmma or FMA; ``kernel_route``: wgmma, mma.sync, 3xTF32, FMA), time
    the kernels the Hopper ones replaced beside them (the FMA K4 and K5,
-   the mma.sync K6/K7/K8, the FMA K9/K11), print the kernels SDPA's f32
+   the mma.sync K6/K7/K8, the FMA K9/K10/K11, K2's encode with a Philox
+   call a value; K2 with given bits too), print the kernels SDPA's f32
    forward and backward launch, and show the C entries refusing the wgmma
    and 3xTF32 routes off their layouts; faults planted at the ViT-small
    shape (two: K4 and K5), the main attention shape (two) and the f32
@@ -49,8 +51,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
    exactly (and all on the wgmma kernels), then one long-context training
    round under the profiler; then one full-width f32 long-context round
-   (``use_amp`` off: K9-K11, every forward and dk/dv launch on the 3xTF32
-   kernels and every dq launch on FMA) and one more under the profiler;
+   (``use_amp`` off: K9-K11, every forward, dq and dk/dv launch on the
+   3xTF32 kernels) and one more under the profiler;
    every K4 and K5 launch of the ViT and
    fed_obd_sq main paths must take the Hopper forward and backward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
@@ -79,6 +81,12 @@ PACKAGE = "distributed_learning_simulator_tpu_torch"
 # the card's published peaks (H100 SXM data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}  # f32: outside the tensor cores
+#: INT32 operations a second: 64 INT32 lanes an SM (H100 white paper) x 132
+#: SMs x 1.98 GHz, the boost clock of the 67 TFLOP/s f32 peak (128 lanes x 2)
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+#: integer operations of one Philox4x32-10 call: 10 rounds of 2 high and 2
+#: low 32-bit products, 4 xors and 2 key additions
+PHILOX_OPS = 100
 
 ROUNDS = 2
 WORKERS, SAMPLES, BATCH, CHUNK = 10, 512, 128, 2
@@ -497,6 +505,8 @@ FUSED_CASES = [
     (2, 4, 1024, 64, "float32", True, "empty"),  # fully masked rows
     (2, 4, 2048, 32, "float32", False, "pad"),  # f32 at Dh 32
     (2, 4, 1000, 64, "float32", True, "pad"),  # f32, T not a multiple of 64, causal
+    (2, 4, 1024, 64, "bfloat16", True, "empty"),  # fully masked rows on the wgmma kernels
+    (2, 4, 1024, 32, "bfloat16", False, "empty"),  # the same at Dh 32
 ]
 #: the f32 small task's attention shape (batch 2, 2 heads of 64), also the
 #: shape of the 3xTF32 planted fault
@@ -507,8 +517,8 @@ LC_MAIN_F32 = (8, 8, 8192, 64, "float32", False, "pad")
 #: the (fwd, dq, dkv) kernel families some cases must run: the packed bf16
 #: layouts at Dh 64 and 32 take the wgmma kernels, the ragged Dh 20 the
 #: mma.sync kernels; the packed f32 layouts at Dh 32 and 64 the 3xTF32
-#: forward and dk/dv with the FMA dq, other f32 (Dh 20, Dh 128) the FMA kernels
-F32_WGMMA = ("tf32x3", "fma", "tf32x3")
+#: kernels, other f32 (Dh 20, Dh 128) the FMA kernels
+F32_WGMMA = ("tf32x3", "tf32x3", "tf32x3")
 ROUTE_OF = {
     LC_MAIN: ("wgmma", "wgmma", "wgmma"),
     FUSED_CASES[1]: ("wgmma", "wgmma", "wgmma"),
@@ -521,6 +531,8 @@ ROUTE_OF = {
     FUSED_CASES[11]: F32_WGMMA,
     FUSED_CASES[12]: F32_WGMMA,
     FUSED_CASES[13]: F32_WGMMA,
+    FUSED_CASES[14]: ("wgmma", "wgmma", "wgmma"),
+    FUSED_CASES[15]: ("wgmma", "wgmma", "wgmma"),
     LC_F32: F32_WGMMA,
     LC_MAIN_F32: F32_WGMMA,
 }
@@ -533,7 +545,7 @@ WGMMA_KERNELS = {
     "fused_attention": tuple(
         f"{name}<{dh}>"
         for name in ("fwd_wgmma_kernel", "dkv_wgmma_kernel", "dq_wgmma_kernel", "fwd_tf32x3_kernel",
-                     "dkv_tf32x3_kernel")
+                     "dkv_tf32x3_kernel", "dq_tf32x3_kernel")
         for dh in (32, 64)
     ),
     "short_attention": ("short_fwd_wgmma_kernel<1>", "short_fwd_wgmma_kernel<2>", "short_bwd_wgmma_kernel"),
@@ -701,13 +713,13 @@ def check_fused_attention(gen) -> dict[str, dict]:
             _refused(lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="wgmma"),
                      f"wgmma dq at {case}")
         # the C entries refuse the 3xTF32 route for f32 off Dh 32/64 (Dh 20,
-        # 128) and for bf16; dq's entry refuses it on every layout
+        # 128) and for bf16
         if want == ("fma", "fma", "fma") or case == FUSED_CASES[7]:
             _refused(lambda: fa.attention_fwd(q, k, v, mask, causal, tier, route="tf32x3"), f"tf32x3 fwd at {case}")
+            _refused(lambda: fa.attention_dq(q, k, v, mask, dout, lse, delta, causal, tier, route="tf32x3"),
+                     f"tf32x3 dq at {case}")
             _refused(lambda: fa.attention_dkv(q, k, v, mask, dout, lse, delta, causal, tier, route="tf32x3"),
                      f"tf32x3 dk/dv at {case}")
-        if want == F32_WGMMA:
-            _refused(lambda: _dq_entry("tf32x3", q, k, v, mask, dout, lse, delta, causal), f"tf32x3 dq at {case}")
         ref_out, ref_lse = fa.attention_fwd_plain(q, k, v, mask, causal)
         ref = fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)
         torch.cuda.synchronize()
@@ -771,7 +783,6 @@ def check_fused_attention(gen) -> dict[str, dict]:
         }
         replaced = {"wgmma": ("mma", "mma_sync_ms"), "tf32x3": ("fma", "fma_ms")}
         for part, (kernel, plain, library, err) in timed.items():
-            family = fa.family(part, route)
             rows[ids[part]] = {
                 "max_abs_err": err,
                 "ms": cuda_ms(kernel, iters=5, warmup=1),
@@ -781,32 +792,16 @@ def check_fused_attention(gen) -> dict[str, dict]:
                 # SDPA's backward also computes all three gradients
                 "library_ms": cuda_ms(library, iters=5, warmup=1),
                 "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
-                "family": family,
+                "family": route,
             }
-            if family in replaced:
-                old, key = replaced[family]
+            if route in replaced:
+                old, key = replaced[route]
                 rows[ids[part]][key] = cuda_ms(lambda: calls[part](old), iters=5, warmup=1)
             if dtype == "float32" and part != "dq":  # dq's yardstick is the same backward
                 print(f"SDPA's f32 {'forward' if part == 'fwd' else 'backward'} at {case}, by the profiler:")
                 kernel_device_ms(library, None, iters=2, warmup=1)
         del sdpa_out, qg, kg, vg
     return rows
-
-
-def _dq_entry(route: str, q, k, v, mask, dout, lse, delta, causal) -> None:
-    """dq's C entry called with ``route``'s code as it is (the wrapper
-    refuses a route with no dq kernel before any launch)."""
-    import torch
-
-    from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
-
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    head = fa._head(q, k, v, mask, "fma")
-    head[1] = fa.ROUTES[route]
-    err = fa._library().fused_attention_dq(
-        *head, dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *fa._tail(q, causal)
-    )
-    fa._raise_on(err, "dq", route)
 
 
 def check_tf32x3_refuses_a_misaligned_base(gen) -> None:
@@ -824,9 +819,11 @@ def check_tf32x3_refuses_a_misaligned_base(gen) -> None:
     lse = torch.zeros(b, h, t, device="cuda")
     check(fa.kernel_route(q, k, v, dout) == "fma", "a misaligned f32 base routes to the 3xTF32 kernels")
     _refused(lambda: fa.attention_fwd(q, k, v, None, False, "fused", route="tf32x3"), "tf32x3 fwd, misaligned base")
+    _refused(lambda: fa.attention_dq(q, k, v, None, dout, lse, lse, False, "fused", route="tf32x3"),
+             "tf32x3 dq, misaligned base")
     _refused(lambda: fa.attention_dkv(q, k, v, None, dout, lse, lse, False, "fused", route="tf32x3"),
              "tf32x3 dk/dv, misaligned base")
-    print("3xTF32 route refused at a misaligned f32 base (fwd, dk/dv), and for dq on every layout")
+    print("3xTF32 route refused at a misaligned f32 base (fwd, dq, dk/dv)")
 
 
 def _tf32(x):
@@ -850,7 +847,7 @@ def _mm_tf32(a, b, passes: int):
 
 
 def tf32_products_attention(q, k, v, kv_mask, dout, lse, delta, causal: bool, passes: int):
-    """``(out, dk, dv)`` of the f32 attention (the plain versions' function:
+    """``(out, dq, dk, dv)`` of the f32 attention (the plain versions' function:
     the forward against each row's global maximum, the backward from the
     given lse and delta) with every matrix product taken as ``passes`` TF32
     products (``_mm_tf32``): 3 is the 3xTF32 kernels' arithmetic, 1 a
@@ -863,7 +860,7 @@ def tf32_products_attention(q, k, v, kv_mask, dout, lse, delta, causal: bool, pa
 
     b, t, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
-    out, dk, dv = (torch.empty(b, t, h, d, dtype=torch.float32, device=q.device) for _ in range(3))
+    out, dq, dk, dv = (torch.empty(b, t, h, d, dtype=torch.float32, device=q.device) for _ in range(4))
     for bi, hs in fa._head_groups(b, h, t):
         qf, kf, vf, dof = (fa._heads_first(x, bi, hs) for x in (q, k, v, dout))
         s = _mm_tf32(qf, kf.transpose(-1, -2), passes) * scale
@@ -878,30 +875,31 @@ def tf32_products_attention(q, k, v, kv_mask, dout, lse, delta, causal: bool, pa
         ds = bp * (_mm_tf32(dof, vf.transpose(-1, -2), passes) - delta[bi, hs][..., None])
         values = (
             _mm_tf32(p, vf, passes) / l,
+            _mm_tf32(ds, kf, passes) * scale,
             _mm_tf32(ds.transpose(-1, -2), qf, passes) * scale,
             _mm_tf32(bp.transpose(-1, -2), dof, passes),
         )
-        for grad, value in zip((out, dk, dv), values):
+        for grad, value in zip((out, dq, dk, dv), values):
             grad[bi, :, hs] = value.transpose(0, 1)
-    return out, dk, dv
+    return out, dq, dk, dv
 
 
 def check_tf32_planted_fault(gen) -> None:
     """At the f32 task's shape the comparison ``check_fused_attention``
-    makes passes 3xTF32 products (the new kernels' arithmetic, emulated in
-    plain PyTorch) and must reject 1xTF32 products on each of out, dk and
-    dv."""
+    makes passes 3xTF32 products (the 3xTF32 kernels' arithmetic, emulated
+    in plain PyTorch) and must reject 1xTF32 products on each of out, dq, dk
+    and dv."""
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
 
     q, k, v, mask, dout = _fused_inputs(LC_F32, gen)
     causal, dtype = LC_F32[5], LC_F32[4]
     out, lse = fa.attention_fwd_plain(q, k, v, mask, causal)
     delta = fa.attention_delta(dout, out)
-    ref = (out, *fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal)[1:])
+    ref = (out, *fa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal))
     for passes in (3, 1):
         got = tf32_products_attention(q, k, v, mask, dout, lse, delta, causal, passes)
         rel = []
-        for name, g, w in zip(("out", "dk", "dv"), got, ref):
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, ref):
             rel_max, rel_rms, ok = attention_mismatch(g, w, dtype)
             rel.append(f"{name} {rel_max:.2g}/{rel_rms:.2g}")
             check(ok == (passes == 3), f"{passes}xTF32 products at the f32 shape: {name} passes {ok}")
@@ -1221,7 +1219,7 @@ def check_long_context_f32_against_cpu(workdir: str) -> dict[str, int]:
     # 2 layers x (1 step per client x 2 clients; 1 eval batch)
     check(launches["K9"] == 2 * 3 and launches["K10"] == launches["K11"] == 2 * 2, f"stream-tier launches {launches}")
     check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"one-level launches on the f32 task {launches}")
-    want = {"fwd/tf32x3": launches["K9"], "dq/fma": launches["K10"], "dkv/tf32x3": launches["K11"]}
+    want = {"fwd/tf32x3": launches["K9"], "dq/tf32x3": launches["K10"], "dkv/tf32x3": launches["K11"]}
     check(routes == want, f"f32 task kernel families {routes}, want {want}")
     return launches
 
@@ -1295,8 +1293,8 @@ def run_long_context_f32_round(workdir: str) -> dict[str, int]:
     """One full-width f32 round of the long-context configuration
     (``lc_config`` with ``use_amp`` off: T 8192 in f32 is the stream tier,
     K9-K11 in every attention layer), its launches checked exactly (every
-    forward and dk/dv launch on the 3xTF32 kernels, every dq launch on
-    FMA); then one more round under the profiler.  Returns the launches."""
+    forward, dq and dk/dv launch on the 3xTF32 kernels); then one more
+    round under the profiler.  Returns the launches."""
     import numpy as np
     import torch
 
@@ -1326,7 +1324,7 @@ def run_long_context_f32_round(workdir: str) -> dict[str, int]:
     check(launches["K9"] == layers * (steps + evals), f"f32 round K9 launches {launches['K9']}")
     check(launches["K10"] == launches["K11"] == layers * steps, f"f32 round K10/K11 launches {launches}")
     check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"f32 round one-level launches {launches}")
-    want = {"fwd/tf32x3": launches["K9"], "dq/fma": launches["K10"], "dkv/tf32x3": launches["K11"]}
+    want = {"fwd/tf32x3": launches["K9"], "dq/tf32x3": launches["K10"], "dkv/tf32x3": launches["K11"]}
     check(routes == want, f"f32 round kernel families {routes}, want {want}")
     vec = session._init_global_params()
     weights = session._base_weight_row(1)
@@ -1377,18 +1375,57 @@ def qsgd_mismatch(got, want) -> list[str]:
     ]
 
 
+def encode_bound_ms(n: int, words: int) -> dict:
+    """K2's bound on ``n`` values packed into ``words`` u32 words (levels
+    and signs): the larger of the bytes (each value read once, each word
+    and the scale written once) over 3.35 TB/s, the f32 operations a value
+    takes (abs, divide, multiply, floor, subtract, compare) over 67
+    TFLOP/s, and Philox's integer operations at one call per four values
+    (``PHILOX_OPS`` a call) over ``PEAK_INT32_OPS``."""
+    terms = {
+        "bytes": (4 * n + 4 * words + 4) / PEAK_BYTES_PER_S * 1e3,
+        "f32": 6 * n / PEAK_FLOPS["float32"] * 1e3,
+        "int32": PHILOX_OPS * -(-n // 4) / PEAK_INT32_OPS * 1e3,
+    }
+    by = max(terms, key=terms.get)
+    return {"bound_ms": terms[by], "bound_by": "bytes" if by == "bytes" else "operations", "bound_terms_ms": terms}
+
+
+def encode_per_value(x, seed: int, level: int, bits: int):
+    """K2 as the design it replaced ran it (``csrc/qsgd.cu::
+    qsgd_encode_per_value``: a Philox call a value, an atomicOr a negative
+    value, the abs-max into a zeroed word, the scale clamped by a launch of
+    its own), for timing beside it: ``(packed, signs, scale)``."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import qsgd
+
+    n, rows = x.numel(), qsgd.rows_for(x.numel(), bits)
+    packed = torch.empty(rows // (32 // bits), qsgd.LANE, dtype=torch.int32, device=x.device)
+    signs = torch.empty(rows // 32, qsgd.LANE, dtype=torch.int32, device=x.device)
+    amax = torch.zeros(1, dtype=torch.int32, device=x.device)
+    err = qsgd._library().qsgd_encode_per_value(
+        x.data_ptr(), n, rows, seed & 0xFFFFFFFF, level, bits, amax.data_ptr(), packed.data_ptr(),
+        signs.data_ptr(), torch.cuda.current_stream().cuda_stream,
+    )
+    check(err == 0, f"the per-value encode returned {err}")
+    return packed, signs, torch.clamp(amax.view(torch.float32), min=1e-12)
+
+
 def check_qsgd(gen) -> tuple[dict, dict]:
     """K2 and K3 against their plain versions, bit for bit, at the main
     path's leaf sizes and the edges: the card's encode with given bits
     against the plain encode with the same bits, the card's Philox encode
-    against the card's encode of ``philox_fill``'s stream, the card's decode
-    against the plain decode; the error under one step; at the largest leaf
-    the mean over 64 seeds unbiased, and two planted faults (a decode that
-    drops the sign, an encode whose bits are shifted by one row) rejected by
-    the same comparison.  Times K2 (Philox), K3 and their plain versions at
-    the largest leaf (``ms`` the kernels' device time, ``call_ms`` the
-    wrapper's calls back to back); no single PyTorch call computes either
-    function."""
+    against the card's encode of ``philox_fill``'s stream, that stream
+    against its plain numpy version (``qsgd.philox_stream``), the card's
+    decode against the plain decode; the error under one step; at the
+    largest leaf the mean over 64 seeds unbiased, and two planted faults (a
+    decode that drops the sign, an encode whose bits are shifted by one
+    row) rejected by the same comparison.  Times K2 (Philox; its two
+    passes apart; with given bits as ``with_bits_ms``; the design it
+    replaced as ``per_value_ms``), K3 and their plain versions at the largest leaf (``ms`` the kernels'
+    device time, ``call_ms`` the wrapper's calls back to back); no single
+    PyTorch call computes either function."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import qsgd
@@ -1401,6 +1438,8 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         seed = n % 1000 + bits
         rows = qsgd.rows_for(n, bits)
         stream = qsgd.philox_fill(seed, rows, "cuda")
+        check(torch.equal(stream.cpu(), qsgd.philox_stream(seed, rows)),
+              f"philox_fill differs from the plain Philox stream at {n, bits}")
         with_bits = qsgd.qsgd_encode(x, seed, level, bits, rand_bits=stream)
         plain = qsgd.qsgd_encode_plain(x, level, bits, stream)
         philox = qsgd.qsgd_encode(x, seed, level, bits)
@@ -1410,7 +1449,8 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         step = float(philox[2][0]) / level
         err = float((out - x).abs().max())
         print(
-            f"K2/K3 n={n} bits={bits} level={level} {kind}: encode with bits vs plain"
+            f"K2/K3 n={n} bits={bits} level={level} {kind}: philox_fill vs plain stream bit-equal;"
+            f" encode with bits vs plain"
             f" {qsgd_mismatch(with_bits, plain) or 'bit-equal'}; Philox vs its stream"
             f" {qsgd_mismatch(philox, with_bits) or 'bit-equal'}; decode vs plain"
             f" {qsgd_mismatch(out, plain_out) or 'bit-equal'}; max |x - decoded| {err:.3g}"
@@ -1433,15 +1473,20 @@ def check_qsgd(gen) -> tuple[dict, dict]:
             check(bool(differs), f"{plant} passes the K2/K3 check")
             print(f"planted fault at n={n}, {plant}: {differs} differ (rejected)")
         packed, signs, scale = philox
-        words = 4 * (packed.numel() + signs.numel())
-        # each input read once, each output written once; the operations
-        # counted are the f32 ones a value takes (abs, divide, multiply,
-        # floor, subtract, compare; decode: 3 products)
-        enc_bound = bound_ms(4 * n + words + 4, 6 * n, "float32")
-        dec_bound = bound_ms(words + 4 + 4 * n, 3 * n, "float32")
+        old = encode_per_value(x, seed, level, bits)
+        # the replaced design draws other bits; its signs and scale are the same
+        check(qsgd_mismatch(old, philox) == ["packed"], f"the per-value encode: {qsgd_mismatch(old, philox)} differ")
+        words = packed.numel() + signs.numel()
+        # each input read once, each output written once; decode's
+        # operations are its 3 f32 products a value
+        dec_bound = bound_ms(4 * words + 4 + 4 * n, 3 * n, "float32")
+        stream32 = qsgd._u32_view(stream)  # the wrapper's u32 view, made once
 
         def encode():
             return qsgd.qsgd_encode(x, seed, level, bits)
+
+        def encode_with_bits():
+            return qsgd.qsgd_encode(x, seed, level, bits, rand_bits=stream32)
 
         def decode():
             return qsgd.qsgd_decode(packed, signs, scale, level, bits, n)
@@ -1449,10 +1494,18 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         k2 = {
             "max_abs_err": 0.0,  # bit-equal to the plain version
             "ms": kernel_device_ms(encode, ("absmax_kernel", "encode_kernel")),
+            # the two passes apart: the abs-max read, then the quantize pass
+            "absmax_ms": kernel_device_ms(encode, ("absmax_kernel",)),
+            "encode_ms": kernel_device_ms(encode, ("encode_kernel",)),
             "call_ms": cuda_ms(encode),  # the wrapper's calls back to back, host cost included
+            # the same kernels given the bits: no Philox work, 4 bytes more read a value
+            "with_bits_ms": kernel_device_ms(encode_with_bits, ("absmax_kernel", "encode_kernel")),
+            # the design this replaced, on the same leaf
+            "per_value_ms": kernel_device_ms(lambda: encode_per_value(x, seed, level, bits),
+                                             ("absmax_atomic_kernel", "encode_per_value_kernel")),
+            "per_value_call_ms": cuda_ms(lambda: encode_per_value(x, seed, level, bits)),
             "plain_ms": cuda_ms(lambda: qsgd.qsgd_encode_plain(x, level, bits, stream)),
-            "bound_ms": enc_bound[0],
-            "bound_by": enc_bound[1],
+            **encode_bound_ms(n, words),
             "library_ms": None,  # no single PyTorch call quantizes and packs
             "shape": f"[{n}] f32 -> 8-bit levels + signs (Philox bits in the kernel)",
         }
@@ -1783,11 +1836,11 @@ def main(argv: list[str]) -> int:
     src = f"{PACKAGE}/csrc"
     rows = [
         ("weighted_accum", "K1", f"{src}/weighted_accum.cu",
-         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:197", k1),
+         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:198", k1),
         ("qsgd_encode", "K2", f"{src}/qsgd.cu",
-         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:107", k2),
+         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:108", k2),
         ("qsgd_decode", "K3", f"{src}/qsgd.cu",
-         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:166", k3),
+         "distributed_learning_simulator_tpu/ops/pallas_kernels.py:167", k3),
         ("short_attention_fwd", "K4", f"{src}/short_attention.cu",
          "distributed_learning_simulator_tpu/ops/short_attention.py:134", k4),
         ("short_attention_bwd", "K5", f"{src}/short_attention.cu",

@@ -35,15 +35,16 @@
 //     such as 20, a misaligned stride):
 //     fwd_mma_kernel, dq_mma_kernel and dkv_mma_kernel, mma.sync.m16n8k16
 //     on 64-row tiles loaded by all threads between barriers;
-//   * 3xTF32 (route 3): f32 at Dh 32 or 64 on the layouts of route 2, the
-//     forward and dk/dv only: fwd_tf32x3_kernel (K9/K6) and
-//     dkv_tf32x3_kernel (K11/K8), after the dq wgmma kernel: each f32
+//   * 3xTF32 (route 3): f32 at Dh 32 or 64 on the layouts of route 2:
+//     fwd_tf32x3_kernel (K9/K6), dkv_tf32x3_kernel (K11/K8) and
+//     dq_tf32x3_kernel (K10/K7), after the dq wgmma kernel: each f32
 //     product as three tf32 products on wgmma, f32 accuracy (their note
-//     below); dq's entry refuses route 3;
-//   * FMA (route 0): every other f32 call, f32 dq, and Dh 128 (whose
-//     tensor-core accumulators would spill): fwd_kernel, dq_kernel and
-//     dkv_kernel on the f32 FMA units (67 TFLOP/s peak) with 4 x 4
-//     register tiles per thread, as K4/K5 do.
+//     below);
+//   * FMA (route 0): every other f32 call (a ragged Dh, Dh 128, a layout
+//     TMA cannot describe) and bf16 at Dh 128 (whose tensor-core
+//     accumulators would spill): fwd_kernel, dq_kernel and dkv_kernel on
+//     the f32 FMA units (67 TFLOP/s peak) with 4 x 4 register tiles per
+//     thread, as K4/K5 do.
 //
 // Design (not the TPU's), every route:
 //   * one block per (row tile, head, batch); the walk over the other axis is
@@ -1558,12 +1559,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
 // ----------------------------------------------------------------------------
 // f32 Hopper path (route 3, "tf32x3"): f32 at Dh 32 and 64 on layouts TMA can
-// describe, for the forward (K9; K6's function in f32) and dk/dv (K11; K8's
-// in f32).  dq (K10, K7's function in f32) stays on the FMA dq_kernel.
+// describe, for the forward (K9; K6's function in f32), dk/dv (K11; K8's
+// in f32) and dq (K10; K7's in f32).
 //   * fwd_tf32x3_kernel replaces _fwd_stream (ops/fused_attention.py:425,
 //     body _fwd_stream_kernel :307);
 //   * dkv_tf32x3_kernel replaces _bwd_stream dkv (:490, body
-//     _dkv_stream_kernel :384).
+//     _dkv_stream_kernel :384);
+//   * dq_tf32x3_kernel replaces _bwd_stream dq (:470, body
+//     _dq_stream_kernel :349).
 //
 // What bounds them: operations.  The FMA kernels run every f32 product on
 // the FMA units (67 TFLOP/s).  Here each f32 product is three tf32 products
@@ -1603,7 +1606,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 //     32-query stages; a block whose keys are all masked writes zeros and
 //     walks nothing, and under causal the walk starts at the first query
 //     tile that sees the block's keys;
-//   * a long sum (P.V over the keys, dV and dK over the queries) is taken
+//   * dq: a block owns 128 query rows (two consumer warpgroups, Q and dO
+//     split once) and walks 32-key stages as the forward walks its tiles
+//     (the same producer skips; a row with no valid key gets dq = 0);
+//     S = Q.K^T and dP = dO.V^T reduce over Dh and read K and V as TMA
+//     lands them, dS.K reduces over the keys and reads K^T, which the
+//     workers write beside K's split;
+//   * a long sum (P.V over the keys, dV and dK over the queries, dq over
+//     the keys) is taken
 //     a tile at a time on wgmma and added up in registers (x3_acc): the
 //     tensor cores' accumulation truncates, and carried through a whole
 //     walk it drifts past what f32 products allow.
@@ -1613,10 +1623,17 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // 64 keys (K big and small, V, V^T big and small: 80 KB each); dk/dv at Dh
 // 64 holds its 64 keys' K and V (big and small: 64 KB), 2 stages of 32
 // queries (Q and dO in both majors, big and small: 64 KB each) and the
-// consumers' running dK and dV (32 KB).  Dh 32 takes 4 stages.
+// consumers' running dK and dV (32 KB); dq at Dh 64 holds Q and dO (128
+// rows, big and small: 128 KB) and 2 stages of 32 keys (K, V and K^T, big
+// and small: 6 x 8 KB = 48 KB each), 224 KB with 1.1 KB of barriers and
+// alignment, of the 227; 64-key stages (96 KB each) would leave one stage,
+// and 64 query rows with one consumer warpgroup (64 + 3 x 48 = 208 KB)
+// would transpose each K tile for half as many rows.  Dh 32 takes 4
+// stages.
 constexpr int kX3Keys = 64;     // keys a forward stage carries; keys a dk/dv block owns
 constexpr int kX3Queries = 32;  // queries a dk/dv stage carries
-constexpr int kX3Workers = 96;      // the forward's three worker warps, beside its producer warp
+constexpr int kX3DqKeys = 32;   // keys a dq stage carries
+constexpr int kX3Workers = 96;      // the forward's and dq's three worker warps, beside the producer warp
 constexpr int kX3DkvWorkers = 224;  // dk/dv's seven (one consumer warpgroup: the rest of the block)
 
 // the row of a tile that slot s of its transposed copy holds: within each
@@ -2155,6 +2172,201 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+template <int DH>
+struct X3DqSmem {
+  static constexpr int kHalves = DH / 32;
+  static constexpr int kStages = DH == 64 ? 2 : 4;
+  static constexpr int kQ = kWgBlock * 128 * kHalves;      // Q (or dO) of the block's rows, big or small
+  static constexpr int kTile = kX3DqKeys * 128 * kHalves;  // a K or V tile, big or small, or K^T (Dh rows)
+  static constexpr int kStage = 6 * kTile;                 // K, K small, V, V small, K^T big, K^T small
+  static constexpr int kStages0 = 4 * kQ;                  // Q, Q small, dO, dO small
+  static constexpr int kInfo = kStages0 + kStages * kStage;  // per stage: tile index, all keys valid
+  static constexpr int kValid = kInfo + kStages * 2 * static_cast<int>(sizeof(int));
+  static constexpr int kBars = kValid + kStages * kX3DqKeys;
+  static constexpr size_t kBytes = kBars + (3 * kStages + 2) * sizeof(uint64_t) + 1024;
+};
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    dq_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                     const float* __restrict__ mask, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq, Layout L) {
+  using S = X3DqSmem<DH>;
+  constexpr int NH = S::kHalves;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* base = align1024(smem_raw);
+  int* info = reinterpret_cast<int*>(base + S::kInfo);
+  uint8_t* kvalid = base + S::kValid;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S::kBars);
+  uint64_t* ready = full + S::kStages;
+  uint64_t* empty = ready + S::kStages;
+  uint64_t* qbar = empty + S::kStages;
+  uint64_t* qready = qbar + 1;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * kWgBlock;
+  const int ntiles = (L.n + kX3DqKeys - 1) / kX3DqKeys;
+  // under causal, key tiles wholly after the block's last row see none of it
+  const int nk = L.causal ? min(ntiles, (q0 + kWgBlock - 1) / kX3DqKeys + 1) : ntiles;
+  const int wg = threadIdx.x / 128;  // kWgConsumers: producer and workers
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&ready[s], kX3Workers);
+      hopper::mbar_init(&empty[s], 128 * kWgConsumers);
+    }
+    hopper::mbar_init(qbar, 1);
+    hopper::mbar_init(qready, kX3Workers);
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == kWgConsumers) {
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x % 128 < 32) {
+      // producer: Q and dO once, then K, V and their keys' validity per tile
+      const float* mrow = mask ? mask + static_cast<int64_t>(b) * L.n : nullptr;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(qbar, 2 * S::kQ);
+        for (int c = 0; c < NH; ++c) {
+          hopper::tma_load_4d(base + c * kWgBlock * 128, &tm_q, qbar, 32 * c, h, q0, b);
+          hopper::tma_load_4d(base + 2 * S::kQ + c * kWgBlock * 128, &tm_do, qbar, 32 * c, h, q0, b);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int key = kt * kX3DqKeys + lane;  // a key a lane: inside T and mask != 0
+        const bool valid = key < L.n && (mrow == nullptr || mrow[key] != 0.f);
+        if (!__any_sync(0xffffffffu, valid)) continue;  // no valid key: adds 0 to dq
+        const bool all = __all_sync(0xffffffffu, valid);
+        hopper::mbar_wait(&empty[stage], phase ^ 1);
+        kvalid[stage * kX3DqKeys + lane] = valid;
+        unsigned char* st = base + S::kStages0 + stage * S::kStage;
+        if (lane == 0) {
+          info[2 * stage] = kt;
+          info[2 * stage + 1] = all;
+          hopper::mbar_arrive_expect_tx(&full[stage], 2 * S::kTile);
+          for (int c = 0; c < NH; ++c) {
+            hopper::tma_load_4d(st + c * kX3DqKeys * 128, &tm_k, &full[stage], 32 * c, h, kt * kX3DqKeys, b);
+            hopper::tma_load_4d(st + 2 * S::kTile + c * kX3DqKeys * 128, &tm_v, &full[stage], 32 * c, h,
+                                kt * kX3DqKeys, b);
+          }
+        } else {
+          hopper::mbar_arrive(&full[stage]);
+        }
+        if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+      }
+      // the end of the walk: a stage with tile index -1 and no data
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      if (lane == 0) info[2 * stage] = -1;
+      hopper::mbar_arrive(&full[stage]);
+      return;
+    }
+    // workers: Q and dO into big and small once, then each stage's K into
+    // big and small in both majors and V into big and small
+    const int worker = threadIdx.x % 128 - 32;
+    hopper::mbar_wait(qbar, 0);
+    x3_split<kX3Workers>(base, base + S::kQ, S::kQ, worker);
+    x3_split<kX3Workers>(base + 2 * S::kQ, base + 3 * S::kQ, S::kQ, worker);
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive(qready);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (;;) {
+      hopper::mbar_wait(&full[stage], phase);
+      const int kt = info[2 * stage];
+      if (kt >= 0) {
+        unsigned char* st = base + S::kStages0 + stage * S::kStage;
+        x3_transpose<DH, kX3DqKeys, kX3Workers>(st, st + S::kTile, st + 4 * S::kTile, st + 5 * S::kTile, worker);
+        x3_split<kX3Workers>(st + 2 * S::kTile, st + 3 * S::kTile, S::kTile, worker);
+        hopper::fence_proxy_async();
+      }
+      hopper::mbar_arrive(&ready[stage]);
+      if (kt < 0) return;
+      if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+    }
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg .. + 63.  Per stage:
+  // S = Q K^T and dP = dO V^T (3xTF32), p = exp(s - lse) (0 on invalid
+  // pairs), dS = p (dP - delta), then the stage's dS K from dS's registers
+  // (K^T as the transposed B tile) into dt, added to dq in registers.  A
+  // warpgroup waits for each product; the two warpgroups fill each
+  // other's waits.
+  const int tid = threadIdx.x % 128, t = tid % 4;
+  const int row0 = q0 + 64 * wg, lo = row0 + tid / 32 * 16 + tid % 32 / 4, hi = lo + 8;
+  const int64_t stat0 = (static_cast<int64_t>(b) * L.heads + h) * L.n;
+  const float sl2 = L.scale * kLog2e;
+  // the rows' lse (times log2 e) and delta, once
+  const float lse_lo = lo < L.n ? lse[stat0 + lo] * kLog2e : 0.f, lse_hi = hi < L.n ? lse[stat0 + hi] * kLog2e : 0.f;
+  const float dl_lo = lo < L.n ? delta[stat0 + lo] : 0.f, dl_hi = hi < L.n ? delta[stat0 + hi] : 0.f;
+  const unsigned char* q_rows = base + 64 * wg * 128;  // this warpgroup's rows of each half
+  const unsigned char* do_rows = q_rows + 2 * S::kQ;
+  float acc[DH / 2], dt[DH / 2], s[16], dp[16];
+  uint32_t db[16], dsm[16];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  hopper::mbar_wait(qready, 0);
+  for (;;) {
+    hopper::mbar_wait(&ready[stage], phase);
+    const int kt = info[2 * stage];
+    if (kt < 0) break;
+    const unsigned char* st = base + S::kStages0 + stage * S::kStage;
+    const uint8_t* kv = kvalid + stage * kX3DqKeys;
+    const int key0 = kt * kX3DqKeys;
+    hopper::wgmma_fence();
+    x3_dot<DH>(s, q_rows, kWgBlock * 128, S::kQ, st, kX3DqKeys * 128, S::kTile);
+    x3_dot<DH>(dp, do_rows, kWgBlock * 128, S::kQ, st + 2 * S::kTile, kX3DqKeys * 128, S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    // no pair is invalid when every key is valid, every row inside T and
+    // (causal) the tile's last key at or before this warpgroup's first row
+    const bool fast = info[2 * stage + 1] != 0 && row0 + 63 < L.n && (!L.causal || key0 + kX3DqKeys - 1 <= row0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e, key = key0 + col, i = 4 * j + e;
+        float p_lo = exp2f(fmaf(s[i], sl2, -lse_lo));
+        float p_hi = exp2f(fmaf(s[i + 2], sl2, -lse_hi));
+        if (!fast) {
+          const bool k_in = kv[col] != 0;
+          p_lo = k_in && lo < L.n && (!L.causal || lo >= key) ? p_lo : 0.f;
+          p_hi = k_in && hi < L.n && (!L.causal || hi >= key) ? p_hi : 0.f;
+        }
+        x3_parts(p_lo * (dp[i] - dl_lo), db[i], dsm[i]);
+        x3_parts(p_hi * (dp[i + 2] - dl_hi), db[i + 2], dsm[i + 2]);
+      }
+    hopper::wgmma_fence();
+    x3_acc<4, DH>(dt, db, dsm, st + 4 * S::kTile, st + 5 * S::kTile);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dt);
+    hopper::fence_regs(db);
+    hopper::fence_regs(dsm);
+    hopper::mbar_arrive(&empty[stage]);
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) acc[i] += dt[i];
+    if (++stage == S::kStages) { stage = 0; phase ^= 1; }
+  }
+
+  const int64_t row_ld = static_cast<int64_t>(L.heads) * DH;
+  const int64_t obase = static_cast<int64_t>(b) * L.n * row_ld + static_cast<int64_t>(h) * DH;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? hi : lo;
+    if (row >= L.n) continue;
+    float2* dst = reinterpret_cast<float2*>(dq + obase + static_cast<int64_t>(row) * row_ld);
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      dst[4 * j + t] = make_float2(acc[4 * j + 2 * half] * L.scale, acc[4 * j + 2 * half + 1] * L.scale);
+  }
+}
+
 constexpr size_t rows_bytes(int dh) { return sizeof(bf16) * kTile * (dh + 8); }
 constexpr size_t fwd_mma_smem(int dh) { return 3 * rows_bytes(dh) + kTile; }
 constexpr size_t dq_mma_smem(int dh) { return 4 * rows_bytes(dh) + kTile; }
@@ -2300,6 +2512,25 @@ int dkv_tf32x3(const void* q, const void* k, const void* v, const float* mask, c
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DH>
+int dq_tf32x3(const void* q, const void* k, const void* v, const float* mask, const void* dout, const float* lse,
+              const float* delta, void* dq, int B, const Layout& L, cudaStream_t stream) {
+  using S = X3DqSmem<DH>;
+  CUtensorMap maps[4];
+  cudaError_t err = qkv_maps(maps, q, k, v, B, L, kWgBlock, kX3DqKeys, 4);
+  // dout is contiguous [B, T, H, Dh]
+  const long long row = static_cast<long long>(L.heads) * DH;
+  if (err == cudaSuccess && !aligned16(dout)) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess)
+    err = make_map_f32(&maps[3], dout, Strides{DH, row, row * L.n}, B, L.n, L.heads, DH, kWgBlock);
+  if (err == cudaSuccess) err = allow_smem(reinterpret_cast<const void*>(dq_tf32x3_kernel<DH>), S::kBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((L.n + kWgBlock - 1) / kWgBlock, L.heads, B);
+  dq_tf32x3_kernel<DH><<<grid, kWgThreads, S::kBytes, stream>>>(maps[0], maps[1], maps[2], maps[3], mask, lse,
+                                                                 delta, static_cast<float*>(dq), L);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DH>
 int fwd(const void* q, const void* k, const void* v, const float* mask, void* out, float* lse,
         int B, const Layout& L, cudaStream_t stream) {
@@ -2370,7 +2601,7 @@ int dh_pad(int Dh) { return Dh <= 0 ? 0 : Dh <= 32 ? 32 : Dh <= 64 ? 64 : Dh <= 
 // kernel_route): 0 the FMA kernels (f32; bf16 at Dh 128), 1 the mma.sync
 // kernels (bf16 up to Dh 64), 2 the wgmma/TMA kernels (bf16 at Dh 32 or
 // 64 on a layout TMA describes), 3 the 3xTF32 wgmma/TMA kernels (f32 at
-// Dh 32 or 64 on a layout TMA describes; the forward and dk/dv only)
+// Dh 32 or 64 on a layout TMA describes)
 constexpr int kRouteFma = 0, kRouteMma = 1, kRouteWgmma = 2, kRouteTf32x3 = 3;
 
 // the route the FMA/mma.sync dispatch below takes for (dtype, Dh)
@@ -2428,8 +2659,8 @@ int fused_attention_dq(int dtype, int route, const void* q, const void* k, const
                        int Dh, float scale, int causal, void* stream) {
   const Layout L = make_layout(sb, st, sh, T, H, Dh, scale, causal, {q, k, v, dout});
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteTf32x3) return static_cast<int>(cudaErrorInvalidValue);  // K10 has no 3xTF32 kernel
   if (route == kRouteWgmma) DISPATCH_WGMMA(dq_wgmma, q, k, v, mask, dout, lse, delta, dq, B, L, s);
+  if (route == kRouteTf32x3) DISPATCH_TF32X3(dq_tf32x3, q, k, v, mask, dout, lse, delta, dq, B, L, s);
   if (route != plain_route(dtype, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   DISPATCH(dq_launch, q, k, v, mask, dout, lse, delta, dq, B, L, s);
 }

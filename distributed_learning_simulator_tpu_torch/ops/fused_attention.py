@@ -26,10 +26,9 @@ route chosen before the launch, never a fallback):
 * ``"mma"``: bf16 at Dh <= 64 on any other layout (a ragged Dh such as
   20, a misaligned stride): ``mma.sync.m16n8k16`` on 64-row tiles;
 * ``"tf32x3"``: f32 at Dh 32 or 64 on a layout TMA can describe (the f32
-  long-context path's packed projections).  The forward and dk/dv run
+  long-context path's packed projections).  The forward, dq and dk/dv run
   Hopper kernels whose every f32 product is three TF32 products on
-  ``wgmma`` (big and small parts: f32 accuracy); dq has no such kernel
-  yet and runs the FMA kernel (:data:`STAND_IN`);
+  ``wgmma`` (big and small parts: f32 accuracy);
 * ``"fma"``: every other f32 call (a ragged Dh, Dh 128, a misaligned
   base or stride) and bf16 at Dh 128, on the f32 FMA units.
 
@@ -83,14 +82,8 @@ _DKV_ID = {"fused": "K8", "stream": "K11"}
 
 #: the kernel families, by the code the C entries take
 ROUTES = {"fma": 0, "mma": 1, "wgmma": 2, "tf32x3": 3}
-#: the family a kind of kernel runs where the layout's route has none of
-#: that kind: K10 (dq) has no 3xTF32 kernel yet, so f32 dq stays on FMA
-STAND_IN = {"dq": {"tf32x3": "fma"}}
 #: launches per kernel and route ("fwd/wgmma", ...) since last set to 0
-route_launches = {
-    f"{kind}/{route}": 0
-    for kind in ("fwd", "dq", "dkv") for route in ROUTES if route not in STAND_IN.get(kind, {})
-}
+route_launches = {f"{kind}/{route}": 0 for kind in ("fwd", "dq", "dkv") for route in ROUTES}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
@@ -169,8 +162,7 @@ def kernel_route(q, k, v, *others) -> str:
     contiguous ``[B, T, H, Dh]``): at Dh 32 or 64 where TMA can describe
     q, k, v (sharing their strides) and the others, ``"wgmma"`` for bf16
     and ``"tf32x3"`` for f32; ``"mma"`` for any other bf16 at Dh <= 64;
-    ``"fma"`` for every other call.  The forward and dk/dv run it; dq runs
-    :func:`family` ``("dq", route)``."""
+    ``"fma"`` for every other call.  The forward, dq and dk/dv all run it."""
     d = q.shape[-1]
     tma = (
         d in (32, 64) and k.stride() == q.stride() and v.stride() == q.stride()
@@ -183,18 +175,10 @@ def kernel_route(q, k, v, *others) -> str:
     return "wgmma" if tma else "mma"
 
 
-def family(kind: str, route: str) -> str:
-    """The family a ``kind`` of kernel (``"fwd"``, ``"dq"``, ``"dkv"``)
-    runs on a layout whose route is ``route``."""
-    return STAND_IN.get(kind, {}).get(route, route)
-
-
 def _named_route(route, kind: str = "fwd"):
-    """The route a caller named (checked: one with a kernel of this kind),
-    or None."""
-    if route is not None and (route not in ROUTES or route in STAND_IN.get(kind, {})):
-        choices = tuple(r for r in ROUTES if r not in STAND_IN.get(kind, {}))
-        raise ValueError(f"{kind} route must be one of {choices}, got {route!r}")
+    """The route a caller named (checked), or None."""
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"{kind} route must be one of {tuple(ROUTES)}, got {route!r}")
     return route
 
 
@@ -389,7 +373,7 @@ def _bwd_operands(q, dout, lse, delta):
 def attention_dq(q, k, v, kv_mask, dout, lse, delta, causal: bool = False, tier: str = "fused", route=None):
     """dq ``[B, T, H, Dh]`` from the forward's lse and ``delta``."""
     _check(q, k, v, kv_mask, tier, *_bwd_operands(q, dout, lse, delta))
-    route = _named_route(route, "dq") or family("dq", kernel_route(q, k, v, dout))
+    route = _named_route(route, "dq") or kernel_route(q, k, v, dout)
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, kv_mask, dout, lse, delta, causal)[0]
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)

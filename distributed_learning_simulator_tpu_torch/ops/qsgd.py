@@ -16,16 +16,20 @@ tensors and raise on anything they do not take; for CPU tensors they
 compute :func:`qsgd_encode_plain` and :func:`qsgd_decode_plain`, the same
 functions in plain PyTorch.  The random bits: a ``rand_bits`` argument
 (``[rows, 128]``, values below 2^32, the TPU interpreter's contract) when
-given; otherwise Philox bits drawn in the kernel on the card (counter =
-element index, key = seed; :func:`philox_fill` writes the same stream) and
-bits from a ``torch.Generator`` seeded with ``seed`` on the CPU.  Words
-are returned as int64 tensors holding u32 values (torch has little u32
-arithmetic); the card's kernels write int32 tensors of the same bits.
+given; otherwise Philox4x32-10 bits drawn in the kernel on the card (key
+= seed; element ``(row, column)`` takes word ``row % 4`` of the call whose
+counter is ``(row // 4) * 128 + column``, so one call serves four
+neighbouring rows of a column: :func:`philox_stream` is that stream in
+plain numpy, and :func:`philox_fill` writes it on the card) and bits from
+a ``torch.Generator`` seeded with ``seed`` on the CPU.  Words are returned
+as int64 tensors holding u32 values (torch has little u32 arithmetic); the
+card's kernels write int32 tensors of the same bits.
 """
 
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from . import build
@@ -57,11 +61,14 @@ def _library():
     if _bound is None:
         lib = build.load("qsgd")
         p, i, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_uint32
-        lib.qsgd_encode.argtypes = [p, i64, i64, u32, i, i, p, p, p, p]
-        lib.qsgd_encode_with_bits.argtypes = [p, i64, i64, p, i, i, p, p, p, p]
+        lib.qsgd_partials.argtypes = [i64]
+        lib.qsgd_encode.argtypes = [p, i64, i64, u32, i, i, p, p, p, p, p]
+        lib.qsgd_encode_with_bits.argtypes = [p, i64, i64, p, i, i, p, p, p, p, p]
+        lib.qsgd_encode_per_value.argtypes = [p, i64, i64, u32, i, i, p, p, p, p]
         lib.qsgd_decode.argtypes = [p, p, p, i, i, i64, p, p]
         lib.qsgd_philox_fill.argtypes = [i64, u32, p, p]
-        for fn in (lib.qsgd_encode, lib.qsgd_encode_with_bits, lib.qsgd_decode, lib.qsgd_philox_fill):
+        for fn in (lib.qsgd_partials, lib.qsgd_encode, lib.qsgd_encode_with_bits, lib.qsgd_encode_per_value,
+                   lib.qsgd_decode, lib.qsgd_philox_fill):
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -129,6 +136,39 @@ def qsgd_decode_plain(packed, signs, scale, level: int, bits: int, n: int) -> to
     return out.reshape(-1)[:n]
 
 
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def philox4x32(counter, seed: int) -> np.ndarray:
+    """Philox4x32-10 (Salmon et al., SC'11) of the counters ``counter``
+    (an array of values below 2^64, as ``(lo, hi, 0, 0)``) under key
+    ``(seed, 0)``: ``[len, 4]`` uint64 arrays of the four output words.
+    Each product of two 32-bit words is exact in uint64."""
+    counter = np.asarray(counter, dtype=np.uint64).reshape(-1)
+    mask = np.uint64(_MASK32)
+    c = [counter & mask, counter >> np.uint64(32), np.zeros_like(counter), np.zeros_like(counter)]
+    k0, k1 = int(seed) & _MASK32, 0
+    for _ in range(10):
+        p0, p1 = c[0] * np.uint64(_PHILOX_M[0]), c[2] * np.uint64(_PHILOX_M[1])
+        hi0, hi1 = p0 >> np.uint64(32), p1 >> np.uint64(32)
+        c = [hi1 ^ c[1] ^ np.uint64(k0), p1 & mask, hi0 ^ c[3] ^ np.uint64(k1), p0 & mask]
+        k0, k1 = (k0 + _PHILOX_W[0]) & _MASK32, (k1 + _PHILOX_W[1]) & _MASK32
+    return np.stack(c, axis=1)
+
+
+def philox_stream(seed: int, rows: int) -> torch.Tensor:
+    """The Philox bits :func:`qsgd_encode` draws on the card for ``seed``,
+    ``[rows, 128]`` int64 holding u32 values, in plain numpy: element
+    ``(row, column)`` takes word ``row % 4`` of counter ``(row // 4) * 128
+    + column``, so the bits of an element depend on ``(seed, row * 128 +
+    column)`` alone."""
+    groups = -(-rows // 4)
+    words = philox4x32(np.arange(groups * LANE, dtype=np.uint64), seed)  # [groups * 128, 4]
+    stream = words.reshape(groups, LANE, 4).transpose(0, 2, 1).reshape(groups * 4, LANE)[:rows]
+    return torch.from_numpy(stream.astype(np.int64))
+
+
 def generator_bits(seed: int, rows: int, device) -> torch.Tensor:
     """The CPU route's random bits: ``[rows, 128]`` values below 2^32 from
     a ``torch.Generator`` seeded with ``seed``."""
@@ -165,27 +205,24 @@ def qsgd_encode(x: torch.Tensor, seed: int, level: int, bits: int, rand_bits=Non
             rand_bits = generator_bits(seed, rows, x.device)
         return qsgd_encode_plain(x, level, bits, rand_bits)
     lanes = 32 // bits
+    lib = _library()
     packed = torch.empty(rows // lanes, LANE, dtype=torch.int32, device=x.device)
     signs = torch.empty(rows // 32, LANE, dtype=torch.int32, device=x.device)
-    amax = torch.zeros(1, dtype=torch.int32, device=x.device)
+    scale = torch.empty(1, dtype=torch.float32, device=x.device)
+    partials = torch.empty(lib.qsgd_partials(x.numel()), dtype=torch.float32, device=x.device)
+    outputs = (partials.data_ptr(), packed.data_ptr(), signs.data_ptr(), scale.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         if rand_bits is None:
-            err = _library().qsgd_encode(
-                x.data_ptr(), x.numel(), rows, int(seed) & _MASK32, level, bits,
-                amax.data_ptr(), packed.data_ptr(), signs.data_ptr(), stream,
-            )
+            err = lib.qsgd_encode(x.data_ptr(), x.numel(), rows, int(seed) & _MASK32, level, bits, *outputs, stream)
         else:
             bits_u32 = _u32_view(rand_bits.to(x.device))
-            err = _library().qsgd_encode_with_bits(
-                x.data_ptr(), x.numel(), rows, bits_u32.data_ptr(), level, bits,
-                amax.data_ptr(), packed.data_ptr(), signs.data_ptr(), stream,
-            )
+            err = lib.qsgd_encode_with_bits(x.data_ptr(), x.numel(), rows, bits_u32.data_ptr(), level, bits,
+                                            *outputs, stream)
     if err != 0:
         raise RuntimeError(f"qsgd encode launch failed: CUDA error {err}")
     with build.launch_lock:
         encode_launches += 1
-    scale = torch.clamp(amax.view(torch.float32), min=1e-12)
     return packed, signs, scale
 
 

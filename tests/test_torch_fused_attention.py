@@ -322,9 +322,10 @@ def test_kernel_route_follows_the_layout_rule(make, route, monkeypatch):
     dout = torch.zeros(q.shape, dtype=q.dtype)
     assert tfa.kernel_route(q, k, v) == route
     assert tfa.kernel_route(q, k, v, dout) == route
-    # dq has no 3xTF32 kernel: in f32 it runs the FMA kernel on every layout
-    assert tfa.family("dq", route) == ("fma" if route == "tf32x3" else route)
-    assert tfa.family("fwd", route) == tfa.family("dkv", route) == route
+    # the forward, dq and dk/dv each have a kernel on every route (no
+    # stand-in family for any kind), and each route's launches are counted
+    assert not hasattr(tfa, "family") and not hasattr(tfa, "STAND_IN")
+    assert all(f"{kind}/{route}" in tfa.route_launches for kind in ("fwd", "dq", "dkv"))
     # dq follows the same rule as dk/dv (no dq-specific family): its wrapper
     # asks kernel_route, with dout
     asked = []
@@ -367,9 +368,9 @@ def test_a_named_route_computes_the_same_function_on_the_cpu():
 
 
 def test_the_tf32x3_route_computes_the_plain_version_on_the_cpu():
-    """A named ``"tf32x3"`` route gives the forward's and dk/dv's plain
-    versions on CPU tensors; dq has no 3xTF32 kernel, so its wrapper
-    refuses that route and runs f32 on FMA without one."""
+    """A named ``"tf32x3"`` route gives the forward's, dq's and dk/dv's
+    plain versions on CPU tensors, and each kind's launches on that route
+    are counted (``"dq/tf32x3"`` among them)."""
     rng = np.random.default_rng(8)
     q, k, v = (x.copy_(torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)))
                for x in _packed(1, 96, 2, 64, torch.float32))
@@ -383,10 +384,10 @@ def test_the_tf32x3_route_computes_the_plain_version_on_the_cpu():
     want = tfa.attention_bwd_plain(q, k, v, mask, dout, lse, delta, causal=True)
     dk, dv = tfa.attention_dkv(q, k, v, mask, dout, lse, delta, causal=True, route="tf32x3")
     assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    dq = tfa.attention_dq(q, k, v, mask, dout, lse, delta, causal=True, route="tf32x3")
+    assert torch.equal(dq, want[0])
     assert torch.equal(tfa.attention_dq(q, k, v, mask, dout, lse, delta, causal=True), want[0])
-    with pytest.raises(ValueError, match="dq route"):
-        tfa.attention_dq(q, k, v, mask, dout, lse, delta, causal=True, route="tf32x3")
-    assert "dq/tf32x3" not in tfa.route_launches
+    assert {"fwd/tf32x3", "dq/tf32x3", "dkv/tf32x3"} <= set(tfa.route_launches)
     assert all(n == 0 for n in tfa.route_launches.values())  # the CPU path launches nothing
 
 
@@ -395,10 +396,10 @@ def test_tf32x3_products_keep_the_f32_check(monkeypatch, causal):
     """The 3xTF32 kernels' arithmetic (``chip_smoke.tf32_products_attention``:
     each f32 operand split into a TF32 big part, its low 13 mantissa bits
     dropped, and the rest; three TF32 products for each f32 product)
-    agrees with the JAX stream tier (K9 ``_fwd_stream``, K11
+    agrees with the JAX stream tier (K9 ``_fwd_stream``, K10 and K11
     ``_bwd_stream`` in interpret mode, T 384 walked in 3 x 3 blocks of
-    128) within ``chip_smoke.ATTN_TOL["float32"]`` on out, dk and dv; with
-    TF32 products alone (1xTF32) it fails that tolerance on each."""
+    128) within ``chip_smoke.ATTN_TOL["float32"]`` on out, dq, dk and dv;
+    with TF32 products alone (1xTF32) it fails that tolerance on each."""
     import chip_smoke
 
     monkeypatch.setattr(jfa, "_STREAM_BLK", 128)
@@ -406,13 +407,13 @@ def test_tf32x3_products_keep_the_f32_check(monkeypatch, causal):
     jout, jlse, jgrads = _jax_run(q, k, v, do, mask, causal, "stream", jnp.float32)
     tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
     lse = torch.from_numpy(np.array(jlse))
-    want = [torch.from_numpy(np.array(x)) for x in (jout, jgrads[1], jgrads[2])]
+    want = [torch.from_numpy(np.array(x)) for x in (jout, *jgrads)]
     delta = tfa.attention_delta(tdo, want[0])
     for passes in (3, 1):
         got = chip_smoke.tf32_products_attention(
             tq, tk, tv, torch.from_numpy(mask).float(), tdo, lse, delta, causal, passes
         )
-        for name, g, w in zip(("out", "dk", "dv"), got, want):
+        for name, g, w in zip(("out", "dq", "dk", "dv"), got, want):
             rel_max, rel_rms, ok = chip_smoke.attention_mismatch(g, w, "float32")
             assert ok == (passes == 3), (passes, name, rel_max, rel_rms)
 

@@ -135,6 +135,77 @@ def test_cpu_route_draws_from_a_seeded_generator():
     assert not torch.equal(a[0], c[0])
 
 
+# ------------------------------------------------------ the card's Philox stream
+def test_philox_matches_the_published_vector():
+    """``qsgd.philox4x32`` is Philox4x32-10: counter 0 under key 0 gives the
+    reference implementation's known answer (Random123's ``kat_vectors``)."""
+    words = qsgd.philox4x32([0], 0)[0]
+    assert [int(w) for w in words] == [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]
+
+
+@pytest.mark.parametrize("seed", [0, 7, 0xFFFFFFFF])
+def test_four_neighbouring_rows_share_one_philox_call(seed):
+    """Rows ``4g .. 4g + 3`` of column ``c`` take the four words of the call
+    whose counter is ``g * 128 + c``: at 8 bits a level word's four values
+    come from one call."""
+    rows = 40
+    stream = qsgd.philox_stream(seed, rows).numpy()
+    for g, c in [(0, 0), (0, 127), (3, 5), (9, 64)]:
+        words = qsgd.philox4x32([g * qsgd.LANE + c], seed)[0].astype(np.int64)
+        np.testing.assert_array_equal(stream[4 * g:4 * g + 4, c], words)
+    assert len(np.unique(stream)) > 0.99 * stream.size  # 32-bit draws: few repeats
+
+
+def test_philox_stream_depends_only_on_seed_and_index():
+    """The bits of element ``(row, column)`` do not depend on how many rows
+    the leaf has (a ragged row count included), and another seed gives
+    other bits."""
+    short, long = qsgd.philox_stream(3, 34), qsgd.philox_stream(3, 160)
+    assert short.shape == (34, qsgd.LANE) and short.dtype == torch.int64
+    assert torch.equal(short, long[:34])
+    assert int(long.min()) >= 0 and int(long.max()) < 1 << 32
+    assert (qsgd.philox_stream(4, 34) != short).float().mean() > 0.99
+
+
+@pytest.mark.parametrize("bits,level", [(3, 7), (5, 31), (7, 127), (8, 255)])
+def test_encode_with_the_philox_stream_is_bit_equal_to_jax(monkeypatch, bits, level):
+    """The card's stream (``qsgd.philox_stream``) fed to the port's plain
+    encode and to the JAX ``qsgd_encode`` (its interpreter path, with
+    ``jax.random.bits`` answering that stream) gives the same packed words,
+    signs and scale, at widths whose level words do and do not fill 32
+    bits."""
+    x = _leaf(70001, seed=bits)
+    seed, rows = 21, qsgd.rows_for(x.size, bits)
+    stream = qsgd.philox_stream(seed, rows)
+
+    def bits_of(key, shape, dtype):
+        assert tuple(shape) == (rows, qsgd.LANE)
+        return jnp.asarray(stream.numpy().astype(np.uint32))
+
+    monkeypatch.setattr(jax.random, "bits", bits_of)
+    jpacked, jsigns, jscale = pk.qsgd_encode.__wrapped__(jnp.asarray(x), seed=seed, level=level, bits=bits)
+    packed, signs, scale = qsgd.qsgd_encode_plain(torch.from_numpy(x), level, bits, stream)
+    np.testing.assert_array_equal(_words(packed), _words(jpacked))
+    np.testing.assert_array_equal(_words(signs), _words(jsigns))
+    assert scale.numpy().tobytes() == np.asarray(jscale, np.float32).tobytes()
+
+
+def test_encode_bound_counts_philox_at_one_call_per_four_values():
+    """``chip_smoke.py``'s K2 bound: the larger of the bytes, the f32
+    operations and Philox's integer operations (100 a call, one call per
+    four values, at 64 INT32 lanes an SM)."""
+    import chip_smoke
+
+    n, words = 2359296, 2359296 // 4 + 2359296 // 32
+    row = chip_smoke.encode_bound_ms(n, words)
+    terms = row["bound_terms_ms"]
+    assert terms["bytes"] == pytest.approx((4 * n + 4 * words + 4) / 3.35e12 * 1e3, rel=1e-12)
+    assert terms["f32"] == pytest.approx(6 * n / 67e12 * 1e3, rel=1e-12)
+    assert terms["int32"] == pytest.approx(100 * n / 4 / (64 * 132 * 1.98e9) * 1e3, rel=1e-12)
+    assert row["bound_ms"] == max(terms.values())
+    assert row["bound_by"] == ("bytes" if terms["bytes"] >= terms["int32"] else "operations")
+
+
 # ---------------------------------------------------------------- the codec
 def _jax_tree() -> dict[str, np.ndarray]:
     """A tree in the JAX package's keys: two leaves on the K2 route (one
