@@ -23,8 +23,9 @@
 //
 // Bound on the H100.  Encode reads n f32 values twice (the abs-max pass,
 // then the quantize pass: 8 bytes a value) and writes bits/8 + 1/8 bytes a
-// value; decode reads those and writes 4 bytes a value.  Both do a few f32
-// operations a byte, far below the card's ridge.  The encode's random bits
+// value; decode reads those (at 8 bits 1 + 1/8 bytes a value) and writes 4
+// bytes a value, so the bytes bound it.  Both do a few f32 operations a
+// byte, far below the card's ridge.  The encode's random bits
 // are integer work besides: Philox4x32-10 is about 100 integer
 // instructions a call (10 rounds of 2 mul.hi, 2 mul.lo, xors and key
 // additions), and one call makes four 32-bit words.  The design:
@@ -54,11 +55,27 @@
 //     and every word of it is used; the stream is a function of (seed,
 //     element index) alone, and qsgd_philox_fill writes the same stream,
 //     so the two entries can be held bit for bit;
-//   * decode: one thread per output element, the output cut to n.
-// The design this replaced (a Philox call for every value, keeping one of
-// its four words; an atomicOr for every negative value; the abs-max as an
-// atomicMax into a word the caller zeroed) stays below as
-// qsgd_encode_per_value, for chip_smoke.py to time beside it.
+//   * decode walks packed words, not values: a thread takes the level
+//     words of 4 neighbouring columns of one word-row (of 4 / lanes
+//     word-rows at 24 to 11 bits, so a thread has at least 16 values) in
+//     one 16-byte load each, and the matching sign words in one (two
+//     where a word's rows straddle two sign words: 3, 5, 6, 9 and 10
+//     bits), starts every load before it unpacks, and writes each of its
+//     rows as one 16-byte store of 4 neighbouring columns (a warp's store
+//     is 512 contiguous bytes of a row; scalar stores past n on the
+//     ragged last row).  Its index arithmetic is 32-bit on word-rows, one
+//     product by lanes a thread: lanes is a template parameter wherever
+//     it divides 32 (1, 2, 4, 7, 8 and 11 to 24 bits), and one generic
+//     instantiation takes lanes 3, 5, 6 and 10 at run time; the field
+//     width stays a run-time shift.  The step is computed once a thread,
+//     and the grid covers the leaf (no thread loops).
+// The designs these replaced stay below for chip_smoke.py to time beside
+// them: qsgd_encode_per_value (a Philox call for every value, keeping
+// one of its four words; an atomicOr for every negative value; the
+// abs-max as an atomicMax into a word the caller zeroed) and
+// qsgd_decode_per_value (a thread per value, a 64-bit division and
+// remainder by a run-time lanes for each, the grid capped at 1056
+// blocks).
 //
 // C interface (ctypes): every entry returns cudaGetLastError() after its
 // launches.  All pointers are device pointers; launches are asynchronous
@@ -73,6 +90,8 @@ constexpr int kLane = 128;
 constexpr int kMaxBits = 24;
 constexpr int kMaxSignRows = 5;  // lcm(32 / bits, 32) / 32 is at most 5 (3 or 6 bits)
 constexpr int kAbsmaxThreads = 256;
+constexpr int kDecodeThreads = 128;  // 4 warps: a decode unit each
+constexpr int kMaxGenericLanes = 10;  // 3 bits
 
 // Philox4x32-10 (Salmon et al., SC'11) of counter (lo, hi, 0, 0) of
 // `counter`, key (seed, 0): its four output words
@@ -218,10 +237,77 @@ __global__ void __launch_bounds__(kLane * EncodeShape<LANES>::kY)
     signs[(group * E::kSignRows + t) * kLane + l] = sign_part[t][l];
 }
 
-__global__ void decode_kernel(const uint32_t* __restrict__ packed,
-                              const uint32_t* __restrict__ signs,
-                              const float* __restrict__ scale, int level, int bits, int64_t n,
-                              float* __restrict__ out) {
+// K3's shape for LANES values a level word (0: 3, 5, 6 or 10, given at
+// run time): a thread decodes kWords consecutive word-rows of 4
+// neighbouring columns, kRows rows a word unrolled
+template <int LANES>
+struct DecodeShape {
+  static constexpr int kWords = LANES == 1 || LANES == 2 ? 4 / LANES : 1;
+  static constexpr int kRows = LANES == 0 ? kMaxGenericLanes : LANES;
+};
+
+// value (q * step) * (+-1) of the field at `shift` of `word`, signed by bit
+// `bit` of `sign_word`
+__device__ __forceinline__ float decode_value(uint32_t word, uint32_t sign_word, int shift, int bit, uint32_t mask,
+                                              float step) {
+  const uint32_t q = (word >> shift) & mask;
+  const float magnitude = __fmul_rn(static_cast<float>(static_cast<int32_t>(q)), step);
+  return __fmul_rn(magnitude, (sign_word >> bit) & 1u ? -1.0f : 1.0f);
+}
+
+// a unit is kWords word-rows x 128 columns, one warp: thread c4 takes
+// columns 4 c4 .. 4 c4 + 3.  packed, signs and out are 16-byte aligned.
+template <int LANES>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_word_kernel(const uint4* __restrict__ packed, const uint4* __restrict__ signs,
+                       const float* __restrict__ scale, int level, int bits, int generic_lanes, uint32_t units,
+                       int64_t n, float* __restrict__ out) {
+  using D = DecodeShape<LANES>;
+  const uint32_t lanes = LANES == 0 ? static_cast<uint32_t>(generic_lanes) : LANES;
+  const uint32_t t = blockIdx.x * kDecodeThreads + threadIdx.x;
+  const uint32_t unit = t >> 5, c4 = t & 31u;
+  if (unit >= units) return;
+  const uint32_t w0 = unit * D::kWords, row0 = w0 * lanes, s0 = row0 >> 5;
+  uint4 word[D::kWords];
+#pragma unroll
+  for (int k = 0; k < D::kWords; ++k) word[k] = __ldg(packed + (w0 + k) * 32u + c4);
+  const uint4 sign0 = __ldg(signs + s0 * 32u + c4);
+  const uint4 sign1 =
+      LANES == 0 && ((row0 + lanes - 1) >> 5) != s0 ? __ldg(signs + (s0 + 1) * 32u + c4) : sign0;
+  const float step = __fmul_rn(__ldg(scale), __fdiv_rn(1.0f, static_cast<float>(level)));
+  const uint32_t mask = (1u << bits) - 1u;
+#pragma unroll
+  for (int k = 0; k < D::kWords; ++k)
+#pragma unroll
+    for (int j = 0; j < D::kRows; ++j) {
+      if (LANES == 0 && j >= static_cast<int>(lanes)) break;
+      const uint32_t row = row0 + k * lanes + j;
+      const int b = static_cast<int>(row - (s0 << 5));  // the row's bit in sign0 (past 31: sign1)
+      const uint4 sw = LANES != 0 || b < 32 ? sign0 : sign1;
+      const int shift = j * bits, bit = b & 31;
+      const float4 v = make_float4(decode_value(word[k].x, sw.x, shift, bit, mask, step),
+                                   decode_value(word[k].y, sw.y, shift, bit, mask, step),
+                                   decode_value(word[k].z, sw.z, shift, bit, mask, step),
+                                   decode_value(word[k].w, sw.w, shift, bit, mask, step));
+      const int64_t at = static_cast<int64_t>(row) * kLane + 4 * c4;
+      if (at + 4 <= n) {
+        *reinterpret_cast<float4*>(out + at) = v;
+      } else {  // the ragged last row
+        if (at < n) out[at] = v.x;
+        if (at + 1 < n) out[at + 1] = v.y;
+        if (at + 2 < n) out[at + 2] = v.z;
+      }
+    }
+}
+
+// ------------------------------------------- the replaced decode design
+// A thread per value, its word-row and field from a 64-bit division and
+// remainder by the run-time lanes.  Reached only from chip_smoke.py,
+// which times it beside decode_word_kernel.
+__global__ void decode_per_value_kernel(const uint32_t* __restrict__ packed,
+                                        const uint32_t* __restrict__ signs,
+                                        const float* __restrict__ scale, int level, int bits, int64_t n,
+                                        float* __restrict__ out) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int lanes = 32 / bits;
   const uint32_t mask = (1u << bits) - 1u;
@@ -346,6 +432,27 @@ bool rows_fit(int64_t rows, int64_t n, int bits) {
   return rows % (lanes / gcd_c(lanes, 32) * 32) == 0 && rows * kLane >= n;
 }
 
+// the decode launch over the units that hold the first n values; the
+// caller has checked the layout (rows_fit, decode_fits)
+template <int LANES>
+void launch_decode(int lanes, const uint32_t* packed, const uint32_t* signs, const float* scale, int level, int bits,
+                   int64_t n, float* out, cudaStream_t stream) {
+  const int64_t unit_rows = DecodeShape<LANES>::kWords * static_cast<int64_t>(lanes);
+  const int64_t units = ((n + kLane - 1) / kLane + unit_rows - 1) / unit_rows;
+  const int64_t blocks = (units * 32 + kDecodeThreads - 1) / kDecodeThreads;
+  decode_word_kernel<LANES><<<static_cast<unsigned>(blocks), kDecodeThreads, 0, stream>>>(
+      reinterpret_cast<const uint4*>(packed), reinterpret_cast<const uint4*>(signs), scale, level, bits, lanes,
+      static_cast<uint32_t>(units), n, out);
+}
+
+// the decode's 32-bit word indices describe the leaf, and its 16-byte
+// loads and stores are aligned
+bool decode_fits(const void* packed, const void* signs, const float* out, int64_t rows, int bits) {
+  const bool aligned = reinterpret_cast<uintptr_t>(packed) % 16 == 0 && reinterpret_cast<uintptr_t>(signs) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  return aligned && rows / (32 / bits) * kLane <= UINT32_MAX;
+}
+
 int encode(const float* x, int64_t n, int64_t rows, const uint32_t* rand_bits, uint32_t seed, int level,
            int bits, float* partials, uint32_t* packed, uint32_t* signs, float* scale, cudaStream_t stream) {
   if (!bits_supported(bits) || !rows_fit(rows, n, bits)) return static_cast<int>(cudaErrorInvalidValue);
@@ -404,12 +511,35 @@ int qsgd_encode_per_value(const float* x, int64_t n, int64_t rows, uint32_t seed
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3: out [n] f32 from K2's packed levels, signs and scale ([1] f32).
-int qsgd_decode(const uint32_t* packed, const uint32_t* signs, const float* scale, int level,
-                int bits, int64_t n, float* out, void* stream) {
+// K3: out [n] f32 from K2's packed levels ([rows / (32 / bits), 128]
+// u32), signs ([rows / 32, 128] u32) and scale ([1] f32); packed, signs
+// and out 16-byte aligned.
+int qsgd_decode(const uint32_t* packed, const uint32_t* signs, const float* scale, int level, int bits, int64_t rows,
+                int64_t n, float* out, void* stream) {
+  if (!bits_supported(bits) || !rows_fit(rows, n, bits) || !decode_fits(packed, signs, out, rows, bits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return static_cast<int>(cudaGetLastError());
+  const int lanes = 32 / bits;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (lanes) {
+    case 32: launch_decode<32>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    case 16: launch_decode<16>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    case 8: launch_decode<8>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    case 4: launch_decode<4>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    case 2: launch_decode<2>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    case 1: launch_decode<1>(lanes, packed, signs, scale, level, bits, n, out, s); break;
+    default: launch_decode<0>(lanes, packed, signs, scale, level, bits, n, out, s);  // 10, 6, 5, 3
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The replaced K3 design (chip_smoke.py's yardstick): the same function,
+// a thread per value.
+int qsgd_decode_per_value(const uint32_t* packed, const uint32_t* signs, const float* scale, int level, int bits,
+                          int64_t n, float* out, void* stream) {
   if (!bits_supported(bits)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0)
-    decode_kernel<<<grid_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+    decode_per_value_kernel<<<grid_for(n, 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
         packed, signs, scale, level, bits, n, out);
   return static_cast<int>(cudaGetLastError());
 }

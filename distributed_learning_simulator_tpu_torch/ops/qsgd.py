@@ -65,10 +65,11 @@ def _library():
         lib.qsgd_encode.argtypes = [p, i64, i64, u32, i, i, p, p, p, p, p]
         lib.qsgd_encode_with_bits.argtypes = [p, i64, i64, p, i, i, p, p, p, p, p]
         lib.qsgd_encode_per_value.argtypes = [p, i64, i64, u32, i, i, p, p, p, p]
-        lib.qsgd_decode.argtypes = [p, p, p, i, i, i64, p, p]
+        lib.qsgd_decode.argtypes = [p, p, p, i, i, i64, i64, p, p]
+        lib.qsgd_decode_per_value.argtypes = [p, p, p, i, i, i64, p, p]
         lib.qsgd_philox_fill.argtypes = [i64, u32, p, p]
         for fn in (lib.qsgd_partials, lib.qsgd_encode, lib.qsgd_encode_with_bits, lib.qsgd_encode_per_value,
-                   lib.qsgd_decode, lib.qsgd_philox_fill):
+                   lib.qsgd_decode, lib.qsgd_decode_per_value, lib.qsgd_philox_fill):
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -241,9 +242,12 @@ def qsgd_decode(packed, signs, scale, level: int, bits: int, n: int) -> torch.Te
     packed, signs = _u32_view(packed), _u32_view(signs)
     scale = scale.to(torch.float32).contiguous()
     out = torch.empty(n, dtype=torch.float32, device=packed.device)
+    # the C entry refuses rows that are not rows_for's, more than 2^32 - 1
+    # level words (its word index is 32-bit) and a packed, signs or out
+    # that is not 16-byte aligned (its loads and stores are 16 bytes)
     with torch.cuda.device(packed.device):
         err = _library().qsgd_decode(
-            packed.data_ptr(), signs.data_ptr(), scale.data_ptr(), level, bits, n,
+            packed.data_ptr(), signs.data_ptr(), scale.data_ptr(), level, bits, rows, n,
             out.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
         )
     if err != 0:

@@ -68,9 +68,12 @@ def _leaf(n: int, seed: int = 0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------- K2 / K3
-#: the widths of the task (8, 4 and 2 bits) and two whose level words do not
-#: fill 32 bits (3 bits: 10 lanes, 160-row groups; 5 bits: 6 lanes, 96 rows)
-BITS_LEVELS = [(8, 255), (4, 15), (2, 3), (3, 7), (5, 31)]
+#: the widths of the task (8, 4 and 2 bits), four whose level words do not
+#: fill 32 bits (3 bits: 10 lanes, 160-row groups; 5 bits: 6 lanes, 96 rows;
+#: 6 bits: 5 lanes, 160 rows; 10 bits: 3 lanes, 96 rows: K3's generic
+#: instantiation) and two with fewer than 4 lanes (16 bits: 2; 24 bits: 1,
+#: the widest level f32 holds exactly)
+BITS_LEVELS = [(8, 255), (4, 15), (2, 3), (3, 7), (5, 31), (6, 63), (10, 1023), (16, 65535), (24, 16777215)]
 
 
 @pytest.mark.parametrize("n", [100, 1024, 5000, 65536, 70001, "zeros"])
@@ -204,6 +207,37 @@ def test_encode_bound_counts_philox_at_one_call_per_four_values():
     assert terms["int32"] == pytest.approx(100 * n / 4 / (64 * 132 * 1.98e9) * 1e3, rel=1e-12)
     assert row["bound_ms"] == max(terms.values())
     assert row["bound_by"] == ("bytes" if terms["bytes"] >= terms["int32"] else "operations")
+
+
+def test_decode_bound_counts_each_word_once():
+    """``chip_smoke.py``'s K3 bound: the larger of the bytes (each level and
+    sign word and the scale read once, each value written once) and the
+    f32 operations (3 a value); at the main leaf the bytes, 3.609 µs."""
+    import chip_smoke
+
+    n, words = 2359296, 2359296 // 4 + 2359296 // 32
+    row = chip_smoke.decode_bound_ms(n, words)
+    terms = row["bound_terms_ms"]
+    assert terms["bytes"] == pytest.approx((4 * words + 4 + 4 * n) / 3.35e12 * 1e3, rel=1e-12)
+    assert terms["f32"] == pytest.approx(3 * n / 67e12 * 1e3, rel=1e-12)
+    assert (row["bound_ms"], row["bound_by"]) == (terms["bytes"], "bytes")
+    assert row["bound_ms"] == pytest.approx(3.609e-3, rel=1e-3)
+    small = chip_smoke.decode_bound_ms(589824, 589824 // 4 + 589824 // 32)
+    assert small["bound_ms"] == pytest.approx(0.9023e-3, rel=1e-3)
+
+
+def test_chip_smoke_holds_every_decode_instantiation():
+    """``chip_smoke.py``'s K2/K3 cases reach each instantiation of K3's
+    kernel (lanes 32, 16, 8, 4, 2 and 1, and the generic one of lanes 10,
+    6, 5 and 3), each at a ragged and at a whole leaf size somewhere."""
+    import chip_smoke
+
+    lanes = {32 // bits for _, bits, _, _ in chip_smoke.QSGD_CASES}
+    assert lanes == {32, 16, 10, 8, 6, 5, 4, 3, 2, 1}
+    assert {n % 128 != 0 for n, _, _, _ in chip_smoke.QSGD_CASES} == {True, False}
+    assert chip_smoke.QSGD_MAIN in chip_smoke.QSGD_CASES and chip_smoke.QSGD_SMALL_LEAF in chip_smoke.QSGD_CASES
+    for n, bits, level, _ in chip_smoke.QSGD_CASES:
+        assert level == (1 << bits) - 1 and 1 <= bits <= qsgd.KERNEL_MAX_BITS
 
 
 # ---------------------------------------------------------------- the codec
