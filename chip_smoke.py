@@ -14,7 +14,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    build without spills, and their SASS (``cuobjdump -sass``) must hold
    ``HGMMA`` and ``UTMALDG``;
 2. hold each kernel against its plain PyTorch version on the card, at the
-   FedAvg ViT-small round's shapes (K1, K4, K5) and the fed_obd_sq path's
+   FedAvg ViT-small round's shapes (K1, K4, K5), the DenseNet-40 round's
+   K1 chunk (``[5, 578,090]`` f32) and the fed_obd_sq path's
    ``vit_base`` attention shape (K4, K5), at the long-context
    round's attention shape (K6-K8) and the f32 round's (K9-K11; also
    the f32 small task's), at the
@@ -39,7 +40,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    task's shape (1xTF32 products), and two at the largest codec leaf, must
    fail the same comparisons;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
-   where the kernels' plain versions run: ViT-small in f32, and a narrow
+   where the kernels' plain versions run: ViT-small in f32, DenseNet-40
+   (``conf/fed_avg/cifar10.yaml`` cut to 2 clients x 16 samples), and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
    stream tier, whose card run is the path of K9-K11 (launch counters set
    to 0 just before and read just after);
@@ -61,12 +63,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
    for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
    the count the protocol gives (``expected_qsgd_launches``), then a
-   shorter run of it under the profiler;
-5. one JSON line with every kernel's numbers, then, as the last line,
+   shorter run of it under the profiler; then ``conf/fed_avg/cifar10.yaml``
+   (DenseNet-40, 10 workers, 5 local epochs) as shipped but for ``round``
+   (2), and ``imdb.yaml``, ``imagenet.yaml`` and ``mnist.yaml`` for 1
+   round each, with K1's launches checked exactly, then one more
+   DenseNet-40 training round under the profiler;
+5. the script's wall time, one JSON line with every kernel's numbers, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
-TF32 is switched off for matrix products and convolutions, so f32 checks
-compare f32 arithmetic.  It exits non-zero without a result where
+Every ``train()`` call runs at the precision the port sets for itself
+(``utils/device.py``: TF32 off for f32 matrix products and convolutions),
+and phase 2's f32 checks run before any, on PyTorch's default of f32
+matrix products, so f32 checks compare f32 arithmetic.  It exits non-zero without a result where
 ``torch.cuda.is_available()`` is False or the port's package is missing.
 """
 
@@ -92,6 +100,12 @@ PHILOX_OPS = 100
 
 ROUNDS = 2
 WORKERS, SAMPLES, BATCH, CHUNK = 10, 512, 128, 2
+#: clients per K1 chunk on the shipped conf/fed_avg files: the session's
+#: default of 8, lowered to a divisor of their 10 workers
+CNN_CHUNK = 5
+#: the shipped files of the CNN zoo and the text classifier that 4d runs
+CNN_MAIN = "fed_avg/cifar10.yaml"
+CNN_EXTRA = ("fed_avg/imdb.yaml", "fed_avg/imagenet.yaml", "fed_avg/mnist.yaml")
 
 
 def check(cond: bool, message: str) -> None:
@@ -241,53 +255,78 @@ def dense_config(save_dir: str, **fields):
     return DistributedTrainingConfig(**base)
 
 
-def param_count() -> int:
+def param_count(model: str = "vit_small", dataset: str = "CIFAR10") -> int:
     import torch
 
     from distributed_learning_simulator_tpu_torch.data import create_dataset_collection
     from distributed_learning_simulator_tpu_torch.models import create_model_context
     from distributed_learning_simulator_tpu_torch.ops.pytree import ParamVecLayout
 
-    config = dense_config("", dataset_kwargs={"train_size": 8, "val_size": 8, "test_size": 8})
-    ctx = create_model_context("vit_small", create_dataset_collection(config), torch.device("cpu"))
+    config = dense_config(
+        "", dataset_name=dataset, dataset_kwargs={"train_size": 8, "val_size": 8, "test_size": 8}
+    )
+    ctx = create_model_context(model, create_dataset_collection(config), torch.device("cpu"))
     return ParamVecLayout.of(ctx.module.state_dict()).size
 
 
-def check_weighted_accum(d: int, gen) -> dict:
-    """K1 against its plain version: the round's [2, D] chunk in bf16 and
-    f32 (rows on a padded stride, as the session lays them out), an
-    unaligned stride, and a ragged small case."""
+def _k1_numbers(x, w, err: float, device_time: bool = False) -> dict:
+    """K1's row at one shape: kernel, plain version and ``w @ X``, and the
+    bound.  Times by CUDA events around calls back to back; with
+    ``device_time`` (a shape whose call costs the host more than the
+    card), ``ms``, ``plain_ms`` and ``library_ms`` are the profiler's
+    device time per call and the events' times are ``call_ms``,
+    ``plain_call_ms`` and ``library_call_ms``."""
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+
+    c, n = x.shape
+    bound, by = bound_ms(c * n * x.element_size() + 4 * c + 4 * n, 2 * c * n, "float32")
+    xd, wd = x.contiguous(), w.to(x.dtype)
+    calls = {
+        "ms": lambda: wa.weighted_accum(x, w),
+        "plain_ms": lambda: wa.weighted_accum_plain(x, w),
+        "library_ms": lambda: wd @ xd,
+    }
+    row = {"max_abs_err": err, "bound_ms": bound, "bound_by": by}
+    for key, fn in calls.items():
+        row[key] = cuda_ms(fn)
+        if device_time:
+            row[key.replace("ms", "call_ms")] = row[key]
+            names = ("weighted_accum_kernel",) if key == "ms" else None
+            row[key] = kernel_device_ms(fn, names)
+    dtype = {"torch.bfloat16": "bf16", "torch.float32": "f32"}[str(x.dtype)]
+    return {**row, "shape": f"[{c}, {n}] {dtype}"}
+
+
+def check_weighted_accum(d: int, d_cnn: int, gen) -> dict:
+    """K1 against its plain version: the ViT round's [2, D] chunk in bf16
+    and f32 and the DenseNet-40 round's [5, D] chunk in f32 (rows on a
+    padded stride, as the session lays them out), an unaligned stride, and
+    a ragged small case.  The row's numbers are the ViT chunk's in bf16;
+    ``densenet40`` holds the DenseNet chunk's, by device time."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
-    row_stride = -(-d // 64) * 64
     result = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for c, n, ld in ((CHUNK, d, row_stride), (CHUNK, d, d), (3, 1001, 1003)):
-            x = torch.randn(c, ld, generator=gen, device="cuda").to(dtype)[:, :n]
-            w = torch.rand(c, generator=gen, device="cuda") * SAMPLES
-            out, ref = wa.weighted_accum(x, w), wa.weighted_accum_plain(x, w)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            # f32 accumulation of exact row values in the same order; fma
-            # versus multiply-then-add moves the last bit or two
-            tol = 1e-6 * max(1.0, float(ref.abs().max()))
-            print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}: max_abs_err {err:.3g} (tol {tol:.3g})")
-            check(err <= tol, f"weighted_accum {dtype} [{c},{n}] err {err}")
-            if (n, ld) == (d, row_stride) and dtype == torch.bfloat16:
-                itemsize = x.element_size()
-                bound, by = bound_ms(c * n * itemsize + 4 * c + 4 * n, 2 * c * n, "float32")
-                xd = x.contiguous()
-                result = {
-                    "max_abs_err": err,
-                    "ms": cuda_ms(lambda: wa.weighted_accum(x, w)),
-                    "plain_ms": cuda_ms(lambda: wa.weighted_accum_plain(x, w)),
-                    "bound_ms": bound,
-                    "bound_by": by,
-                    "library_ms": cuda_ms(lambda: w.to(dtype) @ xd),
-                    "shape": f"[{c}, {n}] bf16",
-                }
+    row_stride = -(-d // 64) * 64
+    cases = [(dtype, c, n, ld) for dtype in (torch.bfloat16, torch.float32)
+             for c, n, ld in ((CHUNK, d, row_stride), (CHUNK, d, d), (3, 1001, 1003))]
+    cases.append((torch.float32, CNN_CHUNK, d_cnn, -(-d_cnn // 64) * 64))
+    for dtype, c, n, ld in cases:
+        x = torch.randn(c, ld, generator=gen, device="cuda").to(dtype)[:, :n]
+        w = torch.rand(c, generator=gen, device="cuda") * SAMPLES
+        out, ref = wa.weighted_accum(x, w), wa.weighted_accum_plain(x, w)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        # f32 accumulation of exact row values in the same order; fma
+        # versus multiply-then-add moves the last bit or two
+        tol = 1e-6 * max(1.0, float(ref.abs().max()))
+        print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}: max_abs_err {err:.3g} (tol {tol:.3g})")
+        check(err <= tol, f"weighted_accum {dtype} [{c},{n}] err {err}")
+        if (dtype, c, n, ld) == (torch.bfloat16, CHUNK, d, row_stride):
+            result.update(_k1_numbers(x, w, err))
+        elif (c, n) == (CNN_CHUNK, d_cnn):
+            result["densenet40"] = _k1_numbers(x, w, err, device_time=True)
     return result
 
 
@@ -968,37 +1007,32 @@ def check_planted_faults(gen) -> None:
         print(f"planted fault at the main shape, a kernel that {plant}: relative max/rms {', '.join(rel)} (rejected)")
 
 
-def check_small_task_against_cpu(workdir: str) -> None:
-    """A small f32 FedAvg task (ViT-small, 2 clients x 32 samples, 1 round)
-    from one init, on the card (kernels) and on the CPU (plain versions)."""
+def shipped_config(name: str, save_dir: str, **overrides):
+    """``conf/<name>`` through the port's CLI loader (``load_config``) with
+    ``++key=value`` overrides (dotted keys), its output under ``save_dir``."""
+    from distributed_learning_simulator_tpu_torch.config import load_config
+
+    argv = ["--config-name", name, f"++save_dir={save_dir}", f"++log_file={os.path.join(save_dir, 'train.log')}"]
+    return load_config(argv + [f"++{key}={value}" for key, value in overrides.items()])
+
+
+def check_small_task_against_cpu(workdir: str, label: str, make_config) -> None:
+    """A small f32 FedAvg task from one init (the port's own, seed 0,
+    through the bridge), on the card (kernels) and on the CPU (plain
+    versions), each run by ``train()`` at the precision it sets.
+    ``make_config(save_dir, **algorithm_kwargs)`` builds the task."""
     import numpy as np
     import torch
 
-    from distributed_learning_simulator_tpu_torch.data import create_dataset_collection
-    from distributed_learning_simulator_tpu_torch.engine.engine import ComputeEngine
-    from distributed_learning_simulator_tpu_torch.engine.hyper_parameter import HyperParameter
-    from distributed_learning_simulator_tpu_torch.models import convert, create_model_context
-    from distributed_learning_simulator_tpu_torch.training import train
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
 
-    small = dict(
-        worker_number=2,
-        batch_size=16,
-        round=1,
-        learning_rate=0.05,
-        use_amp=False,
-        dataset_kwargs={"train_size": 64, "val_size": 16, "test_size": 32},
-    )
-    init = os.path.join(workdir, "init.npz")
-    config = dense_config(os.path.join(workdir, "init"), **small)
-    ctx = create_model_context("vit_small", create_dataset_collection(config), torch.device("cpu"))
-    np.savez(init, **convert.to_jax(ComputeEngine(ctx, HyperParameter(), 1).init_params(0)))
+    init = os.path.join(workdir, f"{label}_init.npz")
+    session = build_session(make_config(os.path.join(workdir, f"{label}_init")), device="cpu")
+    np.savez(init, **convert.to_jax(session.engine.init_params(0)))
     results = {}
     for device in ("cuda", "cpu"):
-        cfg = dense_config(
-            os.path.join(workdir, device),
-            algorithm_kwargs={"client_chunk": CHUNK, "global_model_path": init},
-            **small,
-        )
+        cfg = make_config(os.path.join(workdir, f"{label}_{device}"), global_model_path=init)
         perf = train(cfg, device=device)["performance"][1]
         with np.load(os.path.join(cfg.save_dir, "aggregated_model", "round_1.npz")) as blob:
             results[device] = (perf, {k: blob[k] for k in blob.files})
@@ -1006,13 +1040,39 @@ def check_small_task_against_cpu(workdir: str) -> None:
     param_err = max(float(np.abs(gpu_params[k] - cpu_params[k]).max()) for k in cpu_params)
     loss_rel = abs(gpu_perf["test_loss"] - cpu_perf["test_loss"]) / abs(cpu_perf["test_loss"])
     print(
-        f"small task card vs CPU: test loss {gpu_perf['test_loss']:.6f} vs {cpu_perf['test_loss']:.6f}"
-        f" (rel {loss_rel:.2g}), accuracy {gpu_perf['test_accuracy']} vs"
-        f" {cpu_perf['test_accuracy']}, max |param diff| {param_err:.3g}"
+        f"small task ({label}) card vs CPU: test loss {gpu_perf['test_loss']:.6f} vs"
+        f" {cpu_perf['test_loss']:.6f} (rel {loss_rel:.2g}), accuracy {gpu_perf['test_accuracy']} vs"
+        f" {cpu_perf['test_accuracy']}, max |param diff| {param_err:.3g}; TF32 for f32 convolutions"
+        f" {torch.backends.cudnn.allow_tf32}, matmuls {torch.backends.cuda.matmul.allow_tf32}"
     )
-    # f32 on both (TF32 off); 4 SGD steps of a 12-layer model in other
+    # f32 on both (train() keeps TF32 off); a few SGD steps in other
     # summation orders
-    check(loss_rel <= 1e-3 and param_err <= 1e-3, "small task: card and CPU disagree")
+    check(loss_rel <= 1e-3 and param_err <= 1e-3, f"small task ({label}): card and CPU disagree")
+
+
+def vit_small_task(save_dir: str, **algorithm_kwargs):
+    """ViT-small in f32, 2 clients x 32 samples, 1 round."""
+    return dense_config(
+        save_dir,
+        worker_number=2,
+        batch_size=16,
+        round=1,
+        learning_rate=0.05,
+        use_amp=False,
+        dataset_kwargs={"train_size": 64, "val_size": 16, "test_size": 32},
+        algorithm_kwargs={"client_chunk": CHUNK, **algorithm_kwargs},
+    )
+
+
+def densenet_small_task(save_dir: str, **algorithm_kwargs):
+    """``conf/fed_avg/cifar10.yaml`` (DenseNet-40, growth rate 12, f32) cut
+    to 2 clients x 16 samples, 2 local epochs (the best-epoch validation
+    runs), 1 round."""
+    sizes = {"train_size": 32, "val_size": 16, "test_size": 32}
+    overrides = {"round": 1, "epoch": 2, "worker_number": 2, "batch_size": 16}
+    overrides.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
+    overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+    return shipped_config(CNN_MAIN, save_dir, **overrides)
 
 
 def _kernel_group(name: str) -> str:
@@ -1025,12 +1085,18 @@ def _kernel_group(name: str) -> str:
     if any(k in name for k in ("fwd_kernel", "dq_kernel", "dkv_kernel", "short_fwd_wgmma_kernel",
                                "short_bwd_wgmma_kernel", "weighted_accum_kernel")):
         return "port kernels (K1, K4, K5)"
+    # before the GEMMs: cuDNN's convolutions are implicit GEMMs (xmma_fprop, ...)
+    if any(k in name.lower() for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad", "implicit")):
+        return "convolutions (cuDNN)"
     if any(k in name.lower() for k in ("gemm", "xmma", "cutlass", "cublas", "gemv", "nvjet")):
         return "matrix products (cuBLAS)"
-    if any(k in name.lower() for k in ("conv", "cudnn")):
-        return "patch convolution (cuDNN)"
-    if "layer_norm" in name.lower() or "gammabeta" in name.lower():
-        return "layer norm"
+    # GroupNorm's and LayerNorm's kernels share names (GammaBeta...); no
+    # path runs both
+    if any(k in name.lower() for k in ("layer_norm", "gammabeta", "rowwisemoments", "fusedparams",
+                                       "internalgradients")):
+        return "norms (LayerNorm, GroupNorm)"
+    if "CatArray" in name:
+        return "concatenation (torch.cat)"
     return "elementwise, reductions, copies"
 
 
@@ -1803,6 +1869,75 @@ def profile_obd_run(workdir: str, run_s: float) -> None:
     _profiled(lambda: run_task(ctx), " (fed_obd_sq)", alone, "run of 1 round + 2 tuning epochs", host_ops=12)
 
 
+# ------------------------------------------- the shipped conf/fed_avg files
+def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
+    """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40) as shipped
+    but for ``round`` (2), then on ``imdb.yaml`` (the text classifier),
+    ``imagenet.yaml`` (ResNet-18) and ``mnist.yaml`` (LeNet5) for 1 round
+    each, at full width; checks each run's K1 launches exactly (a chunk of
+    ``CNN_CHUNK`` clients at a time) and that no other kernel ran.
+    Returns the launches of all four runs and the CIFAR-10 round-2 time."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    _reset_launches()
+    total, round_seconds = {}, 0.0
+    for name, rounds in ((CNN_MAIN, ROUNDS), *((extra, 1) for extra in CNN_EXTRA)):
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds)
+        before = _read_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases, still alive
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        total = _read_launches()
+        moved = {kid: total[kid] - before[kid] for kid in total}
+        last = perf[config.round]
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        if name == CNN_MAIN:
+            round_seconds = last["round_seconds"]
+        print(
+            f"main path {name} ({config.model_name}, {config.worker_number} workers, batch"
+            f" {config.batch_size}, {config.epoch} epochs): {config.round} rounds in {wall:.2f} s (setup"
+            f" included); round {config.round} {last['round_seconds']:.3f} s; test loss"
+            f" {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f} over {last['test_count']:.0f};"
+            f" peak memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {moved}"
+        )
+        for r, row in perf.items():
+            check(np.isfinite(row["test_loss"]), f"{name} round {r} test loss {row['test_loss']}")
+            check(0.0 <= row["test_accuracy"] <= 1.0, f"{name} round {r} accuracy {row['test_accuracy']}")
+        want = config.round * config.worker_number // CNN_CHUNK
+        check(moved["K1"] == want, f"{name} K1 launches {moved['K1']}, want {want}")
+        others = [kid for kid, n in moved.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
+    return total, round_seconds
+
+
+def profile_cnn_round(workdir: str, round_seconds: float) -> None:
+    """Where a DenseNet-40 round's time goes: in a fresh session on the
+    warm process, one training round timed alone, then one under the
+    profiler."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    session = build_session(shipped_config(CNN_MAIN, os.path.join(workdir, "cnn_profile"), round=1))
+    vec = session._init_global_params()
+    weights = session._base_weight_row(1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    session.run_round(vec, weights)
+    torch.cuda.synchronize()
+    alone = (
+        f"main path round {ROUNDS} (eval included) {round_seconds:.3f} s; training round (no eval)"
+        f" {time.monotonic() - t0:.3f} s alone"
+    )
+    _profiled(lambda: session.run_round(vec, weights), " (DenseNet-40)", alone, "training round (no eval)", host_ops=10)
+
+
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1824,8 +1959,11 @@ def main(argv: list[str]) -> int:
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
     from distributed_learning_simulator_tpu_torch.training import train
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    started = time.monotonic()
+    # phase 2's f32 checks compare f32 arithmetic: PyTorch's default for
+    # matmuls; every train() call then sets the port's precision itself
+    # (utils/device.py: TF32 off for f32 matmuls and convolutions)
+    check(not torch.backends.cuda.matmul.allow_tf32, "f32 matmuls default to TF32 in this PyTorch")
     card = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}")
 
@@ -1843,7 +1981,7 @@ def main(argv: list[str]) -> int:
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = param_count()
-    k1 = check_weighted_accum(d, gen)
+    k1 = check_weighted_accum(d, param_count("densenet40"), gen)
     k4, k5 = check_short_attention(gen)
     fused = check_fused_attention(gen)
     check_tf32x3_refuses_a_misaligned_base(gen)
@@ -1857,7 +1995,8 @@ def main(argv: list[str]) -> int:
     # 3. small tasks on the card against the CPU
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "session"))
-    check_small_task_against_cpu(workdir)
+    check_small_task_against_cpu(workdir, "ViT-small", vit_small_task)
+    check_small_task_against_cpu(workdir, "DenseNet-40", densenet_small_task)
     stream_launches = check_long_context_f32_against_cpu(workdir)
 
     # 4. the main path
@@ -1905,6 +2044,11 @@ def main(argv: list[str]) -> int:
     launches["K4"] += obd_launches["K4"]
     launches["K5"] += obd_launches["K5"]
 
+    # 4d. the shipped conf/fed_avg files (K1) and a profiled DenseNet-40 round
+    cnn_launches, cnn_round = run_shipped_configs(workdir)
+    profile_cnn_round(workdir, cnn_round)
+    launches["K1"] += cnn_launches["K1"]
+
     # 5. the record
     src = f"{PACKAGE}/csrc"
     rows = [
@@ -1934,6 +2078,7 @@ def main(argv: list[str]) -> int:
          "launches": launches[kid], "status": "ok", **numbers}
         for name, kid, source, replaces, numbers in rows
     ]
+    print(f"chip_smoke wall time: {time.monotonic() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)
     print(json.dumps({"ok": True, "device": {

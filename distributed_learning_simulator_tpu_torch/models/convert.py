@@ -8,8 +8,9 @@ same path joined by ``.``.  Per leaf:
 * Dense kernel ``[in, out]``  <->  Linear weight ``[out, in]``;
 * DenseGeneral ``qkv`` kernel ``[D, 3, H, Dh]``  <->  packed projection
   weight ``[3, H, Dh, D]`` (its bias ``[3, H, Dh]`` unchanged);
-* Conv kernel HWIO            <->  Conv2d weight OIHW;
-* LayerNorm ``scale``         <->  ``weight`` (``bias`` stays ``bias``);
+* Conv kernel HWIO            <->  Conv2d weight OIHW (a bias, where the
+  convolution has one, unchanged);
+* LayerNorm and GroupNorm ``scale``  <->  ``weight`` (``bias`` stays ``bias``);
 * anything else (``pos_embed``, ``Embed_0/embedding``) unchanged.
 
 A 4-d kernel is a convolution unless its module is named ``qkv`` (the

@@ -18,8 +18,6 @@ Submodules carry the flax names (``Embed_0``, ``LongContextEncoderLayer_i``,
 bridge is a transpose both ways.  Dropout follows ``models/dropout.py``.
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -27,29 +25,11 @@ from torch import nn
 from ..ops.fused_attention import fused_attention, kernel_eligible
 from ..parallel.ring_attention import dense_attention
 from .dropout import Dropout
+from .layers import Embed, lecun_normal_
 from .registry import ModelContext, register_model
 from .text import masked_mean_pool, sinusoidal_positions
 
 _LN_EPS = 1e-6  # flax LayerNorm
-_TRUNC_STD = 0.87962566103423978  # stddev of a unit normal truncated to [-2, 2]
-
-
-def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
-    """flax's lecun-normal: a normal truncated at two deviations, scaled
-    to variance ``1 / fan_in``, drawn on the CPU."""
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-    w = torch.empty(weight.shape)
-    nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-    weight.copy_(w)
-
-
-class Embed(nn.Module):
-    def __init__(self, vocab_size: int, d_model: int) -> None:
-        super().__init__()
-        self.embedding = nn.Parameter(torch.zeros(vocab_size, d_model))
-
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding)
 
 
 class PackedQKV(nn.Module):
@@ -158,13 +138,13 @@ class LongContextTransformer(nn.Module):
         biases, unit LayerNorm scales."""
         for module in self.modules():
             if isinstance(module, nn.Linear):
-                _lecun_normal_(module.weight, module.weight.shape[1], generator)
+                lecun_normal_(module.weight, module.weight.shape[1], generator)
                 module.bias.zero_()
             elif isinstance(module, PackedQKV):
-                _lecun_normal_(module.weight, module.weight.shape[-1], generator)
+                lecun_normal_(module.weight, module.weight.shape[-1], generator)
                 module.bias.zero_()
             elif isinstance(module, Embed):
-                _lecun_normal_(module.embedding, module.embedding.shape[1], generator)
+                lecun_normal_(module.embedding, module.embedding.shape[1], generator)
             elif isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()

@@ -15,19 +15,16 @@ Dropout draws from the generator passed to ``forward``
 (``models/dropout.py``).
 """
 
-import math
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from .attention import FusedSelfAttention
 from .dropout import Dropout
+from .layers import init_flax_
 from .registry import ModelContext, example_batch, register_model
 
 _LN_EPS = 1e-6
-# stddev of a unit normal truncated to [-2, 2] (flax's lecun_normal divisor)
-_TRUNC_STD = 0.87962566103423978
 
 
 class MlpBlock(nn.Module):
@@ -98,20 +95,9 @@ class VisionTransformer(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
-        """flax's initialisers, drawn on the CPU from ``generator``:
-        lecun-normal (truncated) kernels, zero biases, unit LayerNorm
-        scales, ``pos_embed ~ N(0, 0.02)``."""
-        for module in self.modules():
-            if isinstance(module, nn.Linear | nn.Conv2d):
-                fan_in = module.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-                w = torch.empty(module.weight.shape)
-                nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=generator)
-                module.weight.copy_(w)
-                module.bias.zero_()
-            elif isinstance(module, nn.LayerNorm):
-                module.weight.fill_(1.0)
-                module.bias.zero_()
+        """flax's initialisers (``models/layers.py``), then
+        ``pos_embed ~ N(0, 0.02)``."""
+        init_flax_(self, generator)
         pos = torch.empty(self.pos_embed.shape).normal_(0.0, 0.02, generator=generator)
         self.pos_embed.copy_(pos)
 

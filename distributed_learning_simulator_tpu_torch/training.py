@@ -132,7 +132,11 @@ def _prepare(config: DistributedTrainingConfig, practitioners, device) -> _Prepa
         practitioners = create_practitioners(config, dataset_collection)
     if len(practitioners) != config.worker_number:
         raise ValueError(f"{len(practitioners)} practitioners for {config.worker_number} workers")
-    model_kwargs = {k: v for k, v in config.model_kwargs.items() if k not in _LAYOUT_KWARGS}
+    # as the JAX package's _build_task: the sharding kwargs stop here, the
+    # model sees pipeline_stages (the text classifier refuses any nonzero)
+    model_kwargs = {
+        k: v for k, v in config.model_kwargs.items() if k not in ("sequence_parallel", "expert_parallel")
+    }
     model_ctx = create_model_context(config.model_name, dataset_collection, device=target, **model_kwargs)
     if config.use_amp:
         # bf16 compute; the f32 master is cast per step (threaded) or once
