@@ -1,7 +1,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py              # everything below
-    python3 chip_smoke.py --kernels    # phase 1, and phase 2 of K1 and K4-K11 only
+    python3 chip_smoke.py --kernels    # phases 1-2 only, with the yardsticks
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -24,27 +24,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain numpy version), and at the edge shapes
    the kernels must cover (K2/K3 at 1 to 24 bits), and time
    kernel (K2-K5: their device time from the profiler, since a wrapper
-   call's host cost is of its size; K4's and K5's yardsticks too), plain
-   version, bound and one library call where one exists (a yardstick
-   only: the port never calls it); K4, K5 and K6-K11 also check which
-   kernel each case ran (``short_attention.fwd_route`` / ``bwd_route``:
-   wgmma or FMA; ``kernel_route``: wgmma, mma.sync, 3xTF32, FMA), time
-   the kernels the Hopper ones replaced beside them (the FMA K4 and K5,
-   the mma.sync K6/K7/K8, the FMA K9/K10/K11, K2's encode with a Philox
-   call a value, K3's thread a value, at the largest leaf and K3's also
-   at the path's smallest large leaf; K2 with given bits too), print the
-   kernels SDPA's f32 forward and backward launch, and show the C
-   entries refusing the wgmma and 3xTF32 routes off their layouts;
-   faults planted at the ViT-small
+   call's host cost is of its size), plain version, bound and one library
+   call where one exists (a yardstick only: the port never calls it); K4,
+   K5 and K6-K11 also check which kernel each case ran
+   (``short_attention.fwd_route`` / ``bwd_route``: wgmma or FMA;
+   ``kernel_route``: wgmma, mma.sync, 3xTF32, FMA; both bf16 families at
+   Dh 32), and show the C entries refusing the wgmma and 3xTF32 routes
+   off their layouts; faults planted at the ViT-small
    shape (two: K4 and K5), the main attention shape (two) and the f32
    task's shape (1xTF32 products), and two at the largest codec leaf, must
-   fail the same comparisons;
+   fail the same comparisons.  ``--kernels`` adds the yardsticks: the
+   kernels the Hopper ones replaced, timed beside them (the FMA K4 and
+   K5, the mma.sync K6/K7/K8, the FMA K9/K10/K11, both bf16 families at
+   Dh 32, K2's encode with a Philox call a value, K3's thread a value, at
+   the largest leaf and K3's also at the path's smallest large leaf; K2
+   with given bits and its two passes apart), the calls back to back and
+   K5's host cost, and the kernels SDPA's f32 forward and backward launch;
 3. small FedAvg tasks on the card against the same tasks on the CPU,
    where the kernels' plain versions run: ViT-small in f32, DenseNet-40
    (``conf/fed_avg/cifar10.yaml`` cut to 2 clients x 16 samples), and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
    stream tier, whose card run is the path of K9-K11 (launch counters set
-   to 0 just before and read just after);
+   to 0 just before and read just after); and a DenseNet-40 fed_obd task
+   (``conf/fed_obd/cifar10.yaml`` cut to 2 clients x 16 samples, 1 round
+   and 1 tuning epoch), held aggregate by aggregate in lockstep and run
+   whole (``check_obd_task_against_cpu``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -67,9 +71,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (DenseNet-40, 10 workers, 5 local epochs) as shipped but for ``round``
    (2), and ``imdb.yaml``, ``imagenet.yaml`` and ``mnist.yaml`` for 1
    round each, with K1's launches checked exactly, then one more
-   DenseNet-40 training round under the profiler;
-5. the script's wall time, one JSON line with every kernel's numbers, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   DenseNet-40 training round under the profiler; then (4e) the SPMD
+   session on the source paper's method as shipped but for ``round`` and
+   ``second_phase_epoch`` (``SPMD_OBD_RUNS``: ``conf/fed_obd/cifar10.yaml``
+   for 2 rounds and 2 tuning epochs, ``fed_obd/vit_cifar100.yaml`` and
+   ``fed_obd_sq/cifar100.yaml`` for 1 and 1, ``fed_paq/cifar10.yaml`` for
+   1 round), each record's phase, time, test loss and wire MB printed,
+   K1's launches checked exactly (``expected_obd_k1``) and on the ViT file
+   every K4 and K5 launch on wgmma, then one ``fed_obd/cifar10.yaml``
+   phase-1 round under the profiler;
+5. the script's wall time by phase and in all, one JSON line with every
+   kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Every ``train()`` call runs at the precision the port sets for itself
 (``utils/device.py``: TF32 off for f32 matrix products and convolutions),
@@ -269,13 +281,13 @@ def param_count(model: str = "vit_small", dataset: str = "CIFAR10") -> int:
     return ParamVecLayout.of(ctx.module.state_dict()).size
 
 
-def _k1_numbers(x, w, err: float, device_time: bool = False) -> dict:
+def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = True) -> dict:
     """K1's row at one shape: kernel, plain version and ``w @ X``, and the
     bound.  Times by CUDA events around calls back to back; with
     ``device_time`` (a shape whose call costs the host more than the
-    card), ``ms``, ``plain_ms`` and ``library_ms`` are the profiler's
-    device time per call and the events' times are ``call_ms``,
-    ``plain_call_ms`` and ``library_call_ms``."""
+    card), ``ms`` is the profiler's device time per call and the events'
+    time is ``call_ms``; with ``yardsticks`` too, likewise ``plain_ms`` and
+    ``library_ms`` (``plain_call_ms``, ``library_call_ms``)."""
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
     c, n = x.shape
@@ -289,7 +301,7 @@ def _k1_numbers(x, w, err: float, device_time: bool = False) -> dict:
     row = {"max_abs_err": err, "bound_ms": bound, "bound_by": by}
     for key, fn in calls.items():
         row[key] = cuda_ms(fn)
-        if device_time:
+        if device_time and (key == "ms" or yardsticks):
             row[key.replace("ms", "call_ms")] = row[key]
             names = ("weighted_accum_kernel",) if key == "ms" else None
             row[key] = kernel_device_ms(fn, names)
@@ -297,7 +309,7 @@ def _k1_numbers(x, w, err: float, device_time: bool = False) -> dict:
     return {**row, "shape": f"[{c}, {n}] {dtype}"}
 
 
-def check_weighted_accum(d: int, d_cnn: int, gen) -> dict:
+def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
     """K1 against its plain version: the ViT round's [2, D] chunk in bf16
     and f32 and the DenseNet-40 round's [5, D] chunk in f32 (rows on a
     padded stride, as the session lays them out), an unaligned stride, and
@@ -326,7 +338,7 @@ def check_weighted_accum(d: int, d_cnn: int, gen) -> dict:
         if (dtype, c, n, ld) == (torch.bfloat16, CHUNK, d, row_stride):
             result.update(_k1_numbers(x, w, err))
         elif (c, n) == (CNN_CHUNK, d_cnn):
-            result["densenet40"] = _k1_numbers(x, w, err, device_time=True)
+            result["densenet40"] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks)
     return result
 
 
@@ -368,7 +380,7 @@ def _refused(call, what: str) -> None:
         raise RuntimeError(f"chip smoke failed: {what} ran")
 
 
-def check_short_attention(gen) -> tuple[dict, dict]:
+def check_short_attention(gen, yardsticks: bool) -> tuple[dict, dict]:
     """K4 and K5 against their plain versions at ``SHORT_CASES``; each
     case's kernels checked (``short_attention.fwd_route``: bf16 at Dh 64 the
     Hopper forward; ``bwd_route``: bf16 at Dh 64 and S <= 64 the Hopper
@@ -376,11 +388,11 @@ def check_short_attention(gen) -> tuple[dict, dict]:
     ``attention_mismatch`` on out and on each of the dq, dk and dv blocks;
     the C entries refuse the wgmma backward off its cases.  At the
     ViT-small shape a planted fault in each kernel (K4: p not rounded; K5:
-    p and dS not rounded) must fail that check, and K4 and K5, the FMA
-    kernels they replaced (``fma_ms``) and SDPA's forward and backward are
-    timed by their device time (the profiler's; a wrapper call's host cost
-    is of the same size), the calls back to back as ``call_ms`` and
-    ``library_call_ms``."""
+    p and dS not rounded) must fail that check, and K4, K5 and SDPA's
+    forward and backward are timed by their device time (the profiler's; a
+    wrapper call's host cost is of the same size).  With ``yardsticks``
+    also the FMA kernels they replaced (``fma_ms``), the calls back to back
+    (``call_ms``, ``library_call_ms``) and K5's host cost."""
     import torch
     import torch.nn.functional as F
 
@@ -451,37 +463,42 @@ def check_short_attention(gen) -> tuple[dict, dict]:
         fwd_row = {
             "max_abs_err": max(errs[0], errs[1]),
             "ms": kernel_device_ms(lambda: sa.short_attention_fwd(qkv, h, mask), ("short_fwd_wgmma_kernel",)),
-            "call_ms": cuda_ms(lambda: sa.short_attention_fwd(qkv, h, mask)),
-            # the FMA kernel this route replaced, on the same inputs
-            "fma_ms": kernel_device_ms(lambda: sa._fwd(qkv, h, mask, "fma"), ("fwd_kernel",)),
             "plain_ms": cuda_ms(lambda: sa.short_attention_fwd_plain(qkv, h, mask)),
             "bound_ms": fwd_bound[0],
             "bound_by": fwd_bound[1],
             # every kernel SDPA's forward launches, by the same clock
             "library_ms": kernel_device_ms(lambda: F.scaled_dot_product_attention(q, k, v), None),
-            "library_call_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "shape": f"qkv [{b}, {s}, {3 * d}] bf16",
             "family": fwd_family,
         }
         bwd_row = {
             "max_abs_err": errs[2],
             "ms": kernel_device_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask), ("short_bwd_wgmma_kernel",)),
-            "call_ms": cuda_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
-            # the FMA kernels this route replaced, on the same inputs
-            "fma_ms": kernel_device_ms(lambda: sa._bwd(qkv, dout, lse, h, mask, "fma"), ("dq_kernel", "dkv_kernel")),
             "plain_ms": cuda_ms(lambda: sa.short_attention_bwd_plain(qkv, dout, lse, h, mask)),
             "bound_ms": bwd_bound[0],
             "bound_by": bwd_bound[1],
             # every kernel SDPA's backward launches (all three gradients), by the same clock
             "library_ms": kernel_device_ms(sdpa_bwd, None),
-            "library_call_ms": cuda_ms(sdpa_bwd),
-            # the host's cost of a call: the whole wrapper, and its C entry
-            # alone (ctypes, four tensor-map encodes, the launch)
-            "host_ms": host_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
-            "entry_host_ms": host_ms(lambda: short_bwd_entry(qkv, dout, lse, h, dqkv)),
             "shape": f"qkv, dout [{b}, {s}, {3 * d}], [{b}, {s}, {d}] bf16",
             "family": bwd_family,
         }
+        if yardsticks:
+            fwd_row.update({
+                "call_ms": cuda_ms(lambda: sa.short_attention_fwd(qkv, h, mask)),
+                # the FMA kernel this route replaced, on the same inputs
+                "fma_ms": kernel_device_ms(lambda: sa._fwd(qkv, h, mask, "fma"), ("fwd_kernel",)),
+                "library_call_ms": cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            })
+            bwd_row.update({
+                "call_ms": cuda_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
+                # the FMA kernels this route replaced, on the same inputs
+                "fma_ms": kernel_device_ms(lambda: sa._bwd(qkv, dout, lse, h, mask, "fma"), ("dq_kernel", "dkv_kernel")),
+                "library_call_ms": cuda_ms(sdpa_bwd),
+                # the host's cost of a call: the whole wrapper, and its C entry
+                # alone (ctypes, four tensor-map encodes, the launch)
+                "host_ms": host_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
+                "entry_host_ms": host_ms(lambda: short_bwd_entry(qkv, dout, lse, h, dqkv)),
+            })
         del sdpa_out, qg, kg, vg
     return fwd_row, bwd_row
 
@@ -721,12 +738,15 @@ def _fused_work(case, mask) -> tuple[dict, dict]:
     return flops, nbytes
 
 
-def check_fused_attention(gen) -> dict[str, dict]:
+def check_fused_attention(gen, yardsticks: bool) -> dict[str, dict]:
     """K6-K11's three CUDA kernels against their plain versions at the main
     path's shape and the edge shapes; at the main shape (K6-K8) and at the
     f32 round's shape (K9-K11) also the times of kernel, plain version and
     ``F.scaled_dot_product_attention`` forward / backward (a yardstick: the
-    port never calls it), and the bound."""
+    port never calls it), and the bound.  With ``yardsticks`` also the
+    kernels the Hopper ones replaced (``mma_sync_ms``, ``fma_ms``), both
+    bf16 families at Dh 32 (``dh32_ms``; both are checked either way) and
+    the kernels SDPA's f32 calls launch."""
     import torch
     import torch.nn.functional as F
 
@@ -784,7 +804,7 @@ def check_fused_attention(gen) -> dict[str, dict]:
             f" lse 1e-4 absolute); routes {' '.join(routes)}"
         )
         if dtype == "bfloat16" and dh == 32:
-            _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref))
+            _check_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, (ref_out, *ref), yardsticks)
         if case not in (LC_MAIN, LC_MAIN_F32):
             continue
         flops, nbytes = _fused_work(case, mask)
@@ -835,10 +855,10 @@ def check_fused_attention(gen) -> dict[str, dict]:
                 "shape": f"q/k/v [{b}, {t}, {h}, {dh}] {dtype}, key mask, causal={causal}",
                 "family": route,
             }
-            if route in replaced:
+            if yardsticks and route in replaced:
                 old, key = replaced[route]
                 rows[ids[part]][key] = cuda_ms(lambda: calls[part](old), iters=5, warmup=1)
-            if dtype == "float32" and part != "dq":  # dq's yardstick is the same backward
+            if yardsticks and dtype == "float32" and part != "dq":  # dq's yardstick is the same backward
                 print(f"SDPA's f32 {'forward' if part == 'fwd' else 'backward'} at {case}, by the profiler:")
                 kernel_device_ms(library, None, iters=2, warmup=1)
         del sdpa_out, qg, kg, vg
@@ -948,11 +968,11 @@ def check_tf32_planted_fault(gen) -> None:
         print(f"{passes}xTF32 products at the f32 task's shape: relative max/rms {', '.join(rel)} ({verdict})")
 
 
-def _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref) -> None:
+def _check_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref, yardsticks: bool) -> None:
     """The forward, dq and dk/dv on both bf16 kernel families at Dh 32, each
-    checked against the plain version (``ref``: out, dq, dk, dv) and timed
-    in this run: the route rule serves Dh 32 from the family that is
-    faster here.  The times go into K6's, K7's and K8's rows as
+    checked against the plain version (``ref``: out, dq, dk, dv); with
+    ``yardsticks`` each also timed in this run (the route rule serves Dh 32
+    from the family that is faster here), into K6's, K7's and K8's rows as
     ``dh32_ms``."""
     from distributed_learning_simulator_tpu_torch.ops import fused_attention as fa
 
@@ -969,7 +989,11 @@ def _time_dh32_routes(case, rows, q, k, v, mask, dout, lse, delta, tier, ref) ->
             for got, want in zip(calls[part](route), wants[part]):
                 rel_max, rel_rms, ok = attention_mismatch(got, want, dtype)
                 check(ok, f"{part} route {route} at {case}: max {rel_max:.3g} rms {rel_rms:.3g}")
-            ms[route] = cuda_ms(lambda: calls[part](route), iters=5, warmup=1)
+            if yardsticks:
+                ms[route] = cuda_ms(lambda: calls[part](route), iters=5, warmup=1)
+        if not yardsticks:
+            print(f"Dh 32 {part} B={b} H={h} T={t}: wgmma and mma.sync checked (route {fa.kernel_route(q, k, v, dout)})")
+            continue
         print(f"Dh 32 {part} B={b} H={h} T={t}: wgmma {ms['wgmma']:.4g} ms, mma.sync {ms['mma']:.4g} ms"
               f" (route {fa.kernel_route(q, k, v, dout)})")
         rows[kid].setdefault("dh32_ms", []).append({"shape": f"[{b}, {t}, {h}, {dh}]", **ms})
@@ -1102,9 +1126,12 @@ def _kernel_group(name: str) -> str:
 
 def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float:
     """``fn`` under ``torch.profiler``; prints the device's busy share and
-    its time by kernel group and by kernel (and the ``host_ops`` operators
-    with the most host time of their own), and returns the busy share.
-    ``alone`` says what the unprofiled work took."""
+    its time by kernel group and by kernel (and the ``host_ops`` host
+    operators with the most time, what they call included), and returns
+    the busy share.  ``alone`` says what the unprofiled work took.  The
+    sums come from the trace's raw events: ``key_averages()`` builds a
+    Python object an event, which over a DenseNet-40 round's trace took
+    minutes; the raw events give the same busy sum in seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1113,31 +1140,34 @@ def _profiled(fn, label: str, alone: str, what: str, host_ops: int = 0) -> float
         fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    device = [
-        e for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    busy = sum(e.self_device_time_total for e in device) / 1e6
+    device: dict[str, list] = {}
+    host: dict[str, list] = {}
+    for e in prof.profiler.kineto_results.events():
+        on_card = e.device_type() == torch.autograd.DeviceType.CUDA
+        if on_card or host_ops:
+            row = (device if on_card else host).setdefault(e.name(), [0, 0])
+            row[0] += 1
+            row[1] += e.duration_ns()
+    device = {k: v for k, v in device.items() if v[1] > 0}
+    busy = sum(ns for _, ns in device.values()) / 1e9
     print(
         f"profile{label}: {alone}; {what} {wall:.3f} s profiled;"
         f" device busy {busy:.3f} s = {busy / wall:.1%} of it"
     )
     groups: dict[str, float] = {}
-    for e in device:
-        key = _kernel_group(e.key)
-        groups[key] = groups.get(key, 0.0) + e.self_device_time_total / 1e6
+    for name, (_, ns) in device.items():
+        key = _kernel_group(name)
+        groups[key] = groups.get(key, 0.0) + ns / 1e9
     for key, t in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f"  {key}: {t * 1e3:.1f} ms ({t / busy:.1%} of device time)")
     # the ten largest kernels, then the port's own that are not among them
-    ranked = sorted(device, key=lambda e: -e.self_device_time_total)
-    for e in ranked[:10] + [e for e in ranked[10:] if _kernel_group(e.key).startswith("port kernels")]:
-        print(f"    {e.self_device_time_total / 1e3:8.2f} ms  x{e.count:<5d} {e.key[:90]}")
+    ranked = sorted(device.items(), key=lambda kv: -kv[1][1])
+    for name, (n, ns) in ranked[:10] + [kv for kv in ranked[10:] if _kernel_group(kv[0]).startswith("port kernels")]:
+        print(f"    {ns / 1e6:8.2f} ms  x{n:<5d} {name[:90]}")
     if host_ops:
-        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:host_ops]
-        total = sum(e.self_cpu_time_total for e in prof.key_averages()) / 1e6
-        print(f"  host: {total:.3f} s of operator time on all threads; the most of their own:")
-        for e in host:
-            print(f"    {e.self_cpu_time_total / 1e3:8.2f} ms  x{e.count:<6d} {e.key[:90]}")
+        print(f"  host: the {host_ops} operators with the most time on all threads (what they call included):")
+        for name, (n, ns) in sorted(host.items(), key=lambda kv: -kv[1][1])[:host_ops]:
+            print(f"    {ns / 1e6:8.2f} ms  x{n:<6d} {name[:90]}")
     return busy / wall
 
 
@@ -1544,7 +1574,7 @@ def encode_per_value(x, seed: int, level: int, bits: int):
     return packed, signs, torch.clamp(amax.view(torch.float32), min=1e-12)
 
 
-def check_qsgd(gen) -> tuple[dict, dict]:
+def check_qsgd(gen, yardsticks: bool) -> tuple[dict, dict]:
     """K2 and K3 against their plain versions, bit for bit, at the main
     path's leaf sizes and the edges: the card's encode with given bits
     against the plain encode with the same bits, the card's Philox encode
@@ -1553,13 +1583,14 @@ def check_qsgd(gen) -> tuple[dict, dict]:
     decode against the plain decode; the error under one step; at the
     largest leaf the mean over 64 seeds unbiased, and two planted faults (a
     decode that drops the sign, an encode whose bits are shifted by one
-    row) rejected by the same comparison.  Times K2 (Philox; its two
-    passes apart; with given bits as ``with_bits_ms``; the design it
-    replaced as ``per_value_ms``), K3 (the design it replaced as
-    ``per_value_ms``; both also at the path's smallest large leaf,
-    ``small_leaf``) and their plain versions at the largest leaf (``ms``
-    the kernels' device time, ``call_ms`` the wrapper's calls back to
-    back); no single PyTorch call computes either function."""
+    row) rejected by the same comparison.  Times K2 (Philox), K3 and their
+    plain versions at the largest leaf (``ms`` the kernels' device time,
+    ``call_ms`` the wrapper's calls back to back); no single PyTorch call
+    computes either function.  With ``yardsticks`` also K2's two passes
+    apart, K2 with given bits as ``with_bits_ms``, the designs K2 and K3
+    replaced as ``per_value_ms`` (each checked first), K3 in turns with
+    its replaced design, and K3 at the path's smallest large leaf
+    (``small_leaf``)."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import qsgd
@@ -1600,7 +1631,7 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         check(not qsgd_mismatch(out, plain_out), f"K3 differs from the plain decode at {n, bits}")
         check(err < step + rounding or (kind == "zeros" and err == 0.0),
               f"K2/K3 error {err} not below one step {step} and f32's rounding {rounding}")
-        if (n, bits, level, kind) == QSGD_SMALL_LEAF:
+        if yardsticks and (n, bits, level, kind) == QSGD_SMALL_LEAF:
             small_leaf = {"n": n, **decode_times(philox, level, bits, n)}
         if (n, bits, level, kind) != QSGD_MAIN:
             continue
@@ -1615,9 +1646,6 @@ def check_qsgd(gen) -> tuple[dict, dict]:
             check(bool(differs), f"{plant} passes the K2/K3 check")
             print(f"planted fault at n={n}, {plant}: {differs} differ (rejected)")
         packed, signs, scale = philox
-        old = encode_per_value(x, seed, level, bits)
-        # the replaced design draws other bits; its signs and scale are the same
-        check(qsgd_mismatch(old, philox) == ["packed"], f"the per-value encode: {qsgd_mismatch(old, philox)} differ")
         words = packed.numel() + signs.numel()
         stream32 = qsgd._u32_view(stream)  # the wrapper's u32 view, made once
 
@@ -1633,16 +1661,7 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         k2 = {
             "max_abs_err": 0.0,  # bit-equal to the plain version
             "ms": kernel_device_ms(encode, ("absmax_kernel", "encode_kernel")),
-            # the two passes apart: the abs-max read, then the quantize pass
-            "absmax_ms": kernel_device_ms(encode, ("absmax_kernel",)),
-            "encode_ms": kernel_device_ms(encode, ("encode_kernel",)),
             "call_ms": cuda_ms(encode),  # the wrapper's calls back to back, host cost included
-            # the same kernels given the bits: no Philox work, 4 bytes more read a value
-            "with_bits_ms": kernel_device_ms(encode_with_bits, ("absmax_kernel", "encode_kernel")),
-            # the design this replaced, on the same leaf
-            "per_value_ms": kernel_device_ms(lambda: encode_per_value(x, seed, level, bits),
-                                             ("absmax_atomic_kernel", "encode_per_value_kernel")),
-            "per_value_call_ms": cuda_ms(lambda: encode_per_value(x, seed, level, bits)),
             "plain_ms": cuda_ms(lambda: qsgd.qsgd_encode_plain(x, level, bits, stream)),
             **encode_bound_ms(n, words),
             "library_ms": None,  # no single PyTorch call quantizes and packs
@@ -1650,14 +1669,32 @@ def check_qsgd(gen) -> tuple[dict, dict]:
         }
         k3 = {
             "max_abs_err": 0.0,
-            # the word-walking kernel and the per-value design it replaced, in turns
-            **decode_times(philox, level, bits, n),
+            "ms": kernel_device_ms(decode, ("decode_word_kernel",)),
+            **decode_bound_ms(n, words),
             "call_ms": cuda_ms(decode),
             "plain_ms": cuda_ms(lambda: qsgd.qsgd_decode_plain(packed, signs, scale, level, bits, n)),
             "library_ms": None,  # no single PyTorch call unpacks and scales
             "shape": f"8-bit levels + signs -> [{n}] f32",
         }
-    k3["small_leaf"] = small_leaf  # the same at the path's smallest large leaf
+        if yardsticks:
+            old = encode_per_value(x, seed, level, bits)
+            # the replaced design draws other bits; its signs and scale are the same
+            check(qsgd_mismatch(old, philox) == ["packed"], f"the per-value encode: {qsgd_mismatch(old, philox)} differ")
+            k2.update({
+                # the two passes apart: the abs-max read, then the quantize pass
+                "absmax_ms": kernel_device_ms(encode, ("absmax_kernel",)),
+                "encode_ms": kernel_device_ms(encode, ("encode_kernel",)),
+                # the same kernels given the bits: no Philox work, 4 bytes more read a value
+                "with_bits_ms": kernel_device_ms(encode_with_bits, ("absmax_kernel", "encode_kernel")),
+                # the design this replaced, on the same leaf
+                "per_value_ms": kernel_device_ms(lambda: encode_per_value(x, seed, level, bits),
+                                                 ("absmax_atomic_kernel", "encode_per_value_kernel")),
+                "per_value_call_ms": cuda_ms(lambda: encode_per_value(x, seed, level, bits)),
+            })
+            # the word-walking kernel and the per-value design it replaced, in turns
+            k3.update(decode_times(philox, level, bits, n))
+    if yardsticks:
+        k3["small_leaf"] = small_leaf  # the same at the path's smallest large leaf
     return k2, k3
 
 
@@ -1869,6 +1906,283 @@ def profile_obd_run(workdir: str, run_s: float) -> None:
     _profiled(lambda: run_task(ctx), " (fed_obd_sq)", alone, "run of 1 round + 2 tuning epochs", host_ops=12)
 
 
+# ------------------------------- FedOBD, FedOBD-SQ and FedPAQ on the SPMD session
+#: (shipped file, rounds, tuning epochs) of phase 4e: each as shipped but
+#: for ``round`` and ``second_phase_epoch`` (fed_paq has no tuning phase)
+SPMD_OBD_RUNS = (
+    ("fed_obd/cifar10.yaml", 2, 2),
+    ("fed_obd/vit_cifar100.yaml", 1, 1),
+    ("fed_obd_sq/cifar100.yaml", 1, 1),
+    ("fed_paq/cifar10.yaml", 1, 0),
+)
+
+
+def expected_obd_k1(aggregates: int, n_slots: int, chunk: int) -> int:
+    """K1 launches of an SPMD FedOBD or fed_paq run (``parallel/spmd_obd.py``,
+    ``parallel/spmd.py``): one for each chunk of ``chunk`` slots in every
+    aggregate (phase-1 rounds and phase-2 epochs), selected or not."""
+    return aggregates * (n_slots // chunk)
+
+
+class CodecSteps:
+    """Records every step the SPMD sessions' codec takes while entered, by
+    ``(aggregate, slot, JAX key)`` (slot None: the broadcast): NNADQ's
+    ``span / (2^bits - 1)``, QSGD's ``scale / level``; and each aggregate's
+    weights.  A level flip moves an element of the exact average by one
+    client's step times its share of the weight, or by the step of the
+    broadcast its clients trained from (:meth:`moves`).  Reading a step
+    syncs the card: for checks, not for timed runs."""
+
+    def __init__(self) -> None:
+        self.steps: dict[tuple, float] = {}
+        self.weights: dict[int, object] = {}
+        self._saved = []
+
+    def __enter__(self) -> "CodecSteps":
+        from distributed_learning_simulator_tpu_torch.parallel import spmd, spmd_obd
+
+        obd, avg = spmd_obd.SpmdFedOBDSession, spmd.SpmdFedAvgSession
+        code, run_aggregate, paq_upload, run_round = obd._code, obd.run_aggregate, avg._paq_upload, avg.run_round
+
+        def noted_code(session, x, i, aggregate, slot):
+            out, bits = code(session, x, i, aggregate, slot)
+            if session._codec == "nnadq":
+                step = (x.max() - x.min()) / (2.0 ** bits - 1.0)
+            else:
+                step = x.abs().max() / session._level
+            self.steps[(aggregate, slot, session._jax_leaves[i].jax_key)] = float(step)
+            return out, bits
+
+        def noted_aggregate(session, g, weights, key, phase_two):
+            self.weights[session._aggregates] = weights.copy()
+            return run_aggregate(session, g, weights, key, phase_two)
+
+        def noted_paq(session, row, start, aggregate, slot):
+            for leaf in session._jax_leaves:
+                delta = row[leaf.start : leaf.stop].float() - start[leaf.start : leaf.stop].float()
+                self.steps[(aggregate, slot, leaf.jax_key)] = float(delta.abs().max() / session.quantization_level)
+            return paq_upload(session, row, start, aggregate, slot)
+
+        def noted_round(session, global_vec, weights, round_number=1):
+            self.weights[round_number - 1] = weights.copy()
+            return run_round(session, global_vec, weights, round_number)
+
+        for owner, name, fn in ((obd, "_code", noted_code), (obd, "run_aggregate", noted_aggregate),
+                                (avg, "_paq_upload", noted_paq), (avg, "run_round", noted_round)):
+            self._saved.append((owner, name, getattr(owner, name)))
+            setattr(owner, name, fn)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        self._saved.clear()
+
+    def moves(self, aggregate: int, key: str) -> list[float]:
+        """What one level flip moves an element of leaf ``key`` by in the
+        exact average of ``aggregate``."""
+        weights = self.weights[aggregate]
+        total = float(weights.sum())
+        moves = [
+            float(w) / total * self.steps[(aggregate, slot, key)]
+            for slot, w in enumerate(weights) if w > 0 and (aggregate, slot, key) in self.steps
+        ]
+        if (aggregate - 1, None, key) in self.steps:
+            moves.append(self.steps[(aggregate - 1, None, key)])
+        return moves
+
+
+def flipped_elements(got: dict, want: dict, steps: CodecSteps, aggregate: int, atol: float, rtol: float,
+                     match: float, within_tolerance: bool = False) -> dict:
+    """Elements of two parameter sets (JAX keys) beyond ``atol +
+    rtol·|want|``; each must differ by one level flip of ``aggregate``'s
+    codec (:meth:`CodecSteps.moves`): to within ``match`` of the move, or
+    with ``within_tolerance``, within ``atol + rtol·|want|`` once the move
+    is taken off.  Returns their masks by key."""
+    import numpy as np
+
+    masks = {}
+    for key, value in want.items():
+        diff = np.abs(got[key] - value)
+        tol = atol + rtol * np.abs(value)
+        masks[key] = off = diff > tol
+        for d, t in zip(diff[off], tol[off]):
+            moves = [m for m in steps.moves(aggregate, key) if m > 0]
+            check(any(abs(d - m) <= match * m or (within_tolerance and abs(d - m) <= t) for m in moves),
+                  f"{key}: {d} apart, not one level flip of {moves}")
+    return masks
+
+
+def check_obd_task_against_cpu(workdir: str) -> None:
+    """``conf/fed_obd/cifar10.yaml`` (DenseNet-40, f32, NNADQ at weight
+    0.01, block dropout 0.9) cut to 2 clients x 16 samples, 2 local epochs,
+    1 round and 1 tuning epoch, from one init on the card (K1) and on the
+    CPU (its plain version):
+
+    * the two aggregates in lockstep (``run_aggregate`` of a session on
+      each device, both from the CPU's broadcast each time): each exact
+      average's values within 1e-3 but for elements one upload level flip
+      apart (the few-bit delta codes' steps are far above the two devices'
+      last-bit differences in training, so an element on a level boundary
+      can flip; each must differ by one client's step times its weight
+      share, to 1%; at most 0.1% of them), its test loss within 1e-3 once
+      those verified elements take the CPU's values (the raw difference
+      is printed: 3.2e-4 with 71 flips in a card run), and its upload and
+      broadcast bits within 1e-6 (the same kept blocks and bit widths);
+    * ``train()`` on both: the same phases, and every record's test loss
+      within 1e-2.  Over a whole run a flip also moves the next broadcast
+      by one or two of its steps and the next round trains from there,
+      which is why the tight checks are the lockstep ones."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    sizes = {"train_size": 32, "val_size": 16, "test_size": 32}
+
+    def make_config(save_dir: str, **algorithm_kwargs):
+        overrides = {"round": 1, "epoch": 2, "worker_number": 2, "batch_size": 16,
+                     "algorithm_kwargs.second_phase_epoch": 1}
+        overrides.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
+        overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+        return shipped_config(SPMD_OBD_RUNS[0][0], save_dir, **overrides)
+
+    init = os.path.join(workdir, "obd_init.npz")
+    session = build_session(make_config(os.path.join(workdir, "obd_init")), device="cpu")
+    np.savez(init, **convert.to_jax(session.engine.init_params(0)))
+    perf = {device: train(make_config(os.path.join(workdir, f"obd_{device}"), global_model_path=init),
+                          device=device)["performance"] for device in ("cuda", "cpu")}
+    check([r["phase"] for _, r in sorted(perf["cuda"].items())] == ["block_dropout_rounds", "epoch_tune"],
+          f"OBD task phases {perf['cuda']}")
+    run_rel = max(abs(perf["cuda"][k]["test_loss"] - row["test_loss"]) / abs(row["test_loss"])
+                  for k, row in perf["cpu"].items())
+
+    sessions = {device: build_session(make_config(os.path.join(workdir, f"obd_lockstep_{device}"),
+                                                  global_model_path=init), device=device)
+                for device in ("cuda", "cpu")}
+    cpu = sessions["cpu"]
+    g = cpu._init_global_params()
+    layout = cpu.engine.layout
+    flipped, param_err, loss_rel, raw_rel, wire_rel, losses = [], 0.0, 0.0, 0.0, 0.0, []
+    for key, phase_two in ((1, False), (2, True)):
+        weights = cpu._all_weights() if phase_two else cpu._base_weight_row(key)
+        with CodecSteps() as steps:
+            exact, bcast, *bits = cpu.run_aggregate(g, weights, key, phase_two)
+        card, _, *card_bits = sessions["cuda"].run_aggregate(g.cuda(), weights, key, phase_two)
+        wire_rel = max([wire_rel] + [abs(float(a) - float(b)) / float(b) for a, b in zip(card_bits, bits)])
+        got, want = convert.to_jax(layout.split(card.cpu())), convert.to_jax(layout.split(exact))
+        param_err = max(param_err, float((card.cpu() - exact).abs().max()))
+        masks = flipped_elements(got, want, steps, key - 1, 1e-3, 0.0, 1e-2)
+        flipped.append(sum(int(m.sum()) for m in masks.values()))
+        settled = layout.flatten(convert.from_jax({k: np.where(masks[k], want[k], got[k]) for k in got})).cuda()
+        loss = [sessions["cuda"]._evaluate(v)["loss"] for v in (settled, card)] + [cpu._evaluate(exact)["loss"]]
+        losses.append(loss)
+        loss_rel = max(loss_rel, abs(loss[0] - loss[2]) / abs(loss[2]))
+        raw_rel = max(raw_rel, abs(loss[1] - loss[2]) / abs(loss[2]))
+        g = bcast
+    size = layout.size
+    print(
+        f"small task (DenseNet-40 fed_obd, 1 round + 1 tuning epoch) card vs CPU, in lockstep: test loss (card with"
+        f" the flipped elements at the CPU's values, card, CPU) {losses} (rel {loss_rel:.2g}; raw {raw_rel:.2g}),"
+        f" upload and broadcast bits rel {wire_rel:.2g}, exact averages' max |diff| {param_err:.3g}, elements one"
+        f" upload level flip apart (beyond 1e-3) {flipped} of {size};"
+        f" by train(): test loss {[perf['cuda'][k]['test_loss'] for k in sorted(perf['cuda'])]} vs"
+        f" {[perf['cpu'][k]['test_loss'] for k in sorted(perf['cpu'])]} (rel {run_rel:.2g}), wire MB"
+        f" {[(perf['cuda'][k]['received_mb'], perf['cuda'][k]['sent_mb']) for k in sorted(perf['cuda'])]};"
+        f" TF32 for f32 convolutions {torch.backends.cudnn.allow_tf32}"
+    )
+    check(loss_rel <= 1e-3, "small task (DenseNet-40 fed_obd): card and CPU losses disagree in lockstep")
+    check(wire_rel <= 1e-6, "small task (DenseNet-40 fed_obd): card and CPU wire bits disagree in lockstep")
+    check(sum(flipped) <= 1e-3 * size, f"small task (DenseNet-40 fed_obd): {flipped} elements a level apart")
+    check(run_rel <= 1e-2, "small task (DenseNet-40 fed_obd): card and CPU runs' losses disagree")
+
+
+def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``SPMD_OBD_RUNS`` at full width, with the
+    launch counters set to 0 just before each and read just after: every
+    record's phase, time, test loss and wire MB, the peak memory, K1's
+    launches checked exactly (``expected_obd_k1``: the files' 10 workers in
+    chunks of ``CNN_CHUNK``), and on the ViT file every K4 and K5 launch on
+    the wgmma kernels; no other kernel.  Returns the launches of all runs
+    and each file's records."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    total, records = {}, {}
+    for name, rounds, tuning in SPMD_OBD_RUNS:
+        overrides = {"round": rounds}
+        if tuning:
+            overrides["algorithm_kwargs.second_phase_epoch"] = tuning
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), **overrides)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases, still alive
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        launches, routes = _read_launches(), dict(sa.route_launches)
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number}"
+            f" workers, {config.algorithm_kwargs.get('random_client_number')} selected, {config.epoch} epochs):"
+            f" {rounds} rounds + {tuning} tuning epochs in {wall:.2f} s (setup included); peak memory"
+            f" {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
+        )
+        for key, row in sorted(perf.items()):
+            print(
+                f"  record {key} {row.get('phase')}: {row['round_seconds']:.3f} s, test loss {row['test_loss']:.4f}"
+                f" accuracy {row['test_accuracy']:.4f}, received {row['received_mb']:.4f} MB, sent"
+                f" {row['sent_mb']:.4f} MB"
+            )
+            check(np.isfinite(row["test_loss"]), f"{name} record {key} test loss {row['test_loss']}")
+            check(0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {key} accuracy {row['test_accuracy']}")
+        phases = [row.get("phase") for _, row in sorted(perf.items())]
+        want = ["block_dropout_rounds"] * rounds + ["epoch_tune"] * tuning if tuning else [None] * rounds
+        check(phases == want, f"{name} phases {phases}, want {want}")
+        k1 = expected_obd_k1(len(perf), config.worker_number, CNN_CHUNK)
+        check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
+        if config.model_name == "vit_base":
+            check(launches["K4"] > 0 and launches["K5"] > 0, f"{name} attention launches {launches}")
+            check_short_routes(routes, launches["K4"], launches["K5"], name)
+        others = [kid for kid, n in launches.items() if n and kid not in ("K1", "K4", "K5")]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+    return total, records
+
+
+def profile_obd_round(workdir: str, records: dict) -> None:
+    """Where a ``fed_obd/cifar10.yaml`` phase-1 round's time goes (5
+    DenseNet-40 clients x 5 epochs, the NNADQ uploads and broadcast, K1):
+    in a fresh session on the warm process, one round timed alone, then
+    one under ``torch.profiler``."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    name = SPMD_OBD_RUNS[0][0]
+    session = build_session(shipped_config(name, os.path.join(workdir, "obd_profile"), round=1))
+    g = session._init_global_params()
+    weights = session._base_weight_row(1)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    session.run_aggregate(g, weights, 1, phase_two=False)
+    torch.cuda.synchronize()
+    main = records[name]["records"]
+    alone = (
+        f"main path round 2 (eval included) {main[2]['round_seconds']:.3f} s; phase-1 round (no eval)"
+        f" {time.monotonic() - t0:.3f} s alone"
+    )
+    _profiled(lambda: session.run_aggregate(g, weights, 1, phase_two=False), " (fed_obd DenseNet-40 phase 1)",
+              alone, "phase-1 round (no eval)", host_ops=10)
+
+
 # ------------------------------------------- the shipped conf/fed_avg files
 def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
     """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40) as shipped
@@ -1938,6 +2252,12 @@ def profile_cnn_round(workdir: str, round_seconds: float) -> None:
     _profiled(lambda: session.run_round(vec, weights), " (DenseNet-40)", alone, "training round (no eval)", host_ops=10)
 
 
+def print_phase_times(marks: list) -> None:
+    print("phase wall times: " + "; ".join(
+        f"{label} {t - before:.1f} s" for (_, before), (label, t) in zip(marks, marks[1:])
+    ))
+
+
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     if argv and not kernels_only:
@@ -1960,6 +2280,11 @@ def main(argv: list[str]) -> int:
     from distributed_learning_simulator_tpu_torch.training import train
 
     started = time.monotonic()
+    marks = [("start", started)]
+
+    def mark(label: str) -> None:  # the script's wall time by phase
+        marks.append((label, time.monotonic()))
+
     # phase 2's f32 checks compare f32 arithmetic: PyTorch's default for
     # matmuls; every train() call then sets the port's precision itself
     # (utils/device.py: TF32 off for f32 matmuls and convolutions)
@@ -1977,20 +2302,28 @@ def main(argv: list[str]) -> int:
         print(f"  {name}.cu: {'; '.join(regs)}")
     for library in WGMMA_KERNELS:
         check_wgmma_build(library)
+    mark("1 build")
 
-    # 2. kernels against their plain versions
+    # 2. kernels against their plain versions (the yardsticks: --kernels)
+    yardsticks = kernels_only
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = param_count()
-    k1 = check_weighted_accum(d, param_count("densenet40"), gen)
-    k4, k5 = check_short_attention(gen)
-    fused = check_fused_attention(gen)
+    k1 = check_weighted_accum(d, param_count("densenet40"), gen, yardsticks)
+    mark("2 K1")
+    k4, k5 = check_short_attention(gen, yardsticks)
+    mark("2 K4/K5")
+    fused = check_fused_attention(gen, yardsticks)
     check_tf32x3_refuses_a_misaligned_base(gen)
     check_planted_faults(gen)
     check_tf32_planted_fault(gen)
-    if kernels_only:  # phases 1-2 of K1 and K4-K11: the quickest check of a kernel change
-        print(json.dumps({"K1": k1, "K4": k4, "K5": k5, **{kid: fused[kid] for kid in sorted(fused)}}))
+    mark("2 K6-K11")
+    k2, k3 = check_qsgd(gen, yardsticks)
+    mark("2 K2/K3")
+    if kernels_only:  # phases 1-2 with the yardsticks: the quickest check of a kernel change
+        print_phase_times(marks)
+        print(json.dumps({"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K5": k5,
+                          **{kid: fused[kid] for kid in sorted(fused)}}))
         return 0
-    k2, k3 = check_qsgd(gen)
 
     # 3. small tasks on the card against the CPU
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
@@ -1998,6 +2331,8 @@ def main(argv: list[str]) -> int:
     check_small_task_against_cpu(workdir, "ViT-small", vit_small_task)
     check_small_task_against_cpu(workdir, "DenseNet-40", densenet_small_task)
     stream_launches = check_long_context_f32_against_cpu(workdir)
+    check_obd_task_against_cpu(workdir)
+    mark("3 small tasks")
 
     # 4. the main path
     config = dense_config(os.path.join(workdir, "main"))
@@ -2024,6 +2359,7 @@ def main(argv: list[str]) -> int:
     check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
     check_short_routes(short_routes, launches["K4"], launches["K5"], "ViT-small")
     profile_round(workdir)
+    mark("4 ViT")
 
     # 4b. the long-context main path (K6-K8, K1) and its profile
     lc_launches, lc_round = run_long_context_main_path(workdir)
@@ -2036,6 +2372,7 @@ def main(argv: list[str]) -> int:
     launches.update({kid: f32_launches[kid] for kid in ("K9", "K10", "K11")})
     launches["K1"] += f32_launches["K1"]
     print(f"small f32 task launches (card vs CPU): {stream_launches}")
+    mark("4b long context")
 
     # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5) and its profile
     obd_launches, obd_record = run_obd_main_path(workdir)
@@ -2043,11 +2380,21 @@ def main(argv: list[str]) -> int:
     launches.update({kid: obd_launches[kid] for kid in ("K2", "K3")})
     launches["K4"] += obd_launches["K4"]
     launches["K5"] += obd_launches["K5"]
+    mark("4c threaded fed_obd_sq")
 
     # 4d. the shipped conf/fed_avg files (K1) and a profiled DenseNet-40 round
     cnn_launches, cnn_round = run_shipped_configs(workdir)
     profile_cnn_round(workdir, cnn_round)
     launches["K1"] += cnn_launches["K1"]
+    mark("4d conf/fed_avg")
+
+    # 4e. the shipped fed_obd, fed_obd_sq and fed_paq files on the SPMD
+    # session (K1; K4 and K5 on the ViT file) and a profiled phase-1 round
+    spmd_obd_launches, spmd_obd_records = run_obd_spmd_files(workdir)
+    profile_obd_round(workdir, spmd_obd_records)
+    for kid in ("K1", "K4", "K5"):
+        launches[kid] += spmd_obd_launches[kid]
+    mark("4e SPMD FedOBD, FedOBD-SQ, FedPAQ")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"
@@ -2078,6 +2425,7 @@ def main(argv: list[str]) -> int:
          "launches": launches[kid], "status": "ok", **numbers}
         for name, kid, source, replaces, numbers in rows
     ]
+    print_phase_times(marks)
     print(f"chip_smoke wall time: {time.monotonic() - started:.1f} s")
     print(json.dumps({"kernels": kernels, "card": card}))
     print(card)

@@ -19,6 +19,7 @@ the number of dimensions alone.  Both directions only transpose, so
 JAX -> port -> JAX is exact.
 """
 
+import dataclasses
 from collections.abc import Mapping
 
 import numpy as np
@@ -100,3 +101,48 @@ def from_jax_tensors(params: Mapping[str, torch.Tensor]) -> dict[str, torch.Tens
         name, perm = _port_key(key, tensor.dim())
         out[name] = (tensor if perm is None else tensor.permute(perm)).contiguous()
     return out
+
+
+@dataclasses.dataclass(frozen=True)
+class JaxLeaf:
+    """One leaf of a flat parameter vector as the JAX package holds it:
+    its port key, JAX key and slice of the vector, and the permutation
+    that takes the port's layout to the JAX one (None: the same)."""
+
+    key: str
+    jax_key: str
+    start: int
+    size: int
+    shape: tuple[int, ...]
+    perm: tuple[int, ...] | None
+
+    @property
+    def stop(self) -> int:
+        return self.start + self.size
+
+    def to_jax(self, flat: torch.Tensor) -> torch.Tensor:
+        """The leaf's values (a flat slice in the port's layout) in the JAX
+        layout's flat order: the order its codec draws meet them."""
+        if self.perm is None:
+            return flat
+        return flat.reshape(self.shape).permute(self.perm).reshape(-1)
+
+    def from_jax(self, flat: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`to_jax`."""
+        if self.perm is None:
+            return flat
+        jax_shape = tuple(self.shape[p] for p in self.perm)
+        return flat.reshape(jax_shape).permute(tuple(np.argsort(self.perm))).reshape(-1)
+
+
+def jax_leaves(keys, shapes) -> list[JaxLeaf]:
+    """The leaves of a flat vector laid out as ``keys``/``shapes`` (a
+    ``ParamVecLayout``'s), in the JAX package's order of its parameter
+    dict: sorted JAX keys."""
+    leaves, start = [], 0
+    for key, shape in zip(keys, shapes):
+        size = int(np.prod(shape)) if shape else 1
+        jax_key, perm = _jax_key(key, len(shape))
+        leaves.append(JaxLeaf(key, jax_key, start, size, tuple(shape), perm))
+        start += size
+    return sorted(leaves, key=lambda leaf: leaf.jax_key)

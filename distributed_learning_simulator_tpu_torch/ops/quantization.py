@@ -25,6 +25,7 @@ tensors of the same bits from the card's kernels; wire sizes count them
 as 4-byte words either way.
 """
 
+import functools
 import math
 from collections.abc import Mapping
 
@@ -70,6 +71,13 @@ class CodecRandom:
         K2's own draw (Philox on the card, a seeded generator on the CPU)."""
         return None
 
+    def session_uniform(self, seed: int, aggregate: int, slot: int | None, leaf: int, count: int, shape, device):
+        """The SPMD sessions' draws (:func:`qsgd_quantize_dequantize`): leaf
+        ``leaf`` of ``count``, in the JAX package's key order, of slot
+        ``slot``'s upload (None: the broadcast) in the ``aggregate``-th
+        aggregate (from 0) of a run seeded ``seed``."""
+        return self._uniform([seed, 4, aggregate, 0 if slot is None else slot + 1, leaf, count], shape, device)
+
 
 # ---------------------------------------------------------------- bit packing
 def _pack_uint(levels: torch.Tensor, bits: int) -> torch.Tensor:
@@ -97,6 +105,65 @@ def _round(flat: torch.Tensor, scale, rnd: torch.Tensor, level: int) -> torch.Te
     normalized = flat.abs() / scale * level
     floor = torch.floor(normalized)
     return floor + (rnd < normalized - floor).to(torch.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _constant(value: float, device: torch.device) -> torch.Tensor:
+    """An f32 scalar on ``device``, made once: a divisor on the card must
+    be a device tensor (CUDA divides by a host scalar through its
+    reciprocal), and a fresh one would be a host-to-device copy a call."""
+    return torch.tensor(np.float32(value), device=device)
+
+
+def qsgd_quantize_dequantize(x: torch.Tensor, uniform: torch.Tensor, level: int) -> torch.Tensor:
+    """QSGD's value distortion without packing (the SPMD sessions'
+    codec): the abs-max scale, the stochastic rounding against
+    ``uniform`` (one draw a value, in ``x``'s flat order), and the JAX
+    package's ``sign(x) * q / level * scale`` as its session's compiled
+    program evaluates it, ``(sign(x) * q) * (scale * fl(1/level))`` (the
+    reassociation R7 records for the packed decode); a single value, whose
+    abs-max XLA folds away, as ``((sign(x) * q) * fl(1/level)) * scale``.
+    Back in ``x``'s dtype."""
+    flat = x.reshape(-1).to(torch.float32)
+    scale = torch.clamp(flat.abs().max(), min=1e-12)
+    q = _round(flat, scale, uniform.reshape(-1), level)
+    reciprocal = _constant(np.float32(1.0) / np.float32(level), flat.device)  # fl(1/level)
+    if flat.numel() == 1:
+        out = ((torch.sign(flat) * q) * reciprocal) * scale
+    else:
+        out = (torch.sign(flat) * q) * (scale * reciprocal)
+    return out.reshape(x.shape).to(x.dtype)
+
+
+#: NNADQ's closed-form bit choice ``2^b = 32 ln2 std / w``: the constant in
+#: f32, as the JAX package's Python float meets its f32 std
+_NNADQ_C = np.float32(32.0 * math.log(2.0))
+#: ``fl(1 / fl(ln 2))``: the compiled ``log2(v)`` is ``log(v)`` times it
+_INV_LN2 = np.float32(1.0) / np.float32(math.log(2.0))
+
+
+def nnadq_quantize_dequantize(x: torch.Tensor, weight: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """NNADQ's value distortion without packing: a per-tensor bit width
+    ``clip(round(log2(max(32 ln2 std / weight, 1) + 1)), 2, 16)`` from the
+    population std (ddof 0), then deterministic rounding to ``2^bits - 1``
+    levels over ``[min, max]``.  Returns ``(dequantized, bits)``, ``bits``
+    an f32 scalar tensor; no host sync.
+
+    The arithmetic is the JAX package's as its session's compiled round
+    program evaluates it: ``log2`` as ``log`` times ``fl(1/ln 2)``, and the
+    dequantization ``q / levels * span + lo`` with its last multiply and
+    add fused (one rounding; taken in f64 here, where the product is exact)."""
+    flat = x.reshape(-1).to(torch.float32)
+    std = torch.std(flat, correction=0)
+    c, w, inv_ln2 = (_constant(v, flat.device) for v in (_NNADQ_C, weight, _INV_LN2))
+    b = torch.log(torch.clamp(c * std / w, min=1.0) + 1.0) * inv_ln2
+    bits = torch.clamp(torch.round(b), 2.0, 16.0)
+    levels = torch.pow(2.0, bits) - 1.0
+    lo = flat.min()
+    span = torch.clamp(flat.max() - lo, min=1e-12)
+    q = torch.round((flat - lo) / span * levels)
+    out = ((q / levels).double() * span.double() + lo.double()).to(torch.float32)
+    return out.reshape(x.shape).to(x.dtype), bits
 
 
 def _decode_consecutive(packed, signs, scale, level: int, bits: int, n: int) -> torch.Tensor:

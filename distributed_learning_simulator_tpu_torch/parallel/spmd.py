@@ -18,9 +18,16 @@ per-leaf epilogue computes the same function.  Each round then evaluates
 the master on the test set and writes a row of ``server/round_record.json``
 with the JAX session's keys.  Each client's dropout draws from its own
 generator, seeded from ``(seed, round, worker)``.
+
+fed_paq is this session with ``quantization_level``: each client's
+trained leaves become ``g + qsgd(p - g)`` before K1, with draws from the
+codec's random source (``ops/quantization.py::CodecRandom``, the
+``random`` entry of ``endpoint_kwargs.worker``), and ``received_mb``
+prices an upload at ``ceil(log2(level + 1)) + 1`` bits a value.
 """
 
 import json
+import math
 import os
 import time
 
@@ -31,10 +38,11 @@ from ..config import DistributedTrainingConfig
 from ..engine.batching import fixed_size_partition, make_epoch_batches, stage_batches
 from ..engine.engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
 from ..ml_type import MachineLearningPhase as Phase
-from ..models.convert import from_jax, to_jax
+from ..models.convert import from_jax, jax_leaves, to_jax
 from ..models.dropout import dropout_generator
 from ..models.registry import causal_lm_targets
 from ..ops.pytree import flat_stack_weighted_sum
+from ..ops.quantization import CodecRandom, qsgd_quantize_dequantize
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
 
@@ -140,7 +148,28 @@ def scan_local_epochs(
     params left behind are the epoch with the best validation accuracy,
     ``>=`` so a later epoch wins ties; the choice stays on the device.
     Returns the summed training metrics."""
-    opt_state = engine.init_opt_state(params)
+    _, summed = scan_local_epochs_carry(engine, epochs, params, data, counts, None, val_data, generator)
+    return summed
+
+
+def scan_local_epochs_carry(
+    engine: ComputeEngine,
+    epochs: int,
+    params: torch.Tensor,
+    data,
+    counts,
+    opt_state=None,
+    val_data=None,
+    generator: torch.Generator | None = None,
+):
+    """:func:`scan_local_epochs` from a given optimizer state (fresh when
+    None: FedOBD phase 2 continues each client's state), which it
+    updates in place; returns ``(opt_state, summed metrics)``.  The
+    best-epoch policy cannot take a carried state: the state left behind
+    is the last epoch's, not the best one's."""
+    assert opt_state is None or val_data is None, "opt_state continuation with the best-epoch policy"
+    if opt_state is None:
+        opt_state = engine.init_opt_state(params)
     summed = None
     best = best_acc = None
     if val_data is not None:
@@ -157,11 +186,17 @@ def scan_local_epochs(
             best_acc = torch.where(better, acc, best_acc)
     if best is not None:
         params.copy_(best)
-    return summed
+    return opt_state, summed
 
 
 class SpmdFedAvgSession:
-    """FedAvg rounds with the clients as a chunked loop on one device."""
+    """FedAvg rounds with the clients as a chunked loop on one device
+    (fed_paq with ``quantization_level``)."""
+
+    #: algorithm_kwargs this session reads; any other key raises
+    supported_algorithm_kwargs = SUPPORTED_ALGORITHM_KWARGS
+    #: stage the per-client validation data of the iid best-epoch policy
+    _uses_val_policy = True
 
     def __init__(
         self,
@@ -170,14 +205,19 @@ class SpmdFedAvgSession:
         model_ctx,
         engine: ComputeEngine,
         practitioners,
+        quantization_level: int | None = None,
     ) -> None:
-        unsupported = sorted(set(config.algorithm_kwargs) - SUPPORTED_ALGORITHM_KWARGS)
+        unsupported = sorted(set(config.algorithm_kwargs) - self.supported_algorithm_kwargs)
         if unsupported or int(config.algorithm_kwargs.get("round_horizon", 1) or 1) != 1:
             raise NotImplementedError(
                 f"algorithm_kwargs {unsupported or ['round_horizon > 1']} are not"
                 " ported yet (ROADMAP.md, port: round machinery)"
             )
         self.config = config
+        self.quantization_level = quantization_level
+        self._random = config.endpoint_kwargs.get("worker", {}).get("random") or CodecRandom()
+        #: the leaves in the JAX package's key order: the codecs' order
+        self._jax_leaves = jax_leaves(engine.layout.keys, engine.layout.shapes)
         self.model_ctx = model_ctx
         self.engine = engine
         self.device = model_ctx.device
@@ -191,7 +231,7 @@ class SpmdFedAvgSession:
         self._counts = loss_counts(model_ctx, host)  # [C][n_batches], on the host
         self._data = self._to_device(host)
         self._val_data = None
-        if config.dataset_sampling == "iid" and config.epoch > 1:
+        if self._uses_val_policy and config.dataset_sampling == "iid" and config.epoch > 1:
             val = stack_client_val_data(config, dataset_collection, practitioners, self.n_slots)
             if val is not None:
                 self._val_data = self._to_device(val)
@@ -269,8 +309,30 @@ class SpmdFedAvgSession:
                     val,
                     dropout_generator(self.config.seed, round_number, slot, self.device),
                 )
+                if self.quantization_level is not None:
+                    self._paq_upload(rows[j], start, round_number - 1, slot)
             acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
         return acc / max(float(weights.sum()), 1e-12)
+
+    def _paq_upload(self, row: torch.Tensor, start: torch.Tensor, aggregate: int, slot: int) -> None:
+        """fed_paq's upload, in place on a trained row: each leaf ``p``
+        becomes ``g + qsgd(p - g)`` against the round's start ``g``, in the
+        compute dtype, the leaf's draws in the JAX layout's order."""
+        count = len(self._jax_leaves)
+        for i, leaf in enumerate(self._jax_leaves):
+            p, g = row[leaf.start : leaf.stop], start[leaf.start : leaf.stop]
+            delta = leaf.to_jax(p - g)
+            uniform = self._random.session_uniform(
+                self.config.seed, aggregate, slot, i, count, delta.shape, self.device
+            )
+            p.copy_(g + leaf.from_jax(qsgd_quantize_dequantize(delta, uniform, self.quantization_level)))
+
+    def _upload_cost_factor(self) -> float:
+        """What an upload costs against f32 values: fed_paq's QSGD sends
+        ``ceil(log2(level + 1))`` level bits and a sign bit a value."""
+        if self.quantization_level is None:
+            return 1.0
+        return (math.ceil(math.log2(self.quantization_level + 1)) + 1) / 32
 
     def _evaluate(self, global_vec: torch.Tensor) -> dict:
         params = self.engine.layout.split(global_vec)
@@ -295,7 +357,7 @@ class SpmdFedAvgSession:
                 metric,
                 save_dir,
                 {
-                    "received_mb": selected * param_mb,
+                    "received_mb": selected * param_mb * self._upload_cost_factor(),
                     "sent_mb": selected * param_mb,
                     "round_seconds": time.monotonic() - start,
                 },

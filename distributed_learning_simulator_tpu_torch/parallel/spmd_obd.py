@@ -1,0 +1,259 @@
+"""FedOBD on one device (the port's ``parallel/spmd_obd.py``).
+
+The JAX session compiles each FedOBD phase into one program over the
+clients axis; here the clients are the FedAvg session's chunked loop,
+with the JAX phase programs' data flow:
+
+* **phase 1** (``block_dropout_rounds``, ``round`` aggregates): the
+  selected clients train ``epoch`` epochs from the broadcast with a fresh
+  optimizer each; each client's blocks (``get_module_blocks``) are ranked
+  by the L2 norm of their change over their size and kept greedily under
+  the ``(1 - dropout_rate)`` share of the parameters (a stable sort, one
+  device-to-host read of the scores a client); a kept leaf uploads
+  ``g + codec(p - g)``, a dropped one the broadcast ``g``;
+* **phase 2** (``epoch_tune``, ``second_phase_epoch`` aggregates): every
+  client trains one epoch a aggregate from its carried optimizer state
+  and uploads ``g + codec(p - g)`` for every leaf;
+* the f32 uploads are summed through kernel K1 a chunk at a time, and the
+  exact average is evaluated and recorded; the next aggregate trains
+  from the codec's broadcast of it (``quant_broadcast``).
+
+The codec is NNADQ for fed_obd and QSGD for fed_obd_sq
+(``ops/quantization.py``: value distortion without packing); wire sizes
+come from the bits it chose.  Deltas and scores are taken against the
+f32 broadcast, training from one compute-dtype cast of it (bf16 under
+``use_amp``).  Each slot keeps the optimizer state of its last
+participation; phase 2 seeds from those (a fresh state for a client never
+selected) and carries them through every epoch.  The phases follow the
+same ``ObdRoundDriver`` the threaded server consults.
+"""
+
+import math
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..method.fed_obd.driver import ObdRoundDriver
+from ..method.fed_obd.obd_algorithm import get_module_blocks
+from ..models.convert import to_jax
+from ..models.dropout import dropout_generator
+from ..ops.pytree import flat_stack_weighted_sum
+from ..ops.quantization import nnadq_quantize_dequantize, qsgd_quantize_dequantize
+from ..utils.logging import get_logger
+from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs_carry
+
+
+class SpmdFedOBDSession(SpmdFedAvgSession):
+    """Two-phase FedOBD: block dropout and a quantized transport.
+    ``codec`` is ``"nnadq"`` (fed_obd) or ``"qsgd"`` (fed_obd_sq)."""
+
+    supported_algorithm_kwargs = SUPPORTED_ALGORITHM_KWARGS | {"dropout_rate", "second_phase_epoch", "early_stop"}
+    _uses_val_policy = False
+
+    def __init__(self, *args, codec: str = "nnadq", **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        if codec not in ("nnadq", "qsgd"):
+            raise ValueError(f"unknown FedOBD codec {codec!r}")
+        self._codec = codec
+        config = self.config
+        worker = config.endpoint_kwargs.get("worker", {})
+        self._nnadq_weight = float(worker.get("weight", 0.01))
+        self._level = int(worker.get("quantization_level", 255))
+        # QSGD's wire: the level plane and the signs
+        self._qsgd_bits = torch.tensor(float(math.ceil(math.log2(self._level + 1)) + 1), device=self.device)
+        self._dropout_rate = float(config.algorithm_kwargs["dropout_rate"])
+        # the static block structure, with the sizes and the budget in f32
+        blocks = get_module_blocks(list(self.engine.layout.keys))
+        block_of = {key: i for i, block in enumerate(blocks) for key in block}
+        self._block_sizes = np.zeros(len(blocks), np.float32)
+        for leaf in self._jax_leaves:
+            self._block_sizes[block_of[leaf.key]] += leaf.size
+        self._leaf_block = [block_of[leaf.key] for leaf in self._jax_leaves]
+        self._total_params = float(self._block_sizes.sum())
+        self._threshold = np.float32((1.0 - self._dropout_rate) * self._total_params)
+        #: each slot's optimizer state after its last participation (None: never)
+        self._opt_states: list = [None] * self.n_slots
+        self._aggregates = 0  # aggregates run so far: the codec draws' stream
+
+    # ------------------------------------------------------------ codec
+    def _code(self, x: torch.Tensor, i: int, aggregate: int, slot: int | None):
+        """Leaf ``i`` (JAX order) of ``x``, a flat f32 slice in the port's
+        layout, through the codec: ``(dequantized, bits)``."""
+        if self._codec == "nnadq":
+            return nnadq_quantize_dequantize(x, self._nnadq_weight)
+        leaf = self._jax_leaves[i]
+        xj = leaf.to_jax(x)
+        uniform = self._random.session_uniform(
+            self.config.seed, aggregate, slot, i, len(self._jax_leaves), xj.shape, self.device
+        )
+        return leaf.from_jax(qsgd_quantize_dequantize(xj, uniform, self._level)), self._qsgd_bits
+
+    def keep_blocks(self, delta: torch.Tensor) -> np.ndarray:
+        """The greedy block selection under the parameter budget for one
+        client's f32 change ``delta``: blocks in descending order of
+        ``||delta_block|| / size`` (a stable sort: ties keep block order),
+        each kept where it still fits, the walk going on past blocks that
+        do not.  Returns the kept mask over blocks."""
+        sq_leaf = torch.stack([delta[leaf.start : leaf.stop].square().sum() for leaf in self._jax_leaves])
+        sq_leaf = sq_leaf.cpu().numpy()  # the client's one device-to-host read
+        sq = np.zeros(len(self._block_sizes), np.float32)
+        for block, value in zip(self._leaf_block, sq_leaf):
+            sq[block] += value
+        score = np.sqrt(sq) / self._block_sizes
+        keep = np.zeros(len(self._block_sizes), bool)
+        partial = np.float32(0.0)
+        for block in np.argsort(-score, kind="stable"):
+            size = self._block_sizes[block]
+            if partial + size <= self._threshold:
+                partial = np.float32(partial + size)
+                keep[block] = True
+        return keep
+
+    def _upload(self, row: torch.Tensor, work: torch.Tensor, g: torch.Tensor, phase_two: bool,
+                aggregate: int, slot: int) -> torch.Tensor:
+        """A client's f32 upload into ``row`` from its trained ``work``
+        against the f32 broadcast ``g``: kept leaves (every leaf in phase
+        2) as ``g + codec(p - g)``, dropped ones as ``g``.  Returns the
+        upload's bits (an f32 scalar on the device)."""
+        torch.sub(work.to(torch.float32), g, out=row)  # the change, then the upload in place
+        keep = None if phase_two else self.keep_blocks(row)
+        bits = torch.zeros((), device=self.device)
+        for i, leaf in enumerate(self._jax_leaves):
+            piece, base = row[leaf.start : leaf.stop], g[leaf.start : leaf.stop]
+            if keep is not None and not keep[self._leaf_block[i]]:
+                piece.copy_(base)
+                continue
+            coded, leaf_bits = self._code(piece, i, aggregate, slot)
+            torch.add(base, coded, out=piece)
+            bits += leaf_bits * leaf.size
+        return bits
+
+    # ------------------------------------------------------------ one aggregate
+    @torch.no_grad()
+    def _broadcast(self, exact: torch.Tensor, aggregate: int) -> tuple[torch.Tensor, torch.Tensor]:
+        """The codec's broadcast of the exact average, leaf by leaf, and its bits."""
+        bcast = torch.empty_like(exact)
+        bits = torch.zeros((), device=self.device)
+        for i, leaf in enumerate(self._jax_leaves):
+            coded, leaf_bits = self._code(exact[leaf.start : leaf.stop], i, aggregate, None)
+            bcast[leaf.start : leaf.stop] = coded
+            bits += leaf_bits * leaf.size
+        return bcast, bits
+
+    def run_aggregate(self, g: torch.Tensor, weights: np.ndarray, key: int, phase_two: bool):
+        """One aggregate from the f32 broadcast ``g``: every slot of weight
+        above 0 trains (phase 1: ``epoch`` epochs from a fresh optimizer;
+        phase 2: one epoch from its carried state) and uploads, K1 sums the
+        uploads a chunk at a time, and the exact average is coded for the
+        next broadcast.  Returns ``(exact, broadcast, upload bits,
+        broadcast bits)``, the bits as f32 scalars on the device."""
+        engine, config = self.engine, self.config
+        aggregate = self._aggregates
+        start = g.to(self.model_ctx.compute_dtype)  # once per aggregate
+        work = torch.empty_like(start)
+        mb = self.chunk_size()
+        size = g.numel()
+        row_stride = -(-size // 64) * 64  # 128-byte row starts for K1's 16-byte loads
+        rows = torch.empty(mb, row_stride, device=self.device)[:, :size]
+        acc = torch.zeros_like(g)
+        upload_bits = torch.zeros((), device=self.device)
+        w = torch.from_numpy(weights).to(self.device)
+        epochs = 1 if phase_two else config.epoch
+        for c0 in range(0, self.n_slots, mb):
+            for j in range(mb):
+                slot = c0 + j
+                if weights[slot] == 0:  # contributes exactly 0
+                    rows[j].zero_()
+                    continue
+                work.copy_(start)
+                self._opt_states[slot], _ = scan_local_epochs_carry(
+                    engine,
+                    epochs,
+                    work,
+                    {k: v[slot] for k, v in self._data.items()},
+                    self._counts[slot],
+                    self._opt_states[slot] if phase_two else None,
+                    generator=dropout_generator(config.seed, key, slot, self.device),
+                )
+                with torch.no_grad():
+                    upload_bits += self._upload(rows[j], work, g, phase_two, aggregate, slot)
+            acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
+        exact = acc / max(float(weights.sum()), 1e-12)
+        bcast, bcast_bits = self._broadcast(exact, aggregate)
+        self._aggregates += 1
+        return exact, bcast, upload_bits, bcast_bits
+
+    # ------------------------------------------------------------ the run
+    def _all_weights(self) -> np.ndarray:
+        """Phase 2's weights: every worker at its dataset size."""
+        weights = np.asarray(self._dataset_sizes, np.float32).copy()
+        weights[self.config.worker_number :] = 0.0
+        return weights
+
+    def run(self) -> dict:
+        """The phases off :class:`ObdRoundDriver`: phase-1 keys are the
+        round numbers, phase-2 keys continue from the largest recorded."""
+        config = self.config
+        save_dir = os.path.join(config.save_dir, "server")
+        os.makedirs(save_dir, exist_ok=True)
+        driver = ObdRoundDriver.from_config(config)
+        train_vec = self._init_global_params()
+        exact, key, tick = None, 0, 0
+        while not driver.finished:
+            spec = driver.phase
+            phase_two = not spec.block_dropout
+            if phase_two:
+                key = (max(self._stat) if self._stat else 0) + 1
+                weights = self._all_weights()
+            else:
+                tick += 1
+                key = tick
+                weights = self._base_weight_row(key)
+            round_start = time.monotonic()
+            exact, train_vec, upload_bits, bcast_bits = self.run_aggregate(train_vec, weights, key, phase_two)
+            metric = self._evaluate(exact)  # the exact average; reads the metrics: the aggregate's sync
+            self._record_obd(
+                key, metric, float(upload_bits), float(bcast_bits), save_dir, spec.name,
+                time.monotonic() - round_start,
+            )
+            improved = self._has_improvement() if driver.early_stop else True
+            decision = driver.after_aggregate(improved=improved, check_acc=spec.check_acc)
+            if decision.annotations:
+                get_logger().info("phase switch -> %s", driver.phase and driver.phase.name)
+            if decision.end_training:
+                break
+        # the exit state: the last exact average, in the JAX package's keys and layout
+        model_dir = os.path.join(config.save_dir, "aggregated_model")
+        os.makedirs(model_dir, exist_ok=True)
+        np.savez(os.path.join(model_dir, f"round_{key}.npz"), **to_jax(self.engine.layout.split(exact)))
+        return {"performance": self._stat}
+
+    def _record_obd(self, key, metric, upload_bits, bcast_bits, save_dir, phase_name, round_seconds) -> None:
+        mb = 1 / 8e6
+        extra = {
+            "received_mb": upload_bits * mb,
+            "sent_mb": bcast_bits * mb,
+            "round_seconds": round_seconds,
+            "phase": phase_name,
+        }
+        self._note_round(key, metric, save_dir, extra)
+        if upload_bits:
+            # wire bits over full-precision full-model bits per selected client
+            get_logger().info(
+                "wire ratio %.4f", upload_bits / (self._total_params * 32 * max(1, self._selected_count))
+            )
+
+    @property
+    def _selected_count(self) -> int:
+        n = self.config.algorithm_kwargs.get("random_client_number")
+        return int(n) if n else self.config.worker_number
+
+    def _has_improvement(self) -> bool:
+        """The 5-point plateau test on test accuracy: the last five do not
+        beat everything before them."""
+        accs = [s["test_accuracy"] for s in self._stat.values()]
+        if len(accs) < 6:
+            return True
+        return max(accs[-5:]) > max(accs[:-5])

@@ -4,8 +4,10 @@
 the way the JAX package's ``_build_task`` does, then runs one of two
 executors:
 
-* ``executor: auto`` or ``spmd``: the single-device FedAvg session
-  (``parallel/spmd.py``);
+* ``executor: auto`` or ``spmd``: the single-device sessions of
+  :data:`SPMD_SESSION_BUILDERS`: FedAvg and fed_paq
+  (``parallel/spmd.py``), fed_obd and fed_obd_sq
+  (``parallel/spmd_obd.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
   endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
@@ -35,6 +37,7 @@ from .ml_type import TaskAbortedError
 from .models import create_model_context
 from .models.registry import ModelContext
 from .parallel.spmd import SpmdFedAvgSession
+from .parallel.spmd_obd import SpmdFedOBDSession
 from .practitioner import create_practitioners
 from .topology.central_topology import CentralTopology
 from .utils.device import resolve_device
@@ -49,6 +52,30 @@ THREADED_ALGORITHM_KWARGS = frozenset(
 )
 
 
+def _session_fed_avg(config, args):
+    return SpmdFedAvgSession(*args)
+
+
+def _session_fed_paq(config, args):
+    level = int(config.endpoint_kwargs.get("worker", {}).get("quantization_level", 255))
+    return SpmdFedAvgSession(*args, quantization_level=level)
+
+
+def _session_fed_obd(config, args):
+    codec = "qsgd" if config.distributed_algorithm == "fed_obd_sq" else "nnadq"
+    return SpmdFedOBDSession(*args, codec=codec)
+
+
+#: algorithm name -> SPMD session builder (the JAX package's table, for
+#: the methods the port runs on it)
+SPMD_SESSION_BUILDERS = {
+    "fed_avg": _session_fed_avg,
+    "fed_paq": _session_fed_paq,
+    "fed_obd": _session_fed_obd,
+    "fed_obd_sq": _session_fed_obd,
+}
+
+
 def resolve_executor(config: DistributedTrainingConfig) -> str:
     """``auto`` is the SPMD session, as for every built-in method of the
     JAX package; ``sequential`` the threaded executor."""
@@ -61,10 +88,10 @@ def resolve_executor(config: DistributedTrainingConfig) -> str:
 def _refuse_unported(config: DistributedTrainingConfig) -> None:
     algorithm = config.distributed_algorithm
     if resolve_executor(config) == "spmd":
-        if algorithm != "fed_avg":
+        if algorithm not in SPMD_SESSION_BUILDERS:
             raise NotImplementedError(
                 f"method {algorithm!r} under the SPMD executor is not ported yet (ROADMAP.md);"
-                " the port's SPMD session runs fed_avg (fed_obd_sq runs with executor: sequential)"
+                f" the port's SPMD sessions run {sorted(SPMD_SESSION_BUILDERS)}"
             )
     elif algorithm == "fed_obd":
         raise NotImplementedError("fed_obd (NNADQ transport) is not ported yet (ROADMAP.md)")
@@ -154,9 +181,10 @@ def build_session(
     config: DistributedTrainingConfig, practitioners=None, device: str | None = None
 ) -> SpmdFedAvgSession:
     """The JAX package's ``_build_task`` + ``_make_spmd_session``: the
-    FedAvg session, staged on the device, ready to ``run``."""
+    method's session, staged on the device, ready to ``run``."""
     p = _prepare(config, practitioners, device)
-    return SpmdFedAvgSession(p.config, p.dataset_collection, p.model_ctx, p.engine, p.practitioners)
+    args = (p.config, p.dataset_collection, p.model_ctx, p.engine, p.practitioners)
+    return SPMD_SESSION_BUILDERS[p.config.distributed_algorithm](p.config, args)
 
 
 @dataclasses.dataclass

@@ -172,11 +172,13 @@ def test_client_chunking_does_not_change_the_round(tmp_path, init_npz):
         np.testing.assert_allclose(results[0][key], results[1][key], rtol=1e-6, atol=1e-7)
 
 
-def test_unported_paths_raise(tmp_path):
+def test_unported_paths_raise(tmp_path, monkeypatch):
     base = _fields(tmp_path, "refused")
     obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
     for change in (
-        {"distributed_algorithm": "fed_paq"},
+        {"distributed_algorithm": "sign_SGD"},
+        {"distributed_algorithm": "fed_dropout_avg"},
+        {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2}},
         {"distributed_algorithm": "fed_paq", "executor": "sequential"},
         {"distributed_algorithm": "fed_obd", "executor": "sequential", "algorithm_kwargs": obd},
         {"distributed_algorithm": "fed_obd_sq", "executor": "sequential", "algorithm_kwargs": obd},
@@ -192,6 +194,13 @@ def test_unported_paths_raise(tmp_path):
         },
     ):
         config = tconfig.DistributedTrainingConfig(**{**base, **change})
+        with pytest.raises(NotImplementedError):
+            torch_train(config, device="cpu")
+    # the shipped FedOBD files that fuse rounds (round_horizon: 5)
+    monkeypatch.chdir(tmp_path)
+    for name in ("cifar10", "cifar100", "cifar100_sq", "imdb", "longcontext_imdb_sp", "moe_imdb_ep"):
+        config = tconfig.load_config(["--config-name", f"large_scale/fed_obd/{name}.yaml"])
+        assert int(config.algorithm_kwargs["round_horizon"]) == 5
         with pytest.raises(NotImplementedError):
             torch_train(config, device="cpu")
 
