@@ -45,10 +45,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``conf/fed_avg/cifar10.yaml`` cut to 2 clients x 16 samples), and a narrow
    f32 ``LongContextTransformer`` at max_len 8192, the JAX package's
    stream tier, whose card run is the path of K9-K11 (launch counters set
-   to 0 just before and read just after); and a DenseNet-40 fed_obd task
+   to 0 just before and read just after); a DenseNet-40 fed_obd task
    (``conf/fed_obd/cifar10.yaml`` cut to 2 clients x 16 samples, 1 round
    and 1 tuning epoch), held aggregate by aggregate in lockstep and run
-   whole (``check_obd_task_against_cpu``);
+   whole (``check_obd_task_against_cpu``); and a DenseNet-40
+   fed_dropout_avg and a single_model_afd task (``conf/fed_dropout_avg/cifar10.yaml``
+   and ``conf/smafd/cifar10.yaml`` cut the same way, 1 round; their keep
+   masks drawn on the host: ``host_draws``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -65,21 +68,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    fed_obd_sq main paths must take the Hopper forward and backward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
-   for 2 rounds and 2 tuning epochs, with K2/K3 launches checked against
-   the count the protocol gives (``expected_qsgd_launches``), then a
-   shorter run of it under the profiler; then ``conf/fed_avg/cifar10.yaml``
-   (DenseNet-40, 10 workers, 5 local epochs) as shipped but for ``round``
-   (2), and ``imdb.yaml``, ``imagenet.yaml`` and ``mnist.yaml`` for 1
-   round each, with K1's launches checked exactly, then one more
-   DenseNet-40 training round under the profiler; then (4e) the SPMD
+   for 1 round and 2 tuning epochs, with K2/K3 launches checked against
+   the count the protocol gives (``expected_qsgd_launches``); then
+   ``conf/fed_avg/cifar10.yaml`` (DenseNet-40, 10 workers, 5 local
+   epochs) as shipped but for ``round`` (2), and ``imdb.yaml``,
+   ``imagenet.yaml`` and ``mnist.yaml`` for 1 round each, with K1's
+   launches checked exactly; then (4e) the SPMD
    session on the source paper's method as shipped but for ``round`` and
    ``second_phase_epoch`` (``SPMD_OBD_RUNS``: ``conf/fed_obd/cifar10.yaml``
-   for 2 rounds and 2 tuning epochs, ``fed_obd/vit_cifar100.yaml`` and
+   for 1 round and 1 tuning epoch, ``fed_obd/vit_cifar100.yaml`` and
    ``fed_obd_sq/cifar100.yaml`` for 1 and 1, ``fed_paq/cifar10.yaml`` for
    1 round), each record's phase, time, test loss and wire MB printed,
    K1's launches checked exactly (``expected_obd_k1``) and on the ViT file
-   every K4 and K5 launch on wgmma, then one ``fed_obd/cifar10.yaml``
-   phase-1 round under the profiler;
+   every K4 and K5 launch on wgmma; then (4f) the source paper's method at
+   its 100-client geometry (``LARGE_OBD_FILES``: ``conf/large_scale/fed_obd/
+   {cifar10,cifar100,cifar100_sq,imdb}.yaml``, 100 workers, 50 selected,
+   ``round_horizon`` 5, ``remat_policy: dots_saveable``) as shipped but for
+   5 rounds and 2 tuning epochs, each record's phase and K1's launches
+   checked exactly, then one phase-1 round of the DenseNet-40 file under
+   the profiler; the horizon's parity (the DenseNet-40 file's run, made
+   with cuDNN deterministic, against two runs of it at ``round_horizon`` 1:
+   H = 5 no further from H = 1 than H = 1 from itself) and remat's (one
+   phase-1 round of the DenseNet-40 and the classifier files without, with
+   and again without ``dots_saveable``: peak memory, round time, and the
+   remat round held to the plain rounds' spread); and the 12 FedDropoutAvg
+   and SMAFD files (``SPARSE_FILES``) for one round each (the 100-worker
+   ones at 1 local epoch), K1 checked exactly;
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -90,6 +104,7 @@ matrix products, so f32 checks compare f32 arithmetic.  It exits non-zero withou
 ``torch.cuda.is_available()`` is False or the port's package is missing.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1721,7 +1736,7 @@ def check_qsgd_statistics(x, level: int, bits: int, step: float) -> None:
 OBD_CONFIG = os.path.join("conf", "fed_obd_sq", "vit_cifar100.yaml")
 #: the cuts of the fed_obd_sq main path (the YAML runs 100 rounds of 5
 #: epochs and 10 tuning epochs over all of CIFAR-100)
-OBD_ROUNDS, OBD_SECOND_PHASE, OBD_SAMPLES, OBD_TEST = 2, 2, 64, 256
+OBD_ROUNDS, OBD_SECOND_PHASE, OBD_SAMPLES, OBD_TEST = 1, 2, 64, 256
 
 
 def obd_config(save_dir: str, **overrides):
@@ -1729,7 +1744,7 @@ def obd_config(save_dir: str, **overrides):
     ``vit_base``, 10 workers with 5 selected a round, batch 64, SGD at
     0.05 with the cosine schedule, ``use_amp``, block dropout 0.9) on the
     path of K2/K3: ``executor: sequential`` and ``flat_payload: false`` on
-    both sides.  Cut to size: 2 rounds, 1 epoch, ``second_phase_epoch`` 2
+    both sides.  Cut to size: 1 round, 1 epoch, ``second_phase_epoch`` 2
     (1 would take the keyed encodes), 64 training samples a worker (one
     step a client and epoch), 64 validation and 256 test samples."""
     from distributed_learning_simulator_tpu_torch.config import load_config_from_file
@@ -1895,22 +1910,11 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
     return launches, record
 
 
-def profile_obd_run(workdir: str, run_s: float) -> None:
-    """A shorter fed_obd_sq run (1 phase-1 round, then the 2 tuning
-    epochs) under the profiler, on the warm process: the device's busy
-    share of the threaded path."""
-    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
-
-    ctx = build_task(obd_config(os.path.join(workdir, "obd_profile"), round=1))
-    alone = f"main path run (2 rounds + 2 tuning epochs) {run_s:.3f} s"
-    _profiled(lambda: run_task(ctx), " (fed_obd_sq)", alone, "run of 1 round + 2 tuning epochs", host_ops=12)
-
-
 # ------------------------------- FedOBD, FedOBD-SQ and FedPAQ on the SPMD session
 #: (shipped file, rounds, tuning epochs) of phase 4e: each as shipped but
 #: for ``round`` and ``second_phase_epoch`` (fed_paq has no tuning phase)
 SPMD_OBD_RUNS = (
-    ("fed_obd/cifar10.yaml", 2, 2),
+    ("fed_obd/cifar10.yaml", 1, 1),
     ("fed_obd/vit_cifar100.yaml", 1, 1),
     ("fed_obd_sq/cifar100.yaml", 1, 1),
     ("fed_paq/cifar10.yaml", 1, 0),
@@ -1930,27 +1934,46 @@ class CodecSteps:
     ``span / (2^bits - 1)``, QSGD's ``scale / level``; and each aggregate's
     weights.  A level flip moves an element of the exact average by one
     client's step times its share of the weight, or by the step of the
-    broadcast its clients trained from (:meth:`moves`).  Reading a step
-    syncs the card: for checks, not for timed runs."""
+    broadcast its clients trained from (:meth:`moves`).  With ``boundary``
+    (NNADQ only) it also notes, for each upload's leaf, which elements sat
+    within ``boundary`` of a level step from a rounding boundary: the
+    elements whose level another device's last-bit differences can flip.
+    Reading a step syncs the card: for checks, not for timed runs."""
 
-    def __init__(self) -> None:
+    def __init__(self, boundary: float | None = None) -> None:
         self.steps: dict[tuple, float] = {}
         self.weights: dict[int, object] = {}
+        self.boundary = boundary
+        #: ``(aggregate, slot, JAX key)`` -> the JAX-order flat indices near a boundary
+        self.near: dict[tuple, object] = {}
         self._saved = []
 
     def __enter__(self) -> "CodecSteps":
+        import torch
+
         from distributed_learning_simulator_tpu_torch.parallel import spmd, spmd_obd
 
         obd, avg = spmd_obd.SpmdFedOBDSession, spmd.SpmdFedAvgSession
         code, run_aggregate, paq_upload, run_round = obd._code, obd.run_aggregate, avg._paq_upload, avg.run_round
 
-        def noted_code(session, x, i, aggregate, slot):
-            out, bits = code(session, x, i, aggregate, slot)
-            if session._codec == "nnadq":
-                step = (x.max() - x.min()) / (2.0 ** bits - 1.0)
-            else:
-                step = x.abs().max() / session._level
-            self.steps[(aggregate, slot, session._jax_leaves[i].jax_key)] = float(step)
+        def noted_code(session, x, aggregate, slot, kept):
+            out, bits = code(session, x, aggregate, slot, kept)
+            if self.boundary is not None and session._codec != "nnadq":
+                raise NotImplementedError("CodecSteps(boundary=...) knows NNADQ's rounding only")
+            for position, i in enumerate(session._layout_order):
+                leaf = session._jax_leaves[i]
+                piece = x[leaf.start : leaf.stop]
+                if session._codec == "nnadq":
+                    levels = 2.0 ** bits[position] - 1.0
+                    step = (piece.max() - piece.min()) / levels
+                    if self.boundary is not None and slot is not None:
+                        lo, span = piece.min(), torch.clamp(piece.max() - piece.min(), min=1e-12)
+                        v = leaf.to_jax((piece - lo) / span * levels)  # the codec's level positions
+                        near = (v - torch.floor(v) - 0.5).abs() < self.boundary
+                        self.near[(aggregate, slot, leaf.jax_key)] = torch.nonzero(near).flatten().cpu().numpy()
+                else:
+                    step = piece.abs().max() / session._level
+                self.steps[(aggregate, slot, leaf.jax_key)] = float(step)
             return out, bits
 
         def noted_aggregate(session, g, weights, key, phase_two):
@@ -1978,27 +2001,49 @@ class CodecSteps:
             setattr(owner, name, fn)
         self._saved.clear()
 
-    def moves(self, aggregate: int, key: str) -> list[float]:
+    def _near(self, aggregate: int, slot: int, key: str, element: int) -> bool:
+        import numpy as np
+
+        near = self.near.get((aggregate, slot, key))  # sorted
+        if near is None or not len(near):
+            return False
+        i = int(np.searchsorted(near, element))
+        return i < len(near) and int(near[i]) == element
+
+    def moves(self, aggregate: int, key: str, element: int | None = None) -> list[float]:
         """What one level flip moves an element of leaf ``key`` by in the
-        exact average of ``aggregate``."""
+        exact average of ``aggregate``.  With ``element`` (a JAX-order flat
+        index; needs ``boundary``): only the moves of the clients whose
+        upload of that element sat near a rounding boundary."""
         weights = self.weights[aggregate]
         total = float(weights.sum())
         moves = [
             float(w) / total * self.steps[(aggregate, slot, key)]
             for slot, w in enumerate(weights) if w > 0 and (aggregate, slot, key) in self.steps
+            and (element is None or self._near(aggregate, slot, key, element))
         ]
-        if (aggregate - 1, None, key) in self.steps:
+        if element is None and (aggregate - 1, None, key) in self.steps:
             moves.append(self.steps[(aggregate - 1, None, key)])
         return moves
 
 
 def flipped_elements(got: dict, want: dict, steps: CodecSteps, aggregate: int, atol: float, rtol: float,
-                     match: float, within_tolerance: bool = False) -> dict:
+                     match: float, within_tolerance: bool = False, counts: list | None = None) -> dict:
     """Elements of two parameter sets (JAX keys) beyond ``atol +
     rtol·|want|``; each must differ by one level flip of ``aggregate``'s
     codec (:meth:`CodecSteps.moves`): to within ``match`` of the move, or
     with ``within_tolerance``, within ``atol + rtol·|want|`` once the move
-    is taken off.  Returns their masks by key."""
+    is taken off.  With ``steps.boundary`` only the clients whose upload
+    of the element sat near a rounding boundary can have flipped it, and
+    it may differ by the moves of ``n`` of those ``k`` clients together:
+    by between the sum of their ``n`` smallest and of their ``n`` largest
+    moves, within ``atol + rtol·|want|``.  Several clients' uploads of
+    one element can sit on a boundary together: where a leaf's gradient
+    has one direction for every client (a classifier's last LayerNorm
+    bias under a two-class head), every client's delta is that vector
+    scaled, and the codec's levels, set by each upload's own range, put
+    the element at the same place between them.  ``counts`` gathers each
+    flagged element's ``k``.  Returns the masks by key."""
     import numpy as np
 
     masks = {}
@@ -2006,10 +2051,16 @@ def flipped_elements(got: dict, want: dict, steps: CodecSteps, aggregate: int, a
         diff = np.abs(got[key] - value)
         tol = atol + rtol * np.abs(value)
         masks[key] = off = diff > tol
-        for d, t in zip(diff[off], tol[off]):
-            moves = [m for m in steps.moves(aggregate, key) if m > 0]
-            check(any(abs(d - m) <= match * m or (within_tolerance and abs(d - m) <= t) for m in moves),
-                  f"{key}: {d} apart, not one level flip of {moves}")
+        for element, d, t in zip(np.flatnonzero(off), diff[off], tol[off]):
+            near = steps.boundary is not None
+            moves = [m for m in steps.moves(aggregate, key, int(element) if near else None) if m > 0]
+            if counts is not None:
+                counts.append(len(moves))
+            one = any(abs(d - m) <= match * m or (within_tolerance and abs(d - m) <= t) for m in moves)
+            ordered = sorted(moves)
+            some = near and any(sum(ordered[:n]) - t <= d <= sum(ordered[-n:]) + t
+                                for n in range(2, len(ordered) + 1))
+            check(one or some, f"{key}[{element}]: {d} apart, not {'the flips of' if near else 'one flip of'} {moves}")
     return masks
 
 
@@ -2157,32 +2208,6 @@ def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
     return total, records
 
 
-def profile_obd_round(workdir: str, records: dict) -> None:
-    """Where a ``fed_obd/cifar10.yaml`` phase-1 round's time goes (5
-    DenseNet-40 clients x 5 epochs, the NNADQ uploads and broadcast, K1):
-    in a fresh session on the warm process, one round timed alone, then
-    one under ``torch.profiler``."""
-    import torch
-
-    from distributed_learning_simulator_tpu_torch.training import build_session
-
-    name = SPMD_OBD_RUNS[0][0]
-    session = build_session(shipped_config(name, os.path.join(workdir, "obd_profile"), round=1))
-    g = session._init_global_params()
-    weights = session._base_weight_row(1)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    session.run_aggregate(g, weights, 1, phase_two=False)
-    torch.cuda.synchronize()
-    main = records[name]["records"]
-    alone = (
-        f"main path round 2 (eval included) {main[2]['round_seconds']:.3f} s; phase-1 round (no eval)"
-        f" {time.monotonic() - t0:.3f} s alone"
-    )
-    _profiled(lambda: session.run_aggregate(g, weights, 1, phase_two=False), " (fed_obd DenseNet-40 phase 1)",
-              alone, "phase-1 round (no eval)", host_ops=10)
-
-
 # ------------------------------------------- the shipped conf/fed_avg files
 def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
     """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40) as shipped
@@ -2230,26 +2255,302 @@ def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
     return total, round_seconds
 
 
-def profile_cnn_round(workdir: str, round_seconds: float) -> None:
-    """Where a DenseNet-40 round's time goes: in a fresh session on the
-    warm process, one training round timed alone, then one under the
-    profiler."""
+# ------------------- 4f: round_horizon, remat_policy, FedDropoutAvg and SMAFD
+#: the source paper's method at its 100-client geometry: 100 workers, 50
+#: selected, ``round_horizon`` 5, ``remat_policy: dots_saveable``; run as
+#: shipped but for ``round`` and ``second_phase_epoch``: one phase-1
+#: horizon of 5 rounds, then a phase-2 horizon clamped to its budget of 2
+#: (two tuning epochs: the carried optimizer states and the phase-2 keys
+#: taken past one epoch), the switch on a boundary (a host-bound round
+#: takes 3-6 s, and the host's speed varies by machine: the depth the
+#: script can afford)
+LARGE_OBD_FILES = (
+    "large_scale/fed_obd/cifar10.yaml",
+    "large_scale/fed_obd/cifar100.yaml",
+    "large_scale/fed_obd/cifar100_sq.yaml",
+    "large_scale/fed_obd/imdb.yaml",
+)
+LARGE_OBD_ROUNDS, LARGE_OBD_TUNING = 5, 2
+#: the FedDropoutAvg and SMAFD files, one round each as shipped, the
+#: 100-worker ones at 1 local epoch of their 5 (``SPARSE_LARGE_EPOCHS``)
+SPARSE_LARGE_EPOCHS = 1
+SPARSE_FILES = tuple(
+    f"{family}/{data}.yaml"
+    for family in ("fed_dropout_avg", "large_scale/fed_dropout_avg", "smafd", "large_scale/smafd")
+    for data in ("cifar10", "cifar100", "imdb")
+)
+
+
+def host_draws():
+    """A codec random source that makes the port's own draws on the host
+    and moves them to the device: a task then draws the same keep masks on
+    the card as on the CPU (a generator on the card draws another stream)."""
+    from distributed_learning_simulator_tpu_torch.ops.quantization import CodecRandom
+
+    class HostDraws(CodecRandom):
+        @staticmethod
+        def _uniform(entropy, shape, device):
+            return CodecRandom._uniform(entropy, shape, "cpu").to(device)
+
+    return HostDraws()
+
+
+def sparse_small_task(name: str):
+    """``conf/<name>`` (DenseNet-40, f32) cut to 2 clients x 16 samples, 2
+    local epochs (the best-epoch validation runs), 1 round, its draws made
+    on the host (:func:`host_draws`)."""
+
+    def make_config(save_dir: str, **algorithm_kwargs):
+        sizes = {"train_size": 32, "val_size": 16, "test_size": 32}
+        overrides = {"round": 1, "epoch": 2, "worker_number": 2, "batch_size": 16}
+        overrides.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
+        overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+        config = shipped_config(name, save_dir, **overrides)
+        config.endpoint_kwargs.setdefault("worker", {})["random"] = host_draws()
+        return config
+
+    return make_config
+
+
+def _final_params(config, key: int) -> dict:
+    import numpy as np
+
+    with np.load(os.path.join(config.save_dir, "aggregated_model", f"round_{key}.npz")) as blob:
+        return {k: blob[k] for k in blob.files}
+
+
+def _apart(a: tuple, b: tuple) -> tuple[float, float]:
+    """How far two runs (records, final parameters) are apart: the largest
+    relative test-loss difference over the rows, and the largest parameter
+    difference."""
+    import numpy as np
+
+    (perf_a, params_a), (perf_b, params_b) = a, b
+    check(sorted(perf_a) == sorted(perf_b), f"runs of {sorted(perf_a)} and {sorted(perf_b)} records")
+    rows = max(abs(perf_a[k]["test_loss"] - perf_b[k]["test_loss"]) / abs(perf_b[k]["test_loss"]) for k in perf_b)
+    params = max(float(np.abs(params_a[k] - params_b[k]).max()) for k in params_b)
+    return rows, params
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN on deterministic algorithms inside: two runs of a DenseNet-40
+    task then agree bit for bit, so a check can hold a variant to the
+    run-to-run spread, which is 0 (the default weight-gradient algorithms
+    need not be deterministic)."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``LARGE_OBD_FILES`` at full width for
+    ``LARGE_OBD_ROUNDS`` rounds and ``LARGE_OBD_TUNING`` tuning epochs, the
+    launch counters set to 0 just before each and read just after: every
+    record and its phase, the peak memory, and K1's launches
+    checked exactly (``expected_obd_k1``: 100 slots in chunks of
+    ``CNN_CHUNK``); no other kernel.  The first file runs with cuDNN on
+    deterministic algorithms: it is also the H = 5 run of
+    :func:`check_horizon_parity`.  Returns the launches of all runs and
+    each file's records (the first one's with its final parameters)."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    total, records = {}, {}
+    for name in LARGE_OBD_FILES:
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=LARGE_OBD_ROUNDS,
+                                **{"algorithm_kwargs.second_phase_epoch": LARGE_OBD_TUNING})
+        check(int(config.algorithm_kwargs["round_horizon"]) == 5, f"{name}: round_horizon {config.algorithm_kwargs}")
+        check(config.extra_hyper_parameters == {"remat_policy": "dots_saveable"}, f"{name}: {config.extra_hyper_parameters}")
+        parity = name == LARGE_OBD_FILES[0]
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases, still alive
+        t0 = time.monotonic()
+        with deterministic_convolutions() if parity else contextlib.nullcontext():
+            perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
+            f" {config.algorithm_kwargs['random_client_number']} selected, round_horizon 5, remat_policy"
+            f" dots_saveable{', deterministic cuDNN' if parity else ''}): {LARGE_OBD_ROUNDS} rounds +"
+            f" {LARGE_OBD_TUNING} tuning epochs in {wall:.2f} s (setup included); peak"
+            f" memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
+        )
+        for key, row in sorted(perf.items()):
+            print(
+                f"  record {key} {row['phase']}: {row['round_seconds']:.3f} s, test loss"
+                f" {row['test_loss']:.4f} accuracy {row['test_accuracy']:.4f}, received {row['received_mb']:.4f} MB,"
+                f" sent {row['sent_mb']:.4f} MB"
+            )
+            check(np.isfinite(row["test_loss"]), f"{name} record {key} test loss {row['test_loss']}")
+            check(0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {key} accuracy {row['test_accuracy']}")
+        phases = [row["phase"] for _, row in sorted(perf.items())]
+        want = ["block_dropout_rounds"] * LARGE_OBD_ROUNDS + ["epoch_tune"] * LARGE_OBD_TUNING
+        check(phases == want, f"{name} phases {phases}")
+        k1 = expected_obd_k1(len(perf), config.worker_number, CNN_CHUNK)
+        check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+        if parity:
+            records[name]["final"] = _final_params(config, max(perf))
+    return total, records
+
+
+def check_horizon_parity(workdir: str, records: dict) -> None:
+    """``large_scale/fed_obd/cifar10.yaml`` at ``LARGE_OBD_ROUNDS`` rounds and
+    ``LARGE_OBD_TUNING`` tuning epochs with ``round_horizon`` 1, twice, cuDNN
+    on deterministic algorithms: the main path's run of the file (H = 5,
+    the same algorithms) must be no further from the first H = 1 run, by
+    its rows and final parameters, than the second H = 1 run is."""
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    name = LARGE_OBD_FILES[0]
+    runs = {"h5": (records[name]["records"], records[name]["final"])}
+    with deterministic_convolutions():
+        for label in ("h1", "h1_again"):
+            config = shipped_config(name, os.path.join(workdir, f"parity_{label}"), round=LARGE_OBD_ROUNDS,
+                                    **{"algorithm_kwargs.second_phase_epoch": LARGE_OBD_TUNING,
+                                       "algorithm_kwargs.round_horizon": 1})
+            t0 = time.monotonic()
+            perf = train(config)["performance"]
+            runs[label] = (perf, _final_params(config, max(perf)))
+            print(f"  horizon parity {label}: {len(perf)} aggregates in {time.monotonic() - t0:.2f} s (setup"
+                  f" included), test loss {[round(perf[k]['test_loss'], 6) for k in sorted(perf)]}")
+    spread, fused = _apart(runs["h1_again"], runs["h1"]), _apart(runs["h5"], runs["h1"])
+    print(
+        f"horizon parity ({name}, {LARGE_OBD_ROUNDS} rounds + {LARGE_OBD_TUNING} tuning epochs, deterministic"
+        f" cuDNN): H = 5 against H = 1 rows rel {fused[0]:.3g}, params {fused[1]:.3g}; H = 1 against H = 1 rows"
+        f" rel {spread[0]:.3g}, params {spread[1]:.3g}"
+    )
+    check(fused[0] <= spread[0] and fused[1] <= spread[1], "the H = 5 run is further from H = 1 than H = 1 from itself")
+
+
+def check_remat(workdir: str) -> None:
+    """One phase-1 round (``run_aggregate``) of ``large_scale/fed_obd/cifar10.yaml``
+    and of ``imdb.yaml``, each without remat, with the file's
+    ``dots_saveable``, and without again, in fresh sessions, cuDNN on
+    deterministic algorithms: the peak memory over what the session held
+    before the round (remat's below both plain rounds': it checkpoints
+    each block of the model, so the backward holds one block's recompute
+    at a time), the round's time (to a sync), and the remat round's exact
+    average and test loss held to the two plain rounds' spread."""
+    import numpy as np
     import torch
 
     from distributed_learning_simulator_tpu_torch.training import build_session
 
-    session = build_session(shipped_config(CNN_MAIN, os.path.join(workdir, "cnn_profile"), round=1))
-    vec = session._init_global_params()
+    for name in (LARGE_OBD_FILES[0], LARGE_OBD_FILES[3]):
+        results = {}
+        with deterministic_convolutions():
+            for label in ("plain", "remat", "plain_again"):
+                config = shipped_config(name, os.path.join(workdir, f"remat_{label}"), round=1,
+                                        **{"algorithm_kwargs.second_phase_epoch": 1})
+                if label != "remat":
+                    config.extra_hyper_parameters = {}
+                session = build_session(config)
+                check(session.engine.remat == ("dots" if label == "remat" else None), f"{label}: {session.engine.remat}")
+                g = session._init_global_params()
+                weights = session._base_weight_row(1)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
+                t0 = time.monotonic()
+                exact, *_ = session.run_aggregate(g, weights, 1, phase_two=False)
+                torch.cuda.synchronize()
+                seconds = time.monotonic() - t0
+                peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+                loss = session._evaluate(exact)["loss"]
+                results[label] = (exact.cpu().numpy(), loss, seconds, peak)
+                del session, exact, g
+        (plain, loss0, t0_, p0), (remat, loss1, t1, p1), (again, loss2, t2, p2) = (
+            results[k] for k in ("plain", "remat", "plain_again"))
+        spread = (float(np.abs(again - plain).max()), abs(loss2 - loss0))
+        moved = (float(np.abs(remat - plain).max()), abs(loss1 - loss0))
+        print(
+            f"remat ({name}, one phase-1 round: 50 clients, deterministic cuDNN): peak memory over the session"
+            f" plain {p0:.3f} GiB, dots_saveable {p1:.3f} GiB, plain {p2:.3f} GiB; round {t0_:.3f} s, {t1:.3f} s,"
+            f" {t2:.3f} s; remat against plain: params {moved[0]:.3g}, test loss {moved[1]:.3g}; plain against"
+            f" plain: params {spread[0]:.3g}, test loss {spread[1]:.3g}"
+        )
+        check(moved[0] <= spread[0] and moved[1] <= spread[1], f"{name}: remat moved the round beyond the spread")
+        check(p1 < min(p0, p2), f"{name}: remat's peak memory {p1:.3f} GiB is not below the plain rounds'")
+
+
+def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``SPARSE_FILES`` for one round at full width
+    (the 100-worker files at ``SPARSE_LARGE_EPOCHS`` local epochs), the
+    launch counters set to 0 just before each and read just after:
+    the record, the peak memory, and K1's launches checked exactly (one a
+    chunk of ``CNN_CHUNK`` slots; FedDropoutAvg's over ``[mb, 2·D]``);
+    no other kernel.  Returns the launches of all runs and the records."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    total, records = {}, {}
+    for name in SPARSE_FILES:
+        depth = {"epoch": SPARSE_LARGE_EPOCHS} if name.startswith("large_scale/") else {}
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1, **depth)
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        row = perf[1]
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
+            f" {config.algorithm_kwargs.get('random_client_number')} selected, {config.epoch} epochs): 1 round in"
+            f" {wall:.2f} s (setup included), round {row['round_seconds']:.3f} s; test loss {row['test_loss']:.4f}"
+            f" accuracy {row['test_accuracy']:.4f}; received {row['received_mb']:.4f} MB, sent {row['sent_mb']:.4f} MB;"
+            f" peak memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
+        )
+        check(sorted(perf) == [1], f"{name} records {sorted(perf)}")
+        check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+        k1 = expected_obd_k1(1, config.worker_number, CNN_CHUNK)
+        check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+    return total, records
+
+
+def profile_large_obd_round(workdir: str, records: dict) -> None:
+    """Where a ``large_scale/fed_obd/cifar10.yaml`` phase-1 round's time goes
+    (50 DenseNet-40 clients x 1 step, remat, NNADQ uploads and broadcast,
+    K1): one round in a fresh session under ``torch.profiler`` (the same
+    round unprofiled is ``check_remat``'s ``dots_saveable`` round)."""
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    name = LARGE_OBD_FILES[0]
+    session = build_session(shipped_config(name, os.path.join(workdir, "large_obd_profile"), round=1,
+                                           **{"algorithm_kwargs.second_phase_epoch": 1}))
+    g = session._init_global_params()
     weights = session._base_weight_row(1)
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    session.run_round(vec, weights)
-    torch.cuda.synchronize()
-    alone = (
-        f"main path round {ROUNDS} (eval included) {round_seconds:.3f} s; training round (no eval)"
-        f" {time.monotonic() - t0:.3f} s alone"
-    )
-    _profiled(lambda: session.run_round(vec, weights), " (DenseNet-40)", alone, "training round (no eval)", host_ops=10)
+    main = records[name]["records"]
+    alone = f"main path round 2 {main[2]['round_seconds']:.3f} s (eval included)"
+    _profiled(lambda: session.run_aggregate(g, weights, 1, phase_two=False), " (large-scale fed_obd DenseNet-40 phase 1)",
+              alone, "phase-1 round (no eval)", host_ops=10)
 
 
 def print_phase_times(marks: list) -> None:
@@ -2332,6 +2633,8 @@ def main(argv: list[str]) -> int:
     check_small_task_against_cpu(workdir, "DenseNet-40", densenet_small_task)
     stream_launches = check_long_context_f32_against_cpu(workdir)
     check_obd_task_against_cpu(workdir)
+    check_small_task_against_cpu(workdir, "DenseNet-40 fed_dropout_avg", sparse_small_task("fed_dropout_avg/cifar10.yaml"))
+    check_small_task_against_cpu(workdir, "DenseNet-40 single_model_afd", sparse_small_task("smafd/cifar10.yaml"))
     mark("3 small tasks")
 
     # 4. the main path
@@ -2374,27 +2677,37 @@ def main(argv: list[str]) -> int:
     print(f"small f32 task launches (card vs CPU): {stream_launches}")
     mark("4b long context")
 
-    # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5) and its profile
-    obd_launches, obd_record = run_obd_main_path(workdir)
-    profile_obd_run(workdir, obd_record["run_s"])
+    # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5)
+    obd_launches, _ = run_obd_main_path(workdir)
     launches.update({kid: obd_launches[kid] for kid in ("K2", "K3")})
     launches["K4"] += obd_launches["K4"]
     launches["K5"] += obd_launches["K5"]
     mark("4c threaded fed_obd_sq")
 
-    # 4d. the shipped conf/fed_avg files (K1) and a profiled DenseNet-40 round
-    cnn_launches, cnn_round = run_shipped_configs(workdir)
-    profile_cnn_round(workdir, cnn_round)
+    # 4d. the shipped conf/fed_avg files (K1)
+    cnn_launches, _ = run_shipped_configs(workdir)
     launches["K1"] += cnn_launches["K1"]
     mark("4d conf/fed_avg")
 
     # 4e. the shipped fed_obd, fed_obd_sq and fed_paq files on the SPMD
     # session (K1; K4 and K5 on the ViT file) and a profiled phase-1 round
     spmd_obd_launches, spmd_obd_records = run_obd_spmd_files(workdir)
-    profile_obd_round(workdir, spmd_obd_records)
     for kid in ("K1", "K4", "K5"):
         launches[kid] += spmd_obd_launches[kid]
     mark("4e SPMD FedOBD, FedOBD-SQ, FedPAQ")
+
+    # 4f. the large-scale FedOBD files (round_horizon 5, remat_policy) and a
+    # profiled phase-1 round of them; horizon parity and remat on the card;
+    # the FedDropoutAvg and SMAFD files (K1 each)
+    large_launches, large_records = run_large_scale_obd(workdir)
+    profile_large_obd_round(workdir, large_records)
+    mark("4f large-scale FedOBD")
+    check_horizon_parity(workdir, large_records)
+    check_remat(workdir)
+    mark("4f horizon parity, remat")
+    sparse_launches, _ = run_sparse_files(workdir)
+    launches["K1"] += large_launches["K1"] + sparse_launches["K1"]
+    mark("4f FedDropoutAvg, SMAFD")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

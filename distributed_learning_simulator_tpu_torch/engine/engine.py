@@ -8,16 +8,105 @@ gradient back, which the hand-written SGD (``hyper_parameter.py``) applies
 in place.  Dropout draws from the ``torch.Generator`` the caller passes
 (one per client and round).  The metrics stay on the device until the
 caller reads them.
+
+``extra_hyper_parameters`` ``remat`` / ``remat_policy`` (the JAX engine's
+``jax.checkpoint`` around the loss) become activation checkpointing
+(``torch.utils.checkpoint``, non-reentrant; :func:`resolve_remat`).  XLA
+recomputes a checkpointed loss op by op as the backward reaches it; eager
+PyTorch recomputes a checkpointed region whole at the first tensor its
+backward needs and holds all of it, so one region around the loss saves
+no memory.  The regions are therefore the model's ``remat_blocks`` (its
+repeated layers, each checkpointed on its own, so the backward holds one
+block's recompute at a time), or the whole loss call for a model that
+names none.  A block's recompute runs after ``functional_call`` has put
+the module's own parameters back, so each region binds the tensors its
+block had in the forward.  The recompute draws the forward's dropout
+masks again: checkpointing restores only torch's global RNG states, so
+each region restores the explicit generator's state before each pass and
+the engine leaves it where the forward left it.  A kernel's
+``autograd.Function`` inside a region runs its forward twice (once more
+in the recompute), so its launch counter counts twice a step.
 """
 
+import contextlib
+import functools
 from collections.abc import Sequence
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..models.registry import ModelContext
 from ..ops.pytree import ParamVecLayout
 from .hyper_parameter import HyperParameter, SGDState
+
+#: ``jax.checkpoint_policies``' names: the vocabulary of ``remat_policy``
+#: (the JAX package's; a copy, since the port imports no JAX)
+JAX_CHECKPOINT_POLICIES = (
+    "checkpoint_dots",
+    "checkpoint_dots_with_no_batch_dims",
+    "dots_saveable",
+    "dots_with_no_batch_dims_saveable",
+    "everything_saveable",
+    "nothing_saveable",
+    "offload_dot_with_no_batch_dims",
+    "save_and_offload_only_these_names",
+    "save_any_names_but_these",
+    "save_anything_except_these_names",
+    "save_from_both_policies",
+    "save_only_these_names",
+)
+#: the policies the port implements: what each keeps from the forward
+#: (``checkpoint_dots`` is JAX's alias of ``dots_saveable``)
+PORTED_POLICIES = {
+    "nothing_saveable": "nothing",
+    "dots_saveable": "dots",
+    "checkpoint_dots": "dots",
+    "everything_saveable": "everything",
+}
+#: extra_hyper_parameters the engine reads; any other raises
+SUPPORTED_EXTRA = frozenset({"remat", "remat_policy"})
+#: what ``dots_saveable`` keeps: the outputs of JAX's ``dot_general`` and
+#: ``conv_general_dilated``, here the aten ops the port's Linear, attention
+#: and convolution layers lower to
+_DOT_OPS = frozenset(
+    {
+        torch.ops.aten.mm.default,
+        torch.ops.aten.addmm.default,
+        torch.ops.aten.bmm.default,
+        torch.ops.aten.convolution.default,
+    }
+)
+
+
+def resolve_remat(extra) -> str | None:
+    """What ``extra_hyper_parameters`` ask of the loss call, as the JAX
+    engine reads them: ``"nothing"`` (recompute every activation: bare
+    ``remat: true`` or ``nothing_saveable``), ``"dots"`` (keep the matrix
+    products' and convolutions' outputs: ``dots_saveable``), or None (the
+    plain step: no remat, or ``everything_saveable``).  A named policy
+    implies remat.  An unknown name raises ``ValueError`` listing JAX's;
+    a JAX policy the port does not implement raises
+    ``NotImplementedError``."""
+    name = extra.get("remat_policy", "") or ""
+    if not name:
+        return "nothing" if extra.get("remat", False) else None
+    name = str(name)
+    if name not in JAX_CHECKPOINT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}; valid jax.checkpoint_policies names:"
+            f" {list(JAX_CHECKPOINT_POLICIES)}"
+        )
+    if name not in PORTED_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {name!r} is not ported yet; the port implements {sorted(PORTED_POLICIES)}"
+        )
+    kept = PORTED_POLICIES[name]
+    return None if kept == "everything" else kept
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS else CheckpointPolicy.PREFER_RECOMPUTE
 
 
 class ComputeEngine:
@@ -28,10 +117,11 @@ class ComputeEngine:
         self.hyper_parameter = hyper_parameter
         self.total_steps = max(1, total_steps)
         self.optimizer = hyper_parameter.make_optimizer(self.total_steps)
-        if hyper_parameter.extra:
-            raise NotImplementedError(
-                f"extra_hyper_parameters {sorted(hyper_parameter.extra)} are not ported yet"
-            )
+        unsupported = sorted(set(hyper_parameter.extra) - SUPPORTED_EXTRA)
+        if unsupported:
+            raise NotImplementedError(f"extra_hyper_parameters {unsupported} are not ported yet")
+        #: None (the plain step), "nothing" or "dots": :func:`resolve_remat`
+        self.remat = resolve_remat(hyper_parameter.extra)
         self.layout = ParamVecLayout.of(model_ctx.module.state_dict())
 
     def init_params(self, seed: int) -> dict[str, torch.Tensor]:
@@ -56,12 +146,75 @@ class ComputeEngine:
         if count <= 0:
             return None
         leaf = flat_params.detach().requires_grad_(True)
-        loss, aux = self.model_ctx.loss(
-            self.layout.split(leaf), batch, train=True, generator=generator
-        )
-        loss.backward()
+        if self.remat is None:
+            loss, aux = self.model_ctx.loss(
+                self.layout.split(leaf), batch, train=True, generator=generator
+            )
+            loss.backward()
+        else:
+            loss, aux = self._remat_loss_backward(leaf, batch, generator)
         self.optimizer.step(flat_params, leaf.grad, opt_state)
         return {"loss": loss.detach(), "correct": aux["correct"], "count": aux["count"]}
+
+    def _remat_loss_backward(self, leaf: torch.Tensor, batch: dict, generator):
+        """The loss call with its regions checkpointed (the module's
+        ``remat_blocks``, else the whole call), and its backward into
+        ``leaf.grad``, holding the module against other threads (the
+        threaded executor's workers share it); the generator is left where
+        the forward left it."""
+        module = self.model_ctx.module
+        names = getattr(module, "remat_blocks", ())
+
+        def loss_call(flat, generator):
+            return self.model_ctx.loss(self.layout.split(flat), batch, train=True, generator=generator)
+
+        # the module to this step alone until the backward's recomputes end
+        with self.model_ctx.exclusive(), self._checkpointed_blocks(module, names):
+            loss, aux = loss_call(leaf, generator) if names else self._region(loss_call, leaf, generator)
+            end = generator.get_state() if generator is not None else None
+            loss.backward()
+        if end is not None:
+            generator.set_state(end)
+        return loss, aux
+
+    @contextlib.contextmanager
+    def _checkpointed_blocks(self, module: torch.nn.Module, names):
+        """Each named submodule's forward as a checkpointed region, bound
+        to the parameters and buffers the block holds when it runs."""
+        blocks = [module.get_submodule(name) for name in names]
+        for block in blocks:
+            block.forward = functools.partial(self._block_region, block, block.forward)
+        try:
+            yield
+        finally:
+            for block in blocks:
+                del block.forward
+
+    def _block_region(self, block, forward, *args, **kwargs):
+        # the tensors the forward binds (the loss call's compute-dtype casts)
+        tensors = block.state_dict(keep_vars=True)
+
+        def call(*args, **kwargs):
+            with torch.nn.utils.stateless._reparametrize_module(block, tensors):
+                return forward(*args, **kwargs)
+
+        return self._region(call, *args, **kwargs)
+
+    def _region(self, fn, *args, **kwargs):
+        """``fn`` checkpointed under the engine's policy; a generator among
+        its arguments is set to its entry state on each pass."""
+        generator = next((a for a in (*args, *kwargs.values()) if isinstance(a, torch.Generator)), None)
+        start = generator.get_state() if generator is not None else None
+
+        def call(*args):
+            if start is not None:
+                generator.set_state(start)
+            return fn(*args, **kwargs)
+
+        context = {}
+        if self.remat == "dots":
+            context["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _save_dots)
+        return checkpoint(call, *args, use_reentrant=False, preserve_rng_state=False, **context)
 
     def train_epoch(
         self,

@@ -49,8 +49,8 @@ class ModelContext:
     #: shifted left; dataset labels are ignored)
     loss_type: str = "softmax_ce"
     pad_id: int = 0  # causal_lm: positions whose target is pad weigh 0
-    _forward_lock: threading.Lock = dataclasses.field(
-        default_factory=threading.Lock, repr=False, compare=False
+    _forward_lock: threading.RLock = dataclasses.field(
+        default_factory=threading.RLock, repr=False, compare=False
     )
 
     def init(self, seed: int) -> dict[str, torch.Tensor]:
@@ -59,6 +59,12 @@ class ModelContext:
         device)."""
         self.module.init_weights(torch.Generator().manual_seed(seed))
         return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
+
+    def exclusive(self):
+        """The lock :meth:`apply` takes (reentrant), for work that uses
+        the module past one forward: remat's backward binds the module's
+        blocks again to recompute them."""
+        return self._forward_lock
 
     def apply(
         self, params: Mapping[str, torch.Tensor], inputs, train: bool = False, generator=None

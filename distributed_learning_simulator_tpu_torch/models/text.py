@@ -118,6 +118,8 @@ class TransformerClassifier(FlaxInit):
         for i in range(num_encoder_layer):
             self.add_module(f"EncoderLayer_{i}", EncoderLayer(d_model, nhead, 4 * d_model))
         self.Dense_0 = nn.Linear(d_model, num_classes)
+        #: the regions remat checkpoints one by one (``engine/engine.py``)
+        self.remat_blocks = tuple(f"EncoderLayer_{i}" for i in range(num_encoder_layer))
 
     def forward(self, tokens: torch.Tensor, generator=None) -> torch.Tensor:
         pad_mask = tokens != self.pad_id

@@ -142,6 +142,8 @@ class DenseNet40(FlaxInit):
                 width //= 2
         self.GroupNorm_0 = _group_norm(width)
         self.Dense_0 = nn.Linear(width, num_classes)
+        #: the regions remat checkpoints one by one (``engine/engine.py``)
+        self.remat_blocks = tuple(self._order)
 
     def forward(self, x: torch.Tensor, generator=None) -> torch.Tensor:
         x = self.Conv_0(_nchw(x))

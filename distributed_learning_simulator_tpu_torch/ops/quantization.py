@@ -78,6 +78,21 @@ class CodecRandom:
         aggregate (from 0) of a run seeded ``seed``."""
         return self._uniform([seed, 4, aggregate, 0 if slot is None else slot + 1, leaf, count], shape, device)
 
+    def dropout_uniform(self, seed: int, aggregate: int, slot: int, leaf: int, count: int, shape, device):
+        """FedDropoutAvg's keep draws (``parallel/spmd_sparse.py``): an
+        element is kept where its uniform is below ``1 - dropout_rate``;
+        leaf ``leaf`` of ``count`` in the JAX package's key order, in that
+        layout's flat order, of slot ``slot``'s upload in the
+        ``aggregate``-th round (from 0) of a run seeded ``seed``."""
+        return self._uniform([seed, 5, aggregate, slot, leaf, count], shape, device)
+
+    def leaf_permutation(self, seed: int, aggregate: int, slot: int, count: int) -> np.ndarray:
+        """SMAFD's order of the ``count`` leaves (JAX key order) for slot
+        ``slot``'s upload in the ``aggregate``-th round: a host array."""
+        state = np.random.SeedSequence([seed, 6, aggregate, slot, count]).generate_state(1, np.uint64)
+        gen = torch.Generator().manual_seed(int(state[0]) & (2**63 - 1))
+        return torch.randperm(count, generator=gen).numpy()
+
 
 # ---------------------------------------------------------------- bit packing
 def _pack_uint(levels: torch.Tensor, bits: int) -> torch.Tensor:
@@ -116,23 +131,38 @@ def _constant(value: float, device: torch.device) -> torch.Tensor:
 
 
 def qsgd_quantize_dequantize(x: torch.Tensor, uniform: torch.Tensor, level: int) -> torch.Tensor:
-    """QSGD's value distortion without packing (the SPMD sessions'
-    codec): the abs-max scale, the stochastic rounding against
-    ``uniform`` (one draw a value, in ``x``'s flat order), and the JAX
-    package's ``sign(x) * q / level * scale`` as its session's compiled
-    program evaluates it, ``(sign(x) * q) * (scale * fl(1/level))`` (the
-    reassociation R7 records for the packed decode); a single value, whose
-    abs-max XLA folds away, as ``((sign(x) * q) * fl(1/level)) * scale``.
-    Back in ``x``'s dtype."""
+    """QSGD's value distortion without packing (the SPMD sessions' codec)
+    of one tensor, with one draw a value of ``uniform`` in ``x``'s flat
+    order (:func:`qsgd_quantize_dequantize_leaves` over one piece); back in
+    ``x``'s dtype."""
     flat = x.reshape(-1).to(torch.float32)
-    scale = torch.clamp(flat.abs().max(), min=1e-12)
-    q = _round(flat, scale, uniform.reshape(-1), level)
-    reciprocal = _constant(np.float32(1.0) / np.float32(level), flat.device)  # fl(1/level)
-    if flat.numel() == 1:
-        out = ((torch.sign(flat) * q) * reciprocal) * scale
-    else:
-        out = (torch.sign(flat) * q) * (scale * reciprocal)
+    out = qsgd_quantize_dequantize_leaves(flat, uniform.reshape(-1), [flat.numel()], level)
     return out.reshape(x.shape).to(x.dtype)
+
+
+def qsgd_quantize_dequantize_leaves(x: torch.Tensor, uniform: torch.Tensor, lengths: list[int], level: int):
+    """QSGD's value distortion of each of the consecutive pieces of the flat
+    f32 ``x`` that ``lengths`` cut it into, all in a few launches: each
+    piece's abs-max scale, the stochastic rounding against ``uniform`` (one
+    draw a value, aligned with ``x``), and the JAX package's ``sign(x) * q
+    / level * scale`` as its session's compiled program evaluates it,
+    ``(sign(x) * q) * (scale * fl(1/level))`` (the reassociation R7 records
+    for the packed decode); a one-value piece, whose abs-max XLA folds
+    away, as ``((sign(x) * q) * fl(1/level)) * scale``.  Each piece's scale
+    is repeated over its elements, so every element takes one piece's
+    operations.  QSGD is elementwise but for its scale: the pieces may be
+    in any layout as long as ``uniform`` follows it."""
+    counts = torch.tensor(lengths, device=x.device)
+    scale = torch.clamp(torch.segment_reduce(x.abs(), "max", lengths=counts), min=1e-12)
+    scale_e = torch.repeat_interleave(scale, counts, output_size=x.numel())
+    q = _round(x, scale_e, uniform, level)
+    reciprocal = _constant(np.float32(1.0) / np.float32(level), x.device)  # fl(1/level)
+    signed = torch.sign(x) * q
+    out = signed * (scale_e * reciprocal)
+    if 1 in lengths:
+        single = torch.repeat_interleave(counts == 1, counts, output_size=x.numel())
+        out = torch.where(single, (signed * reciprocal) * scale_e, out)
+    return out
 
 
 #: NNADQ's closed-form bit choice ``2^b = 32 ln2 std / w``: the constant in
@@ -143,27 +173,41 @@ _INV_LN2 = np.float32(1.0) / np.float32(math.log(2.0))
 
 
 def nnadq_quantize_dequantize(x: torch.Tensor, weight: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """NNADQ's value distortion without packing: a per-tensor bit width
-    ``clip(round(log2(max(32 ln2 std / weight, 1) + 1)), 2, 16)`` from the
-    population std (ddof 0), then deterministic rounding to ``2^bits - 1``
-    levels over ``[min, max]``.  Returns ``(dequantized, bits)``, ``bits``
-    an f32 scalar tensor; no host sync.
+    """NNADQ's value distortion without packing of one tensor
+    (:func:`nnadq_quantize_dequantize_leaves` over one piece): ``(dequantized
+    in x's dtype, bits)``, ``bits`` an f32 scalar tensor."""
+    flat = x.reshape(-1).to(torch.float32)
+    out, bits = nnadq_quantize_dequantize_leaves(flat, [flat.numel()], weight)
+    return out.reshape(x.shape).to(x.dtype), bits[0]
+
+
+def nnadq_quantize_dequantize_leaves(x: torch.Tensor, lengths: list[int], weight: float):
+    """NNADQ's value distortion without packing of each of the consecutive
+    pieces of the flat f32 ``x`` that ``lengths`` cut it into, all in a few
+    launches: a piece's bit width ``clip(round(log2(max(32 ln2 std /
+    weight, 1) + 1)), 2, 16)`` from its population std (ddof 0), then
+    deterministic rounding to ``2^bits - 1`` levels over its ``[min,
+    max]``, each piece's values repeated over its elements.  Returns
+    ``(dequantized [N], bits [pieces])`` with no host sync.
 
     The arithmetic is the JAX package's as its session's compiled round
     program evaluates it: ``log2`` as ``log`` times ``fl(1/ln 2)``, and the
     dequantization ``q / levels * span + lo`` with its last multiply and
     add fused (one rounding; taken in f64 here, where the product is exact)."""
-    flat = x.reshape(-1).to(torch.float32)
-    std = torch.std(flat, correction=0)
-    c, w, inv_ln2 = (_constant(v, flat.device) for v in (_NNADQ_C, weight, _INV_LN2))
+    pieces = torch.split(x, lengths)
+    std = torch.stack([torch.std(piece, correction=0) for piece in pieces])
+    counts = torch.tensor(lengths, device=x.device)
+    lo = torch.segment_reduce(x, "min", lengths=counts)
+    hi = torch.segment_reduce(x, "max", lengths=counts)
+    c, w, inv_ln2 = (_constant(v, x.device) for v in (_NNADQ_C, weight, _INV_LN2))
     b = torch.log(torch.clamp(c * std / w, min=1.0) + 1.0) * inv_ln2
     bits = torch.clamp(torch.round(b), 2.0, 16.0)
     levels = torch.pow(2.0, bits) - 1.0
-    lo = flat.min()
-    span = torch.clamp(flat.max() - lo, min=1e-12)
-    q = torch.round((flat - lo) / span * levels)
-    out = ((q / levels).double() * span.double() + lo.double()).to(torch.float32)
-    return out.reshape(x.shape).to(x.dtype), bits
+    span = torch.clamp(hi - lo, min=1e-12)
+    lo_e, span_e, levels_e = (torch.repeat_interleave(v, counts, output_size=x.numel()) for v in (lo, span, levels))
+    q = torch.round((x - lo_e) / span_e * levels_e)
+    out = ((q / levels_e).double() * span_e.double() + lo_e.double()).to(torch.float32)
+    return out, bits
 
 
 def _decode_consecutive(packed, signs, scale, level: int, bits: int, n: int) -> torch.Tensor:

@@ -24,6 +24,17 @@ trained leaves become ``g + qsgd(p - g)`` before K1, with draws from the
 codec's random source (``ops/quantization.py::CodecRandom``, the
 ``random`` entry of ``endpoint_kwargs.worker``), and ``received_mb``
 prices an upload at ``ceil(log2(level + 1)) + 1`` bits a value.
+
+``round_horizon`` H > 1 runs the H rounds the JAX session fuses into one
+dispatch one after another, each with its own host read and record: the
+H = 1 run, bit for bit (deferring the metric reads to a horizon's end
+bought no time on the card, PERF.md).  As in the JAX package, only this
+class (fed_avg, fed_paq) and the FedOBD session take a horizon; a
+subclass with its own round program raises ``ValueError``.
+
+The sparse-upload sessions (``parallel/spmd_sparse.py``) reuse the client
+loop through :meth:`SpmdFedAvgSession._upload` (a trained client's row),
+``_row_width``, ``_upload_dtype`` and ``_finish`` (the new master).
 """
 
 import json
@@ -208,11 +219,15 @@ class SpmdFedAvgSession:
         quantization_level: int | None = None,
     ) -> None:
         unsupported = sorted(set(config.algorithm_kwargs) - self.supported_algorithm_kwargs)
-        if unsupported or int(config.algorithm_kwargs.get("round_horizon", 1) or 1) != 1:
+        if unsupported:
             raise NotImplementedError(
-                f"algorithm_kwargs {unsupported or ['round_horizon > 1']} are not"
-                " ported yet (ROADMAP.md, port: round machinery)"
+                f"algorithm_kwargs {unsupported} are not ported yet (ROADMAP.md, port: round machinery)"
             )
+        #: the rounds the JAX session fuses into one dispatch (run one by one here)
+        self.round_horizon = max(1, int(config.algorithm_kwargs.get("round_horizon", 1) or 1))
+        reason = self._horizon_unsupported_reason()
+        if self.round_horizon > 1 and reason:
+            raise ValueError(reason)
         self.config = config
         self.quantization_level = quantization_level
         self._random = config.endpoint_kwargs.get("worker", {}).get("random") or CodecRandom()
@@ -237,6 +252,19 @@ class SpmdFedAvgSession:
                 self._val_data = self._to_device(val)
         test = dataset_collection.get_dataset(Phase.Test)
         self._eval_batches = self._to_device(make_epoch_batches(test, config.batch_size))
+
+    @classmethod
+    def _horizon_unsupported_reason(cls) -> str | None:
+        """Why ``round_horizon > 1`` is refused for this class (None: it is
+        taken), in the JAX session's words: only the FedAvg round program
+        and the sessions that extend it to their own (FedOBD) fuse."""
+        if cls is not SpmdFedAvgSession:
+            return (
+                "round_horizon > 1 requires a fusable round program;"
+                f" {cls.__name__} builds its own round function —"
+                " run it with round_horizon=1"
+            )
+        return None
 
     def _to_device(self, batches: dict) -> dict[str, torch.Tensor]:
         """Host batches on the device (``engine/batching.py::stage_batches``)."""
@@ -278,40 +306,62 @@ class SpmdFedAvgSession:
         params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
         return self.engine.layout.flatten(params)
 
+    #: the rows' dtype (None: the compute dtype, as the client trained)
+    _upload_dtype: torch.dtype | None = None
+
+    def _row_width(self, size: int) -> int:
+        """Values in a client's row of the K1 input for ``size`` parameters."""
+        return size
+
     def run_round(
         self, global_vec: torch.Tensor, weights: np.ndarray, round_number: int = 1
     ) -> torch.Tensor:
-        """One FedAvg round: the new f32 master from ``global_vec``."""
+        """One round: the new f32 master from ``global_vec``."""
         engine = self.engine
         start = global_vec.to(self.model_ctx.compute_dtype)  # once per round
+        work = torch.empty_like(start)
         mb = self.chunk_size()
-        size = global_vec.numel()
+        width = self._row_width(global_vec.numel())
         # rows start on 128-byte boundaries, so K1 reads 16-byte vectors
-        row_stride = -(-size // 64) * 64
-        rows = torch.empty(mb, row_stride, dtype=start.dtype, device=self.device)[:, :size]
-        acc = torch.zeros_like(global_vec)
+        row_stride = -(-width // 64) * 64
+        rows = torch.empty(mb, row_stride, dtype=self._upload_dtype or start.dtype, device=self.device)
+        rows = rows[:, :width]
+        acc = torch.zeros(width, device=self.device)
         w = torch.from_numpy(weights).to(self.device)  # one host->device copy a round
         for c0 in range(0, self.n_slots, mb):
             for j in range(mb):
                 slot = c0 + j
-                rows[j].copy_(start)
                 if weights[slot] == 0:  # unselected: contributes exactly 0
+                    rows[j].zero_()
                     continue
+                work.copy_(start)
                 val = None
                 if self._val_data is not None:
                     val = {k: v[slot] for k, v in self._val_data.items()}
                 scan_local_epochs(
                     engine,
                     self.config.epoch,
-                    rows[j],
+                    work,
                     {k: v[slot] for k, v in self._data.items()},
                     self._counts[slot],
                     val,
                     dropout_generator(self.config.seed, round_number, slot, self.device),
                 )
-                if self.quantization_level is not None:
-                    self._paq_upload(rows[j], start, round_number - 1, slot)
+                with torch.no_grad():
+                    self._upload(rows[j], work, start, global_vec, round_number - 1, slot)
             acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
+        return self._finish(acc, weights)
+
+    def _upload(self, row, trained, start, g, aggregate: int, slot: int) -> None:
+        """A trained client's row: its parameters ``trained`` (fed_paq:
+        through :meth:`_paq_upload` against the round's start, the
+        compute-dtype ``start``; ``g`` is the f32 master)."""
+        row.copy_(trained)
+        if self.quantization_level is not None:
+            self._paq_upload(row, start, aggregate, slot)
+
+    def _finish(self, acc: torch.Tensor, weights: np.ndarray) -> torch.Tensor:
+        """The new master from the weighted sum of the rows."""
         return acc / max(float(weights.sum()), 1e-12)
 
     def _paq_upload(self, row: torch.Tensor, start: torch.Tensor, aggregate: int, slot: int) -> None:

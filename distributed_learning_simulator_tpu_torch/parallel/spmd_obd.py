@@ -26,6 +26,12 @@ f32 broadcast, training from one compute-dtype cast of it (bf16 under
 participation; phase 2 seeds from those (a fresh state for a client never
 selected) and carries them through every epoch.  The phases follow the
 same ``ObdRoundDriver`` the threaded server consults.
+
+``round_horizon`` H > 1 (the JAX session's fused dispatch of H
+aggregates of one phase, clamped to the phase's budget) runs aggregate by
+aggregate, as the FedAvg session does: the H = 1 run, bit for bit, every
+phase switch on a horizon boundary.  With ``early_stop`` it warns, as the
+JAX session does when it falls back to per-round running.
 """
 
 import math
@@ -40,7 +46,7 @@ from ..method.fed_obd.obd_algorithm import get_module_blocks
 from ..models.convert import to_jax
 from ..models.dropout import dropout_generator
 from ..ops.pytree import flat_stack_weighted_sum
-from ..ops.quantization import nnadq_quantize_dequantize, qsgd_quantize_dequantize
+from ..ops.quantization import nnadq_quantize_dequantize_leaves, qsgd_quantize_dequantize_leaves
 from ..utils.logging import get_logger
 from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs_carry
 
@@ -51,6 +57,10 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
 
     supported_algorithm_kwargs = SUPPORTED_ALGORITHM_KWARGS | {"dropout_rate", "second_phase_epoch", "early_stop"}
     _uses_val_policy = False
+
+    @classmethod
+    def _horizon_unsupported_reason(cls) -> str | None:
+        return None  # the phases fuse (JAX: the session's own horizon programs)
 
     def __init__(self, *args, codec: str = "nnadq", **kwargs) -> None:
         super().__init__(*args, **kwargs)
@@ -72,23 +82,35 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
             self._block_sizes[block_of[leaf.key]] += leaf.size
         self._leaf_block = [block_of[leaf.key] for leaf in self._jax_leaves]
         self._total_params = float(self._block_sizes.sum())
+        # the codecs take every leaf of a message at once, in the layout's order
+        self._layout_order = sorted(range(len(self._jax_leaves)), key=lambda i: self._jax_leaves[i].start)
+        self._layout_lengths = [self._jax_leaves[i].size for i in self._layout_order]
+        self._layout_position = np.argsort(self._layout_order)  # JAX index -> layout position
+        self._layout_sizes = torch.tensor(self._layout_lengths, dtype=torch.float32, device=self.device)
         self._threshold = np.float32((1.0 - self._dropout_rate) * self._total_params)
         #: each slot's optimizer state after its last participation (None: never)
         self._opt_states: list = [None] * self.n_slots
         self._aggregates = 0  # aggregates run so far: the codec draws' stream
 
     # ------------------------------------------------------------ codec
-    def _code(self, x: torch.Tensor, i: int, aggregate: int, slot: int | None):
-        """Leaf ``i`` (JAX order) of ``x``, a flat f32 slice in the port's
-        layout, through the codec: ``(dequantized, bits)``."""
+    def _code(self, x: torch.Tensor, aggregate: int, slot: int | None, kept: list[int]):
+        """A message through the codec, every leaf at once: ``x`` a flat f32
+        vector in the port's layout, ``kept`` the leaves (JAX indices) that
+        travel, ``slot`` the sender (None: the broadcast).  Returns
+        ``(dequantized, each leaf's bits a value in layout order)``; the
+        values of leaves not kept are undefined.  QSGD draws each kept
+        leaf's uniforms in the JAX layout's flat order."""
         if self._codec == "nnadq":
-            return nnadq_quantize_dequantize(x, self._nnadq_weight)
-        leaf = self._jax_leaves[i]
-        xj = leaf.to_jax(x)
-        uniform = self._random.session_uniform(
-            self.config.seed, aggregate, slot, i, len(self._jax_leaves), xj.shape, self.device
-        )
-        return leaf.from_jax(qsgd_quantize_dequantize(xj, uniform, self._level)), self._qsgd_bits
+            return nnadq_quantize_dequantize_leaves(x, self._layout_lengths, self._nnadq_weight)
+        uniform = torch.zeros_like(x)
+        for i in kept:
+            leaf = self._jax_leaves[i]
+            drawn = self._random.session_uniform(
+                self.config.seed, aggregate, slot, i, len(self._jax_leaves), (leaf.size,), self.device
+            )
+            uniform[leaf.start : leaf.stop] = leaf.from_jax(drawn.to(self.device))
+        coded = qsgd_quantize_dequantize_leaves(x, uniform, self._layout_lengths, self._level)
+        return coded, self._qsgd_bits.expand(len(self._jax_leaves))
 
     def keep_blocks(self, delta: torch.Tensor) -> np.ndarray:
         """The greedy block selection under the parameter budget for one
@@ -111,7 +133,17 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                 keep[block] = True
         return keep
 
-    def _upload(self, row: torch.Tensor, work: torch.Tensor, g: torch.Tensor, phase_two: bool,
+    def _message_bits(self, leaf_bits: torch.Tensor, kept: list[int]) -> torch.Tensor:
+        """A message's bits from each leaf's bits a value (layout order) over
+        the ``kept`` leaves (JAX indices, in JAX order), summed in f32 in
+        that order as the JAX session sums them."""
+        weighted = leaf_bits * self._layout_sizes
+        bits = torch.zeros((), device=self.device)
+        for i in kept:
+            bits += weighted[int(self._layout_position[i])]
+        return bits
+
+    def _obd_upload(self, row: torch.Tensor, work: torch.Tensor, g: torch.Tensor, phase_two: bool,
                 aggregate: int, slot: int) -> torch.Tensor:
         """A client's f32 upload into ``row`` from its trained ``work``
         against the f32 broadcast ``g``: kept leaves (every leaf in phase
@@ -119,28 +151,21 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         upload's bits (an f32 scalar on the device)."""
         torch.sub(work.to(torch.float32), g, out=row)  # the change, then the upload in place
         keep = None if phase_two else self.keep_blocks(row)
-        bits = torch.zeros((), device=self.device)
-        for i, leaf in enumerate(self._jax_leaves):
-            piece, base = row[leaf.start : leaf.stop], g[leaf.start : leaf.stop]
-            if keep is not None and not keep[self._leaf_block[i]]:
-                piece.copy_(base)
-                continue
-            coded, leaf_bits = self._code(piece, i, aggregate, slot)
-            torch.add(base, coded, out=piece)
-            bits += leaf_bits * leaf.size
-        return bits
+        kept = [i for i in range(len(self._jax_leaves)) if keep is None or keep[self._leaf_block[i]]]
+        coded, leaf_bits = self._code(row, aggregate, slot, kept)
+        torch.add(g, coded, out=row)
+        for i in sorted(set(range(len(self._jax_leaves))) - set(kept)):
+            leaf = self._jax_leaves[i]
+            row[leaf.start : leaf.stop] = g[leaf.start : leaf.stop]
+        return self._message_bits(leaf_bits, kept)
 
     # ------------------------------------------------------------ one aggregate
     @torch.no_grad()
     def _broadcast(self, exact: torch.Tensor, aggregate: int) -> tuple[torch.Tensor, torch.Tensor]:
-        """The codec's broadcast of the exact average, leaf by leaf, and its bits."""
-        bcast = torch.empty_like(exact)
-        bits = torch.zeros((), device=self.device)
-        for i, leaf in enumerate(self._jax_leaves):
-            coded, leaf_bits = self._code(exact[leaf.start : leaf.stop], i, aggregate, None)
-            bcast[leaf.start : leaf.stop] = coded
-            bits += leaf_bits * leaf.size
-        return bcast, bits
+        """The codec's broadcast of the exact average and its bits."""
+        every = list(range(len(self._jax_leaves)))
+        bcast, leaf_bits = self._code(exact, aggregate, None, every)
+        return bcast, self._message_bits(leaf_bits, every)
 
     def run_aggregate(self, g: torch.Tensor, weights: np.ndarray, key: int, phase_two: bool):
         """One aggregate from the f32 broadcast ``g``: every slot of weight
@@ -178,7 +203,7 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                     generator=dropout_generator(config.seed, key, slot, self.device),
                 )
                 with torch.no_grad():
-                    upload_bits += self._upload(rows[j], work, g, phase_two, aggregate, slot)
+                    upload_bits += self._obd_upload(rows[j], work, g, phase_two, aggregate, slot)
             acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
         exact = acc / max(float(weights.sum()), 1e-12)
         bcast, bcast_bits = self._broadcast(exact, aggregate)
@@ -199,6 +224,12 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         save_dir = os.path.join(config.save_dir, "server")
         os.makedirs(save_dir, exist_ok=True)
         driver = ObdRoundDriver.from_config(config)
+        if self.round_horizon > 1 and driver.early_stop:
+            get_logger().warning(
+                "round_horizon=%d with early_stop: the plateau decision needs each round's test"
+                " metric on host before the next round may run — running per-round (H=1)",
+                self.round_horizon,
+            )
         train_vec = self._init_global_params()
         exact, key, tick = None, 0, 0
         while not driver.finished:

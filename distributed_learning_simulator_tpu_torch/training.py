@@ -7,7 +7,8 @@ executors:
 * ``executor: auto`` or ``spmd``: the single-device sessions of
   :data:`SPMD_SESSION_BUILDERS`: FedAvg and fed_paq
   (``parallel/spmd.py``), fed_obd and fed_obd_sq
-  (``parallel/spmd_obd.py``);
+  (``parallel/spmd_obd.py``), fed_dropout_avg and single_model_afd
+  (``parallel/spmd_sparse.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
   endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
@@ -38,6 +39,7 @@ from .models import create_model_context
 from .models.registry import ModelContext
 from .parallel.spmd import SpmdFedAvgSession
 from .parallel.spmd_obd import SpmdFedOBDSession
+from .parallel.spmd_sparse import SpmdFedDropoutAvgSession, SpmdSMAFDSession
 from .practitioner import create_practitioners
 from .topology.central_topology import CentralTopology
 from .utils.device import resolve_device
@@ -66,6 +68,14 @@ def _session_fed_obd(config, args):
     return SpmdFedOBDSession(*args, codec=codec)
 
 
+def _session_fed_dropout_avg(config, args):
+    return SpmdFedDropoutAvgSession(*args)
+
+
+def _session_smafd(config, args):
+    return SpmdSMAFDSession(*args)
+
+
 #: algorithm name -> SPMD session builder (the JAX package's table, for
 #: the methods the port runs on it)
 SPMD_SESSION_BUILDERS = {
@@ -73,6 +83,8 @@ SPMD_SESSION_BUILDERS = {
     "fed_paq": _session_fed_paq,
     "fed_obd": _session_fed_obd,
     "fed_obd_sq": _session_fed_obd,
+    "fed_dropout_avg": _session_fed_dropout_avg,
+    "single_model_afd": _session_smafd,
 }
 
 

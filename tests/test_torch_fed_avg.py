@@ -177,15 +177,18 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
     for change in (
         {"distributed_algorithm": "sign_SGD"},
-        {"distributed_algorithm": "fed_dropout_avg"},
-        {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2}},
+        {"distributed_algorithm": "fed_dropout_avg", "executor": "sequential", "algorithm_kwargs": {"dropout_rate": 0.3}},
+        {"distributed_algorithm": "single_model_afd", "executor": "sequential", "algorithm_kwargs": {"dropout_rate": 0.3}},
+        {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2, "population_store": "streamed"}},
         {"distributed_algorithm": "fed_paq", "executor": "sequential"},
         {"distributed_algorithm": "fed_obd", "executor": "sequential", "algorithm_kwargs": obd},
         {"distributed_algorithm": "fed_obd_sq", "executor": "sequential", "algorithm_kwargs": obd},
         {"executor": "sequential", "algorithm_kwargs": {"aggregation_mode": "buffered"}},
         {"executor": "sequential", "algorithm_kwargs": {"float64_parity": True}},
-        {"algorithm_kwargs": {"round_horizon": 2}},
+        {"algorithm_kwargs": {"round_horizon": 2, "selection_gather": True}},
         {"algorithm_kwargs": {"population_store": "streamed"}},
+        {"extra_hyper_parameters": {"donate_buffers": True}},
+        {"extra_hyper_parameters": {"remat_policy": "save_only_these_names"}},
         {"model_name": "bert_base"},
         {
             "model_name": "TransformerClassificationModel",
@@ -196,9 +199,10 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
         config = tconfig.DistributedTrainingConfig(**{**base, **change})
         with pytest.raises(NotImplementedError):
             torch_train(config, device="cpu")
-    # the shipped FedOBD files that fuse rounds (round_horizon: 5)
+    # the shipped FedOBD files that fuse rounds (round_horizon: 5) on more
+    # than one device (the other four run: tests/test_torch_sparse_shipped.py)
     monkeypatch.chdir(tmp_path)
-    for name in ("cifar10", "cifar100", "cifar100_sq", "imdb", "longcontext_imdb_sp", "moe_imdb_ep"):
+    for name in ("longcontext_imdb_sp", "moe_imdb_ep"):
         config = tconfig.load_config(["--config-name", f"large_scale/fed_obd/{name}.yaml"])
         assert int(config.algorithm_kwargs["round_horizon"]) == 5
         with pytest.raises(NotImplementedError):

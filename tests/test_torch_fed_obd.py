@@ -107,6 +107,52 @@ def test_qsgd_quantize_dequantize_matches_jax_given_its_uniforms(level):
         assert got.numpy().tobytes() == want.tobytes(), (level, n)
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nnadq_over_leaves_equals_leaf_by_leaf(seed):
+    """The sessions' one-pass NNADQ over a message's leaves
+    (``nnadq_quantize_dequantize_leaves``) is the one-leaf function on
+    each, bit for bit: values and bit widths, over leaves of 1 to 20,000
+    values, constant and zero ones among them."""
+    rng = np.random.RandomState(seed)
+    lengths = [int(rng.choice([1, 2, 3, 100, 1000, 4097, 20000])) for _ in range(25)]
+    parts = []
+    for n in lengths:
+        kind = rng.randint(4)
+        v = (rng.randn(n) * 10.0 ** rng.uniform(-5, 1)).astype(np.float32)
+        if kind < 2:
+            v[:] = (1.5, 0.0)[kind]  # a constant leaf, a zero one
+        parts.append(v)
+    x = torch.from_numpy(np.concatenate(parts))
+    for weight in (0.01, 0.03, 0.5):
+        out, bits = tq.nnadq_quantize_dequantize_leaves(x, lengths, weight)
+        start = 0
+        for i, n in enumerate(lengths):
+            want, want_bits = tq.nnadq_quantize_dequantize(x[start : start + n], weight)
+            assert out[start : start + n].numpy().tobytes() == want.numpy().tobytes(), (i, n, weight)
+            assert float(bits[i]) == float(want_bits), (i, n, weight)
+            start += n
+
+
+@pytest.mark.parametrize("level", [255, 15])
+def test_qsgd_over_leaves_equals_leaf_by_leaf(level):
+    """The sessions' one-pass QSGD (``qsgd_quantize_dequantize_leaves``) is
+    the one-leaf function on each leaf given the same uniforms, bit for
+    bit, one-value leaves (their own association) and zero leaves among
+    them."""
+    rng = np.random.RandomState(level)
+    lengths = [int(rng.choice([1, 2, 3, 100, 1000, 4097])) for _ in range(30)] + [1]
+    parts = [(rng.randn(n) * 10.0 ** rng.uniform(-4, 0)).astype(np.float32) for n in lengths]
+    parts[3][:] = 0.0
+    x = torch.from_numpy(np.concatenate(parts))
+    uniform = torch.from_numpy(rng.uniform(size=x.numel()).astype(np.float32))
+    out = tq.qsgd_quantize_dequantize_leaves(x, uniform, lengths, level)
+    start = 0
+    for i, n in enumerate(lengths):
+        want = tq.qsgd_quantize_dequantize(x[start : start + n], uniform[start : start + n], level)
+        assert out[start : start + n].numpy().tobytes() == want.numpy().tobytes(), (i, n)
+        start += n
+
+
 def test_jax_leaf_order_round_trips_a_convolution():
     """``JaxLeaf.to_jax`` puts a kernel's values in the JAX layout's flat
     order (HWIO), and ``from_jax`` takes them back."""
@@ -380,7 +426,7 @@ def test_densenet40_phase1_upload_matches_a_jax_per_leaf_reference(tmp_path):
     ])
     p = g + noise
     row = torch.empty_like(g)
-    bits = session._upload(row, p, g, phase_two=False, aggregate=0, slot=0)
+    bits = session._obd_upload(row, p, g, phase_two=False, aggregate=0, slot=0)
 
     layout = session.engine.layout
     jg = {k: jnp.asarray(v) for k, v in convert.to_jax(layout.split(g)).items()}
@@ -466,7 +512,10 @@ def test_obd_session_raises_without_cuda_unless_cpu_is_asked(tmp_path, monkeypat
 @pytest.mark.parametrize(
     "change",
     [
-        {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "round_horizon": 2}},
+        # round_horizon runs; with the streamed population store (which
+        # large_scale/fed_avg/mnist_streamed_population.yaml pairs it with) it does not
+        {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "round_horizon": 2,
+                              "population_store": "streamed"}},
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "selection_gather": True}},
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "resume_dir": "x"}},
         {"fault_tolerance": {"update_guard": True}},
