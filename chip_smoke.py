@@ -24,7 +24,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    plain numpy version), and at the edge shapes
    the kernels must cover (K2/K3 at 1 to 24 bits), and time
    kernel (K2-K5: their device time from the profiler, since a wrapper
-   call's host cost is of its size), plain version, bound and one library
+   call's host cost is of its size; K1 also at the sign-SGD vote's and the
+   Shapley subset's DenseNet-40 shapes, the vote exact), plain version,
+   bound and one library
    call where one exists (a yardstick only: the port never calls it); K4,
    K5 and K6-K11 also check which kernel each case ran
    (``short_attention.fwd_route`` / ``bwd_route``: wgmma or FMA;
@@ -51,19 +53,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    whole (``check_obd_task_against_cpu``); and a DenseNet-40
    fed_dropout_avg and a single_model_afd task (``conf/fed_dropout_avg/cifar10.yaml``
    and ``conf/smafd/cifar10.yaml`` cut the same way, 1 round; their keep
-   masks drawn on the host: ``host_draws``);
+   masks drawn on the host: ``host_draws``); a DenseNet-40 sign_SGD task
+   (``conf/sign_sgd/cifar10.yaml`` cut to 2 clients x 16 samples, 2
+   epochs: each step's vote in lockstep, differing only by the flips a
+   near-zero gradient allows, ``check_sign_sgd_task_against_cpu``) and a
+   DenseNet-40 GTG task (``conf/gtg_sv/cifar10.yaml`` cut to 3 clients x 16
+   samples and 64 test samples: the trained rows, every subset's metric
+   and the Shapley values, ``check_shapley_task_against_cpu``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
-   ``client_chunk`` 2, ``use_amp``) for 2 rounds, then one more training
-   round under ``torch.profiler``; then ``train()`` on the long-context
+   ``client_chunk`` 2, ``use_amp``) for 2 rounds; then ``train()`` on the long-context
    configuration (``lc_config``: imdb at max_len 8192, d_model 512, 8
    heads, 6 layers, 8 clients, ``use_amp``) for 2 rounds and on
    ``CausalLMTransformer`` for 1 round, with K6/K7/K8 launches checked
-   exactly (and all on the wgmma kernels), then one long-context training
-   round under the profiler; then one full-width f32 long-context round
-   (``use_amp`` off: K9-K11, every forward, dq and dk/dv launch on the
-   3xTF32 kernels) and one more under the profiler;
+   exactly (and all on the wgmma kernels); then one full-width f32
+   long-context round (``use_amp`` off: K9-K11, every forward, dq and
+   dk/dv launch on the 3xTF32 kernels) (the profiles of these rounds and
+   of 4f's went in PR 13 for the script's time: their numbers stand in
+   ``PERF.md`` from earlier runs);
    every K4 and K5 launch of the ViT and
    fed_obd_sq main paths must take the Hopper forward and backward;
    then the threaded executor on ``conf/fed_obd_sq/vit_cifar100.yaml``
@@ -71,7 +79,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    for 1 round and 2 tuning epochs, with K2/K3 launches checked against
    the count the protocol gives (``expected_qsgd_launches``); then
    ``conf/fed_avg/cifar10.yaml`` (DenseNet-40, 10 workers, 5 local
-   epochs) as shipped but for ``round`` (2), and ``imdb.yaml``,
+   epochs) as shipped but for ``round`` (1), and ``imdb.yaml``,
    ``imagenet.yaml`` and ``mnist.yaml`` for 1 round each, with K1's
    launches checked exactly; then (4e) the SPMD
    session on the source paper's method as shipped but for ``round`` and
@@ -84,16 +92,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    its 100-client geometry (``LARGE_OBD_FILES``: ``conf/large_scale/fed_obd/
    {cifar10,cifar100,cifar100_sq,imdb}.yaml``, 100 workers, 50 selected,
    ``round_horizon`` 5, ``remat_policy: dots_saveable``) as shipped but for
-   5 rounds and 2 tuning epochs, each record's phase and K1's launches
-   checked exactly, then one phase-1 round of the DenseNet-40 file under
-   the profiler; the horizon's parity (the DenseNet-40 file's run, made
+   5 rounds and 2 tuning epochs (the DenseNet-40 file) or 1 (the others),
+   each record's phase and K1's launches checked exactly; the horizon's parity (the DenseNet-40 file's run, made
    with cuDNN deterministic, against two runs of it at ``round_horizon`` 1:
    H = 5 no further from H = 1 than H = 1 from itself) and remat's (one
    phase-1 round of the DenseNet-40 and the classifier files without, with
    and again without ``dots_saveable``: peak memory, round time, and the
    remat round held to the plain rounds' spread); and the 12 FedDropoutAvg
    and SMAFD files (``SPARSE_FILES``) for one round each (the 100-worker
-   ones at 1 local epoch), K1 checked exactly;
+   ones at 1 local epoch), K1 checked exactly; then (4g) the three sign_SGD
+   files (``SIGN_SGD_FILES``) at 2 local epochs, K1 once a step
+   (``round x epoch x n_batches``), and the eight Shapley-value files
+   (``SHAPLEY_FILES``: GTG, hierarchical, multi-round) at 1 local epoch
+   for 1 round (the two LeNet5 files 2), each round's subsets and their
+   seconds printed, K1 once a subset and once a round, and a profiled GTG
+   round (training and 16 subset metrics);
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -133,6 +146,8 @@ CNN_CHUNK = 5
 #: the shipped files of the CNN zoo and the text classifier that 4d runs
 CNN_MAIN = "fed_avg/cifar10.yaml"
 CNN_EXTRA = ("fed_avg/imdb.yaml", "fed_avg/imagenet.yaml", "fed_avg/mnist.yaml")
+#: the client slots of the shipped sign-SGD and Shapley DenseNet-40 files
+SV_SLOTS = 10
 
 
 def check(cond: bool, message: str) -> None:
@@ -327,33 +342,52 @@ def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = 
 def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
     """K1 against its plain version: the ViT round's [2, D] chunk in bf16
     and f32 and the DenseNet-40 round's [5, D] chunk in f32 (rows on a
-    padded stride, as the session lays them out), an unaligned stride, and
-    a ragged small case.  The row's numbers are the ViT chunk's in bf16;
-    ``densenet40`` holds the DenseNet chunk's, by device time."""
+    padded stride, as the session lays them out), an unaligned stride, a
+    ragged small case, and the two DenseNet-40 shapes of the sign-SGD and
+    Shapley sessions at their 10 slots: a step's vote (bf16 rows of -1, 0
+    and +1, 0/1 weights: the sum must be exact) and a subset's stack (f32
+    rows, a subset's mask times the dataset sizes).  The row's numbers are
+    the ViT chunk's in bf16; ``densenet40``, ``sign_vote`` and
+    ``shapley_subset`` hold the others', by device time."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
     result = {}
     row_stride = -(-d // 64) * 64
-    cases = [(dtype, c, n, ld) for dtype in (torch.bfloat16, torch.float32)
+    cases = [(dtype, c, n, ld, None) for dtype in (torch.bfloat16, torch.float32)
              for c, n, ld in ((CHUNK, d, row_stride), (CHUNK, d, d), (3, 1001, 1003))]
-    cases.append((torch.float32, CNN_CHUNK, d_cnn, -(-d_cnn // 64) * 64))
-    for dtype, c, n, ld in cases:
-        x = torch.randn(c, ld, generator=gen, device="cuda").to(dtype)[:, :n]
-        w = torch.rand(c, generator=gen, device="cuda") * SAMPLES
+    cnn_stride = -(-d_cnn // 64) * 64
+    cases += [(torch.float32, CNN_CHUNK, d_cnn, cnn_stride, "densenet40"),
+              (torch.bfloat16, SV_SLOTS, d_cnn, cnn_stride, "sign_vote"),
+              (torch.float32, SV_SLOTS, d_cnn, cnn_stride, "shapley_subset")]
+    # the sign-SGD and Shapley shapes draw from their own stream, so the
+    # later checks' inputs are those of the runs before them
+    own = torch.Generator(device="cuda").manual_seed(13)
+    for dtype, c, n, ld, label in cases:
+        draw = own if label in ("sign_vote", "shapley_subset") else gen
+        x = torch.randn(c, ld, generator=draw, device="cuda").to(dtype)[:, :n]
+        w = torch.rand(c, generator=draw, device="cuda") * SAMPLES
+        exact = label == "sign_vote"
+        if exact:  # a step's vote: gradient signs and 0/1 weights
+            x = torch.sign(x)
+            w = (torch.arange(c, device="cuda") % 4 != 3).float()
+        elif label == "shapley_subset":  # a subset's mask times the dataset sizes
+            w = torch.where(torch.arange(c, device="cuda") % 3 == 1, 0.0, torch.floor(w))
         out, ref = wa.weighted_accum(x, w), wa.weighted_accum_plain(x, w)
         torch.cuda.synchronize()
         err = max_err(out, ref)
         # f32 accumulation of exact row values in the same order; fma
-        # versus multiply-then-add moves the last bit or two
-        tol = 1e-6 * max(1.0, float(ref.abs().max()))
-        print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}: max_abs_err {err:.3g} (tol {tol:.3g})")
-        check(err <= tol, f"weighted_accum {dtype} [{c},{n}] err {err}")
+        # versus multiply-then-add moves the last bit or two; a vote's
+        # sums are small integers, exact in f32
+        tol = 0.0 if exact else 1e-6 * max(1.0, float(ref.abs().max()))
+        print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}{' ' + label if label else ''}: max_abs_err {err:.3g}"
+              f" (tol {tol:.3g})")
+        check(err <= tol, f"weighted_accum {dtype} [{c},{n}] {label or ''} err {err}")
         if (dtype, c, n, ld) == (torch.bfloat16, CHUNK, d, row_stride):
             result.update(_k1_numbers(x, w, err))
-        elif (c, n) == (CNN_CHUNK, d_cnn):
-            result["densenet40"] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks)
+        elif label:
+            result[label] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks)
     return result
 
 
@@ -1194,25 +1228,6 @@ def check_short_routes(routes: dict[str, int], k4: int, k5: int, path: str) -> N
     check(routes == want, f"{path} K4/K5 kernels {routes}, want {want}")
 
 
-def profile_round(workdir: str) -> None:
-    """Where a steady round's time goes: a warm-up round, one round timed
-    alone, then one round under ``torch.profiler``."""
-    import torch
-
-    from distributed_learning_simulator_tpu_torch.training import build_session
-
-    session = build_session(dense_config(os.path.join(workdir, "profile"), round=1))
-    vec = session._init_global_params()
-    weights = session._base_weight_row(1)
-    vec = session.run_round(vec, weights)  # warm-up: library handles, autotuning
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    vec = session.run_round(vec, weights)
-    torch.cuda.synchronize()
-    alone = f"training round (no eval) {time.monotonic() - t0:.3f} s alone"
-    _profiled(lambda: session.run_round(vec, weights), "", alone, "training round (no eval)")
-
-
 # ------------------------------------------------------- long-context slice
 LC_WORKERS, LC_SAMPLES, LC_TEST, LC_ROUNDS = 8, 16, 32, 2
 
@@ -1392,24 +1407,12 @@ def run_long_context_main_path(workdir: str) -> tuple[dict[str, int], float]:
     return total, round_seconds
 
 
-def profile_long_context_round(workdir: str, round_seconds: float) -> None:
-    """One training round of the long-context configuration under the
-    profiler, in a fresh session on the warm process."""
-    from distributed_learning_simulator_tpu_torch.training import build_session
-
-    session = build_session(lc_config(os.path.join(workdir, "lc_profile"), round=1))
-    vec = session._init_global_params()
-    alone = f"main path round {LC_ROUNDS} (eval included) {round_seconds:.3f} s"
-    weights = session._base_weight_row(1)
-    _profiled(lambda: session.run_round(vec, weights), " (long context)", alone, "training round (no eval)")
-
-
 def run_long_context_f32_round(workdir: str) -> dict[str, int]:
     """One full-width f32 round of the long-context configuration
     (``lc_config`` with ``use_amp`` off: T 8192 in f32 is the stream tier,
     K9-K11 in every attention layer), its launches checked exactly (every
-    forward, dq and dk/dv launch on the 3xTF32 kernels); then one more
-    round under the profiler.  Returns the launches."""
+    forward, dq and dk/dv launch on the 3xTF32 kernels).  Returns the
+    launches."""
     import numpy as np
     import torch
 
@@ -1441,10 +1444,6 @@ def run_long_context_f32_round(workdir: str) -> dict[str, int]:
     check(launches["K6"] == launches["K7"] == launches["K8"] == 0, f"f32 round one-level launches {launches}")
     want = {"fwd/tf32x3": launches["K9"], "dq/tf32x3": launches["K10"], "dkv/tf32x3": launches["K11"]}
     check(routes == want, f"f32 round kernel families {routes}, want {want}")
-    vec = session._init_global_params()
-    weights = session._base_weight_row(1)
-    alone = f"f32 round 1 (eval included) {last['round_seconds']:.3f} s"
-    _profiled(lambda: session.run_round(vec, weights), " (long context, f32)", alone, "training round (no eval)")
     return launches
 
 
@@ -2209,22 +2208,22 @@ def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
 
 
 # ------------------------------------------- the shipped conf/fed_avg files
-def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
-    """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40) as shipped
-    but for ``round`` (2), then on ``imdb.yaml`` (the text classifier),
-    ``imagenet.yaml`` (ResNet-18) and ``mnist.yaml`` (LeNet5) for 1 round
-    each, at full width; checks each run's K1 launches exactly (a chunk of
-    ``CNN_CHUNK`` clients at a time) and that no other kernel ran.
-    Returns the launches of all four runs and the CIFAR-10 round-2 time."""
+def run_shipped_configs(workdir: str) -> dict[str, int]:
+    """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40),
+    ``imdb.yaml`` (the text classifier), ``imagenet.yaml`` (ResNet-18) and
+    ``mnist.yaml`` (LeNet5) as shipped but for ``round`` (1), at full
+    width; checks each run's K1 launches exactly (a chunk of ``CNN_CHUNK``
+    clients at a time) and that no other kernel ran.  Returns the launches
+    of all four runs."""
     import numpy as np
     import torch
 
     from distributed_learning_simulator_tpu_torch.training import train
 
     _reset_launches()
-    total, round_seconds = {}, 0.0
-    for name, rounds in ((CNN_MAIN, ROUNDS), *((extra, 1) for extra in CNN_EXTRA)):
-        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds)
+    total = {}
+    for name in (CNN_MAIN, *CNN_EXTRA):
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1)
         before = _read_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by earlier phases, still alive
@@ -2235,8 +2234,6 @@ def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
         moved = {kid: total[kid] - before[kid] for kid in total}
         last = perf[config.round]
         peak = (torch.cuda.max_memory_allocated() - held) / 2**30
-        if name == CNN_MAIN:
-            round_seconds = last["round_seconds"]
         print(
             f"main path {name} ({config.model_name}, {config.worker_number} workers, batch"
             f" {config.batch_size}, {config.epoch} epochs): {config.round} rounds in {wall:.2f} s (setup"
@@ -2252,7 +2249,7 @@ def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
         others = [kid for kid, n in moved.items() if n and kid != "K1"]
         check(not others, f"{name}: kernels off this path launched: {others}")
         check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
-    return total, round_seconds
+    return total
 
 
 # ------------------- 4f: round_horizon, remat_policy, FedDropoutAvg and SMAFD
@@ -2263,7 +2260,9 @@ def run_shipped_configs(workdir: str) -> tuple[dict[str, int], float]:
 #: (two tuning epochs: the carried optimizer states and the phase-2 keys
 #: taken past one epoch), the switch on a boundary (a host-bound round
 #: takes 3-6 s, and the host's speed varies by machine: the depth the
-#: script can afford)
+#: script can afford).  The DenseNet-40 file, whose run is also the horizon
+#: parity's, takes ``LARGE_OBD_TUNING`` tuning epochs, the others 1 (PR 13
+#: cut them for the script's time)
 LARGE_OBD_FILES = (
     "large_scale/fed_obd/cifar10.yaml",
     "large_scale/fed_obd/cifar100.yaml",
@@ -2350,8 +2349,9 @@ def deterministic_convolutions():
 
 def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on each of ``LARGE_OBD_FILES`` at full width for
-    ``LARGE_OBD_ROUNDS`` rounds and ``LARGE_OBD_TUNING`` tuning epochs, the
-    launch counters set to 0 just before each and read just after: every
+    ``LARGE_OBD_ROUNDS`` rounds and ``LARGE_OBD_TUNING`` tuning epochs (the
+    others 1), the launch counters set to 0 just before each and read just
+    after: every
     record and its phase, the peak memory, and K1's launches
     checked exactly (``expected_obd_k1``: 100 slots in chunks of
     ``CNN_CHUNK``); no other kernel.  The first file runs with cuDNN on
@@ -2365,11 +2365,12 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
 
     total, records = {}, {}
     for name in LARGE_OBD_FILES:
+        parity = name == LARGE_OBD_FILES[0]
+        tuning = LARGE_OBD_TUNING if parity else 1
         config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=LARGE_OBD_ROUNDS,
-                                **{"algorithm_kwargs.second_phase_epoch": LARGE_OBD_TUNING})
+                                **{"algorithm_kwargs.second_phase_epoch": tuning})
         check(int(config.algorithm_kwargs["round_horizon"]) == 5, f"{name}: round_horizon {config.algorithm_kwargs}")
         check(config.extra_hyper_parameters == {"remat_policy": "dots_saveable"}, f"{name}: {config.extra_hyper_parameters}")
-        parity = name == LARGE_OBD_FILES[0]
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by earlier phases, still alive
@@ -2385,7 +2386,7 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
             f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
             f" {config.algorithm_kwargs['random_client_number']} selected, round_horizon 5, remat_policy"
             f" dots_saveable{', deterministic cuDNN' if parity else ''}): {LARGE_OBD_ROUNDS} rounds +"
-            f" {LARGE_OBD_TUNING} tuning epochs in {wall:.2f} s (setup included); peak"
+            f" {tuning} tuning epochs in {wall:.2f} s (setup included); peak"
             f" memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
         )
         for key, row in sorted(perf.items()):
@@ -2397,7 +2398,7 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
             check(np.isfinite(row["test_loss"]), f"{name} record {key} test loss {row['test_loss']}")
             check(0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {key} accuracy {row['test_accuracy']}")
         phases = [row["phase"] for _, row in sorted(perf.items())]
-        want = ["block_dropout_rounds"] * LARGE_OBD_ROUNDS + ["epoch_tune"] * LARGE_OBD_TUNING
+        want = ["block_dropout_rounds"] * LARGE_OBD_ROUNDS + ["epoch_tune"] * tuning
         check(phases == want, f"{name} phases {phases}")
         k1 = expected_obd_k1(len(perf), config.worker_number, CNN_CHUNK)
         check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
@@ -2535,22 +2536,320 @@ def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
     return total, records
 
 
-def profile_large_obd_round(workdir: str, records: dict) -> None:
-    """Where a ``large_scale/fed_obd/cifar10.yaml`` phase-1 round's time goes
-    (50 DenseNet-40 clients x 1 step, remat, NNADQ uploads and broadcast,
-    K1): one round in a fresh session under ``torch.profiler`` (the same
-    round unprofiled is ``check_remat``'s ``dots_saveable`` round)."""
+# --------------------------- 3 and 4g: sign-SGD and the Shapley-value methods
+#: the card's and the CPU's gradients of one DenseNet-40 step part by up
+#: to GRAD_TOL of a leaf's largest magnitude (2.65e-3 in a card run:
+#: cuDNN's and the CPU's f32 convolutions sum in other orders through 40
+#: layers), so a gradient element within FLIP_TAU of its leaf's largest
+#: may take either sign on the two devices and flip a vote (measured: up
+#: to 1.23e-4)
+GRAD_TOL, FLIP_TAU = 1e-2, 1e-3
+#: the card's and the CPU's trained rows after a GTG task's 5 local epochs
+#: at lr 0.1 part by up to ROW_TOL of a row's largest value (first card
+#: runs: 2.14e-4 after 5 epochs, 2.55e-5 after 2: the gradients' parting
+#: above, grown through the steps)
+ROW_TOL = 1e-3
+#: the shipped sign-SGD files, as shipped but for their 100 local epochs
+SIGN_SGD_FILES = ("sign_sgd/cifar10.yaml", "sign_sgd/cifar100.yaml", "sign_sgd/imdb.yaml")
+SIGN_SGD_EPOCHS = 2
+#: the shipped Shapley files and the rounds each runs, at 1 local epoch;
+#: the two LeNet5 files run 2 rounds (the between-round truncation and the
+#: carried ``last_round_metric``)
+SHAPLEY_FILES = (
+    ("gtg_sv/cifar10.yaml", 1),
+    ("gtg_sv/cifar100.yaml", 1),
+    ("gtg_sv/imdb.yaml", 1),
+    ("gtg_sv/mnist.yaml", 2),
+    ("hierarchical_sv/cifar10.yaml", 1),
+    ("hierarchical_sv/mnist.yaml", 2),
+    ("multiround_sv/cifar10.yaml", 1),
+    ("multiround_sv/cifar100.yaml", 1),
+)
+
+
+def _cut_task(name: str, workers: int, test_size: int, **overrides):
+    """``conf/<name>`` cut to ``workers`` clients x 16 samples and a test
+    set of ``test_size``, 1 round, its other settings as shipped."""
+
+    def make_config(save_dir: str):
+        sizes = {"train_size": 16 * workers, "val_size": 16, "test_size": test_size}
+        fields = {"round": 1, "worker_number": workers, **overrides}
+        fields.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
+        return shipped_config(name, save_dir, **fields)
+
+    return make_config
+
+
+def check_sign_sgd_task_against_cpu(workdir: str) -> None:
+    """``conf/sign_sgd/cifar10.yaml`` (DenseNet-40, f32) cut to 2 clients x
+    16 samples, batch 8, 2 local epochs, 1 round, from the port's init:
+
+    * in lockstep, every step from the CPU's parameters: each voter's
+      gradient on the card within ``GRAD_TOL`` of the CPU's (relative to
+      its leaf's largest magnitude); each device's vote (K1 over the bf16
+      signs on the card) exactly ``sign(sum_c w_c * sign(g_c))`` of its own
+      gradients; where the votes differ (a "flip", counted), a voter's
+      gradient signs differ between the devices and its CPU gradient is
+      within ``FLIP_TAU`` of its leaf's largest; and the card's update
+      from the CPU's direction equal to the CPU's within 1e-6;
+    * ``train()`` on both: the record's test loss and train curves within
+      1e-2 (relative), as the CPU tests hold the port to JAX through flips."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    make_config = _cut_task(SIGN_SGD_FILES[0], 2, 32, epoch=2, batch_size=8)
+    sessions = {device: build_session(make_config(os.path.join(workdir, f"sign_lockstep_{device}")), device=device)
+                for device in ("cuda", "cpu")}
+    cpu, card = sessions["cpu"], sessions["cuda"]
+    layout = cpu.engine.layout
+    params = layout.flatten(cpu.engine.init_params(cpu.config.seed))
+    velocity = torch.zeros_like(params)
+    weights = cpu.round_weights(1)
+    votes = {k: s.new_votes(layout.size) for k, s in sessions.items()}
+    w = {k: torch.from_numpy(weights).to(s.device) for k, s in sessions.items()}
+    schedule = cpu.engine.hyper_parameter.make_schedule(cpu.config.epoch * cpu.n_batches)
+    generators = {slot: None for slot in range(cpu.n_slots)}  # DenseNet-40 has no dropout
+    flips, ratio, grad_rel, update_err, step = [], 0.0, 0.0, 0.0, 0
+    # deterministic cuDNN: the card's gradients taken again for the check
+    # are those its vote took
+    with deterministic_convolutions():
+        for i in [i for _ in range(cpu.config.epoch) for i in range(cpu.n_batches)]:
+            want = cpu.vote(params, votes["cpu"], w["cpu"], weights, i, generators)
+            got = card.vote(params.cuda(), votes["cuda"], w["cuda"], weights, i, generators).cpu()
+            # each voter's gradients on both devices: how far apart, and how
+            # near 0 (over its leaf's largest) on the CPU
+            near = torch.full_like(params, float("inf"))
+            near_views = layout.split(near)
+            signs = [torch.zeros_like(params), torch.zeros_like(params)]  # CPU's, card's
+            split = torch.zeros_like(params, dtype=torch.bool)  # a voter's signs differ
+            for slot in np.flatnonzero(weights):
+                if cpu._counts[slot][i] <= 0:
+                    continue
+                grads = [s.engine.loss_and_grad(p, {k: v[slot, i] for k, v in s._data.items()})[1].cpu()
+                         for s, p in ((cpu, params), (card, params.cuda()))]
+                for total, grad in zip(signs, grads):
+                    total += float(weights[slot]) * torch.sign(grad)
+                split |= torch.sign(grads[0]) != torch.sign(grads[1])
+                card_views = layout.split(grads[1])
+                for key, piece in layout.split(grads[0]).items():
+                    scale = piece.abs().max().clamp_min(1e-30)
+                    grad_rel = max(grad_rel, float((card_views[key] - piece).abs().max() / scale))
+                    torch.minimum(near_views[key], piece.abs() / scale, out=near_views[key])
+            check(torch.equal(want, torch.sign(signs[0])), f"sign_SGD step {step}: the CPU's vote is not its signs' vote")
+            check(torch.equal(got, torch.sign(signs[1])), f"sign_SGD step {step}: the card's vote is not its signs' vote")
+            differ = got != want
+            check(not (differ & ~split).any(), f"sign_SGD step {step}: votes differ where no voter's signs do")
+            if differ.any():
+                ratio = max(ratio, float(near[differ].max()))
+            flips.append(int(differ.sum()))
+            p, v = params.cuda(), velocity.cuda()
+            card.update(p, v, want.cuda(), schedule(step))
+            cpu.update(params, velocity, want, schedule(step))
+            update_err = max(update_err, float((p.cpu() - params).abs().max()), float((v.cpu() - velocity).abs().max()))
+            step += 1
+    perf = {device: train(make_config(os.path.join(workdir, f"sign_{device}")), device=device)["performance"][1]
+            for device in ("cuda", "cpu")}
+    rel = max(
+        float(np.max(np.abs(np.atleast_1d(perf["cuda"][key]) - np.atleast_1d(perf["cpu"][key]))
+                     / np.maximum(np.abs(np.atleast_1d(perf["cpu"][key])), 1e-6)))
+        for key in ("test_loss", "train_loss_per_epoch", "train_accuracy_per_epoch")
+    )
+    print(
+        f"small task (DenseNet-40 sign_SGD, 2 clients, {step} steps) card vs CPU, in lockstep: gradients apart by"
+        f" {grad_rel:.3g} of a leaf's largest at most (GRAD_TOL {GRAD_TOL}); vote flips {flips} of {layout.size},"
+        f" each where a voter's |g| is within {ratio:.3g} of its leaf's largest (FLIP_TAU {FLIP_TAU}); update max"
+        f" |diff| {update_err:.3g}; by train(): test loss {perf['cuda']['test_loss']:.6f} vs"
+        f" {perf['cpu']['test_loss']:.6f}, train loss per epoch {perf['cuda']['train_loss_per_epoch']} vs"
+        f" {perf['cpu']['train_loss_per_epoch']} (rel {rel:.2g})"
+    )
+    check(grad_rel <= GRAD_TOL, f"small task (DenseNet-40 sign_SGD): card and CPU gradients {grad_rel} apart")
+    check(ratio <= FLIP_TAU, f"small task (DenseNet-40 sign_SGD): a vote differs off the flip rule ({ratio})")
+    check(update_err <= 1e-6, f"small task (DenseNet-40 sign_SGD): card and CPU updates disagree ({update_err})")
+    check(rel <= 1e-2, f"small task (DenseNet-40 sign_SGD): card and CPU records disagree ({rel})")
+
+
+def check_shapley_task_against_cpu(workdir: str) -> None:
+    """``conf/gtg_sv/cifar10.yaml`` (DenseNet-40, f32, GTG) cut to 3 clients
+    x 16 samples and a test set of 64, 1 round of the shipped 5 local
+    epochs, from the port's init, by the session's ``run`` on the CPU and
+    on the card:
+
+    * the trained rows (``train_stack``) within ``ROW_TOL`` of the row's
+      largest value;
+    * in lockstep, every subset the CPU evaluated evaluated again on the
+      card on the CPU's stack: equal ``correct`` counts and test losses
+      within 1e-5 (relative);
+    * how many of the card run's subsets match the CPU's counts is printed,
+      and where every one does, the same subsets were visited and the SV
+      dicts are equal."""
+    import torch
+
     from distributed_learning_simulator_tpu_torch.training import build_session
 
-    name = LARGE_OBD_FILES[0]
-    session = build_session(shipped_config(name, os.path.join(workdir, "large_obd_profile"), round=1,
-                                           **{"algorithm_kwargs.second_phase_epoch": 1}))
+    runs = {}
+    for device in ("cpu", "cuda"):
+        session = build_session(_cut_task(SHAPLEY_FILES[0][0], 3, 64)(os.path.join(workdir, f"gtg_{device}")),
+                                device=device)
+        stacks = []
+        train_stack = session.train_stack
+        session.train_stack = lambda g, r, fn=train_stack: stacks.append(fn(g, r)) or stacks[-1]
+        result = session.run()
+        runs[device] = (session, stacks[0], result)
+    (cpu, cpu_stack, cpu_result), (card, card_stack, card_result) = runs["cpu"], runs["cuda"]
+    card_stack = card_stack.cpu()
+    row_rel = max(float((card_stack[c] - cpu_stack[c]).abs().max() / cpu_stack[c].abs().max())
+                  for c in range(cpu_stack.shape[0]))
+    want, got = cpu.subset_results[1], card.subset_results.pop(1)
+    matched = sum(k in got and got[k][1:] == want[k][1:] for k in want)
+    same = matched == len(want) == len(got)
+    subsets = sorted(want)
+    card._metric_many(cpu_stack.cuda(), card._base_weight_row(1), 1)(subsets)
+    again = card.subset_results[1]
+    lockstep = sum(again[k][1:] == want[k][1:] for k in subsets)
+    loss_rel = max(abs(again[k][0] - want[k][0]) / abs(want[k][0]) for k in subsets)
+    print(
+        f"small task (DenseNet-40 GTG, 3 clients, 1 round) card vs CPU: trained rows rel {row_rel:.3g} (ROW_TOL"
+        f" {ROW_TOL}); in lockstep (the CPU's stack) {lockstep} of {len(subsets)} subsets with equal correct"
+        f" counts, test loss rel {loss_rel:.3g}; by run(): {len(got)} vs {len(want)} subsets evaluated, {matched}"
+        f" with equal counts; sv {card_result['sv'][1]} vs {cpu_result['sv'][1]}"
+    )
+    check(row_rel <= ROW_TOL, f"small task (DenseNet-40 GTG): trained rows {row_rel} apart")
+    check(lockstep == len(subsets) and loss_rel <= 1e-5, "small task (DenseNet-40 GTG): subset metrics disagree")
+    check(not same or (card_result["sv"] == cpu_result["sv"] and card_result["sv_S"] == cpu_result["sv_S"]),
+          "small task (DenseNet-40 GTG): equal subset counts but other Shapley values")
+    del runs, cpu, card
+    torch.cuda.empty_cache()
+
+
+def run_sign_sgd_files(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``SIGN_SGD_FILES`` at full width, as shipped
+    but for ``SIGN_SGD_EPOCHS`` local epochs, the launch counters set to 0
+    just before each and read just after: the round's time and its time a
+    step (eval included), the peak memory, the train curves, and K1's
+    launches checked exactly (one a step: ``round x epoch x n_batches``);
+    no other kernel.  Returns the launches of all runs and the records."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    total, records = {}, {}
+    for name in SIGN_SGD_FILES:
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), epoch=SIGN_SGD_EPOCHS)
+        n_batches = build_session(config).n_batches  # the steps an epoch, from the staged data
+        torch.cuda.empty_cache()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        steps = config.round * config.epoch * n_batches
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
+            f" {config.epoch} epochs of {n_batches} steps): {config.round} round in {wall:.2f} s (setup included);"
+            f" peak memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
+        )
+        for key, row in sorted(perf.items()):
+            print(
+                f"  round {key}: {row['round_seconds']:.3f} s, {row['round_seconds'] / (config.epoch * n_batches) * 1e3:.1f}"
+                f" ms a step (eval included); test loss {row['test_loss']:.4f} accuracy {row['test_accuracy']:.4f};"
+                f" train loss per epoch {[round(v, 4) for v in row['train_loss_per_epoch']]}, accuracy"
+                f" {[round(v, 4) for v in row['train_accuracy_per_epoch']]}"
+            )
+            check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+            check(len(row["train_loss_per_epoch"]) == config.epoch, f"{name} train curve {row}")
+        check(sorted(perf) == list(range(1, config.round + 1)), f"{name} records {sorted(perf)}")
+        check(launches["K1"] == steps, f"{name} K1 launches {launches['K1']}, want {steps}")
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        check(os.path.isfile(os.path.join(config.save_dir, "server", "best_global_model.npz")), f"{name}: no best model")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+    return total, records
+
+
+def run_shapley_files(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``SHAPLEY_FILES`` at full width, as shipped but
+    for the rounds named there and 1 local epoch (the engines' own settings
+    as shipped), the launch counters set to 0 just before each and read
+    just after: each round's subsets evaluated, the seconds they took and
+    the round's seconds, the peak memory, the SV dicts over every worker
+    each round, both JSON records written, and K1's launches checked
+    exactly (once a subset and once a round's aggregate); no other kernel.
+    Returns the launches of all runs and the records."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    total, records = {}, {}
+    for name, rounds in SHAPLEY_FILES:
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds, epoch=1)
+        torch.cuda.empty_cache()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        result = train(config)
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        perf = result["performance"]
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
+            f" {config.epoch} epoch, sv_kwargs {config.algorithm_kwargs.get('sv_kwargs', {})}): {config.round} rounds"
+            f" in {wall:.2f} s (setup included); peak memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held"
+            f" before it; launches {launches}"
+        )
+        for key, row in sorted(perf.items()):
+            print(
+                f"  round {key}: {row['subsets']} subsets evaluated in {row['subset_seconds']:.3f} s, round"
+                f" {row['round_seconds']:.3f} s; test loss {row['test_loss']:.4f} accuracy {row['test_accuracy']:.4f};"
+                f" sv {({w: round(v, 5) for w, v in result['sv'][key].items()})}"
+            )
+            check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+            check(sorted(result["sv"][key]) == list(range(config.worker_number)), f"{name} round {key} sv {result['sv']}")
+        check(sorted(perf) == list(range(1, config.round + 1)), f"{name} records {sorted(perf)}")
+        k1 = sum(row["subsets"] + 1 for row in perf.values())
+        check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        for record in ("shapley_values.json", "shapley_values_S.json"):
+            check(os.path.isfile(os.path.join(config.save_dir, record)), f"{name}: no {record}")
+        check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+    return total, records
+
+
+def profile_shapley_round(workdir: str) -> None:
+    """Where a ``gtg_sv/cifar10.yaml`` round's time goes: the 10 clients'
+    epoch (``train_stack``) and 16 subset metrics (the prefixes of two
+    permutations) under ``torch.profiler``, in a fresh session."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    session = build_session(shipped_config(SHAPLEY_FILES[0][0], os.path.join(workdir, "gtg_profile"), round=1,
+                                           epoch=1))
     g = session._init_global_params()
     weights = session._base_weight_row(1)
-    main = records[name]["records"]
-    alone = f"main path round 2 {main[2]['round_seconds']:.3f} s (eval included)"
-    _profiled(lambda: session.run_aggregate(g, weights, 1, phase_two=False), " (large-scale fed_obd DenseNet-40 phase 1)",
-              alone, "phase-1 round (no eval)", host_ops=10)
+    order = np.random.default_rng(0).permutation(SV_SLOTS).tolist()
+    subsets = [tuple(order[: k + 1]) for k in range(8)] + [tuple(order[::-1][: k + 1]) for k in range(8)]
+
+    def round_work():
+        stack = session.train_stack(g, 1)
+        session._metric_many(stack, weights, 1)(subsets)
+
+    _profiled(round_work, " (GTG DenseNet-40: 10 clients x 1 epoch, 16 subset metrics)",
+              "subset metrics of the main path above", "training and 16 subsets", host_ops=10)
 
 
 def print_phase_times(marks: list) -> None:
@@ -2635,6 +2934,8 @@ def main(argv: list[str]) -> int:
     check_obd_task_against_cpu(workdir)
     check_small_task_against_cpu(workdir, "DenseNet-40 fed_dropout_avg", sparse_small_task("fed_dropout_avg/cifar10.yaml"))
     check_small_task_against_cpu(workdir, "DenseNet-40 single_model_afd", sparse_small_task("smafd/cifar10.yaml"))
+    check_sign_sgd_task_against_cpu(workdir)
+    check_shapley_task_against_cpu(workdir)
     mark("3 small tasks")
 
     # 4. the main path
@@ -2661,12 +2962,10 @@ def main(argv: list[str]) -> int:
     check(launches["K1"] == ROUNDS * WORKERS // CHUNK, f"K1 launches {launches['K1']}")
     check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
     check_short_routes(short_routes, launches["K4"], launches["K5"], "ViT-small")
-    profile_round(workdir)
     mark("4 ViT")
 
     # 4b. the long-context main path (K6-K8, K1) and its profile
-    lc_launches, lc_round = run_long_context_main_path(workdir)
-    profile_long_context_round(workdir, lc_round)
+    lc_launches, _ = run_long_context_main_path(workdir)
     launches.update({kid: lc_launches[kid] for kid in ("K6", "K7", "K8")})
     launches["K1"] += lc_launches["K1"]
     # the full-width f32 round: K9-K11's main path (the small task's
@@ -2685,22 +2984,21 @@ def main(argv: list[str]) -> int:
     mark("4c threaded fed_obd_sq")
 
     # 4d. the shipped conf/fed_avg files (K1)
-    cnn_launches, _ = run_shipped_configs(workdir)
+    cnn_launches = run_shipped_configs(workdir)
     launches["K1"] += cnn_launches["K1"]
     mark("4d conf/fed_avg")
 
     # 4e. the shipped fed_obd, fed_obd_sq and fed_paq files on the SPMD
-    # session (K1; K4 and K5 on the ViT file) and a profiled phase-1 round
+    # session (K1; K4 and K5 on the ViT file)
     spmd_obd_launches, spmd_obd_records = run_obd_spmd_files(workdir)
     for kid in ("K1", "K4", "K5"):
         launches[kid] += spmd_obd_launches[kid]
     mark("4e SPMD FedOBD, FedOBD-SQ, FedPAQ")
 
-    # 4f. the large-scale FedOBD files (round_horizon 5, remat_policy) and a
-    # profiled phase-1 round of them; horizon parity and remat on the card;
-    # the FedDropoutAvg and SMAFD files (K1 each)
+    # 4f. the large-scale FedOBD files (round_horizon 5, remat_policy);
+    # horizon parity and remat on the card; the FedDropoutAvg and SMAFD
+    # files (K1 each)
     large_launches, large_records = run_large_scale_obd(workdir)
-    profile_large_obd_round(workdir, large_records)
     mark("4f large-scale FedOBD")
     check_horizon_parity(workdir, large_records)
     check_remat(workdir)
@@ -2708,6 +3006,15 @@ def main(argv: list[str]) -> int:
     sparse_launches, _ = run_sparse_files(workdir)
     launches["K1"] += large_launches["K1"] + sparse_launches["K1"]
     mark("4f FedDropoutAvg, SMAFD")
+
+    # 4g. the shipped sign-SGD and Shapley-value files (K1: a vote a step,
+    # a subset's average and a round's aggregate) and a profiled GTG round
+    sign_launches, _ = run_sign_sgd_files(workdir)
+    mark("4g sign_SGD")
+    shapley_launches, _ = run_shapley_files(workdir)
+    profile_shapley_round(workdir)
+    launches["K1"] += sign_launches["K1"] + shapley_launches["K1"]
+    mark("4g Shapley")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

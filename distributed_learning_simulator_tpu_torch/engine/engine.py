@@ -145,6 +145,16 @@ class ComputeEngine:
         schedule, and draws no dropout bits."""
         if count <= 0:
             return None
+        metrics, grad = self.loss_and_grad(flat_params, batch, generator)
+        self.optimizer.step(flat_params, grad, opt_state)
+        return metrics
+
+    def loss_and_grad(
+        self, flat_params: torch.Tensor, batch: dict, generator: torch.Generator | None = None
+    ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+        """The training loss at ``flat_params`` (``{"loss", "correct",
+        "count"}``, on the device) and its flat gradient, a new tensor in
+        the parameters' dtype; the parameters are not touched."""
         leaf = flat_params.detach().requires_grad_(True)
         if self.remat is None:
             loss, aux = self.model_ctx.loss(
@@ -153,8 +163,7 @@ class ComputeEngine:
             loss.backward()
         else:
             loss, aux = self._remat_loss_backward(leaf, batch, generator)
-        self.optimizer.step(flat_params, leaf.grad, opt_state)
-        return {"loss": loss.detach(), "correct": aux["correct"], "count": aux["count"]}
+        return {"loss": loss.detach(), "correct": aux["correct"], "count": aux["count"]}, leaf.grad
 
     def _remat_loss_backward(self, leaf: torch.Tensor, batch: dict, generator):
         """The loss call with its regions checkpointed (the module's

@@ -229,6 +229,7 @@ class SpmdFedAvgSession:
         if self.round_horizon > 1 and reason:
             raise ValueError(reason)
         self.config = config
+        self.practitioners = practitioners
         self.quantization_level = quantization_level
         self._random = config.endpoint_kwargs.get("worker", {}).get("random") or CodecRandom()
         #: the leaves in the JAX package's key order: the codecs' order

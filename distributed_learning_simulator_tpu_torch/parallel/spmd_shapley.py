@@ -1,0 +1,230 @@
+"""Shapley-value methods on one device (the port's ``parallel/spmd_shapley.py``).
+
+GTG-Shapley (``GTG_shapley_value``), multi-round (``multiround_shapley_value``)
+and hierarchical (``Hierarchical_shapley_value``) Shapley values on the
+FedAvg session, with the JAX round program's data flow:
+
+1. every worker trains from the f32 global vector for ``epoch`` local epochs
+   (``scan_local_epochs``, no best-epoch validation), in place in its f32
+   row of an ``[n_slots, D]`` stack whose rows start on 128-byte
+   boundaries.  As in the JAX program, every slot trains whatever the
+   selection; nothing is reduced yet;
+2. the round's engine (``shapley/``, the engine built once, in round 1)
+   asks for subset metrics in batches.  A subset's parameters are kernel
+   K1 over the stack with ``w = mask * weights`` (``weights`` the round's
+   selection row: the selected workers' dataset sizes), divided by
+   ``max(sum(w), 1e-12)``: the sum first, the division second, as in the
+   JAX subset program.  Its metric is ``correct / max(count, 1)`` in f32
+   on the test set, taken ``SUBSET_EVAL_BATCH`` samples at a time: a
+   subset metric is inference only, and the port's models have no batch
+   statistics, so each sample's prediction (hence ``correct``) does not
+   depend on the batch, while a forward at the training batch is bound by
+   the host's launches (the JAX program evaluates at the training batch;
+   the losses part by summation order).  Only the real subsets are
+   evaluated (the JAX program pads a chunk of 16 with dummy masks);
+3. the new global is K1 over the stack with ``agg_mask * dataset_sizes /
+   max(sum, 1e-12)``, normalised first, as the JAX aggregate: ``agg_mask``
+   is every worker, or under ``choose_best_subset`` the round's best
+   subset (the keys of ``shapley_values_S[round]``).
+
+The round-0 test metric is ``_stat[0]`` (in ``round_record.json``, not in
+the returned ``performance``) and seeds the engine's ``last_round_metric``.
+After every round ``shapley_values.json`` and ``shapley_values_S.json`` are
+rewritten under ``save_dir`` through a temp file and ``os.replace``; at the
+end ``aggregated_model/round_N.npz`` holds the last global in JAX keys.
+The session counts the subsets it evaluates a round
+(:attr:`SpmdShapleySession.round_subsets`): K1 launches once a subset and
+once for the round's aggregate.  Resume (``resume_dir``) and round
+checkpoints are not ported (``resume_dir`` raises ``NotImplementedError``
+with every other key the session does not read).
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from .. import shapley
+from ..engine.batching import make_epoch_batches
+from ..ml_type import MachineLearningPhase as Phase
+from ..models.convert import to_jax
+from ..models.dropout import dropout_generator
+from ..ops.pytree import flat_stack_weighted_sum
+from ..utils.logging import get_logger
+from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs
+
+#: test samples a subset metric's forward takes at a time
+SUBSET_EVAL_BATCH = 1024
+
+ENGINE_FOR = {
+    "GTG_shapley_value": "GTGShapleyValue",
+    "multiround_shapley_value": "MultiRoundShapleyValue",
+    "Hierarchical_shapley_value": "HierarchicalShapleyValue",
+}
+
+
+class SpmdShapleySession(SpmdFedAvgSession):
+    """Per-round Shapley values of the workers from subset metrics on the
+    device-resident stack of their trained parameters."""
+
+    supported_algorithm_kwargs = SUPPORTED_ALGORITHM_KWARGS | {
+        "choose_best_subset",
+        "sv_kwargs",
+        *shapley.HIERARCHICAL_CONFIG_KEYS,
+    }
+    _uses_val_policy = False  # its own round program; no val policy
+
+    def __init__(self, config, dataset_collection, *args, **kwargs) -> None:
+        super().__init__(config, dataset_collection, *args, **kwargs)
+        test = dataset_collection.get_dataset(Phase.Test)
+        self._subset_batches = self._to_device(make_epoch_batches(test, min(SUBSET_EVAL_BATCH, len(test))))
+        self._engine_cls = getattr(shapley, ENGINE_FOR[self.config.distributed_algorithm])
+        self._sv_engine = None
+        self.shapley_values: dict[int, dict] = {}
+        self.shapley_values_S: dict[int, dict] = {}
+        #: round -> subsets evaluated, the seconds they took, the round's seconds
+        self.round_subsets: dict[int, int] = {}
+        self.subset_seconds: dict[int, float] = {}
+        #: round -> {subset (sorted tuple): (loss_sum, correct, count)}
+        self.subset_results: dict[int, dict[tuple, tuple[float, float, float]]] = {}
+
+    def train_stack(self, global_vec: torch.Tensor, round_number: int) -> torch.Tensor:
+        """Every slot's parameters after its local epochs from ``global_vec``,
+        as the f32 rows of an ``[n_slots, D]`` stack."""
+        size = global_vec.numel()
+        row_stride = -(-size // 64) * 64  # rows start on 128-byte boundaries
+        stack = torch.empty(self.n_slots, row_stride, dtype=torch.float32, device=self.device)[:, :size]
+        for slot in range(self.n_slots):
+            row = stack[slot]
+            row.copy_(global_vec)
+            scan_local_epochs(
+                self.engine,
+                self.config.epoch,
+                row,
+                {k: v[slot] for k, v in self._data.items()},
+                self._counts[slot],
+                None,
+                dropout_generator(self.config.seed, round_number, slot, self.device),
+            )
+        return stack
+
+    def subset_params(self, stack: torch.Tensor, mask: np.ndarray, weights: np.ndarray) -> torch.Tensor:
+        """A subset's parameters: ``sum_c w_c * stack[c] / max(sum(w), 1e-12)``
+        with ``w = mask * weights``, summed first (K1), divided second."""
+        w = (mask * weights).astype(np.float32)
+        total = max(float(np.sum(w, dtype=np.float32)), 1e-12)
+        return flat_stack_weighted_sum(stack, torch.from_numpy(w).to(self.device)) / total
+
+    def round_aggregate(self, stack: torch.Tensor, agg_mask: np.ndarray) -> torch.Tensor:
+        """The new global: K1 over the stack with the dataset sizes under
+        ``agg_mask``, normalised before the sum."""
+        sizes = (agg_mask * self._dataset_sizes).astype(np.float32)
+        w = sizes / np.float32(max(float(sizes.sum()), 1e-12))
+        return flat_stack_weighted_sum(stack, torch.from_numpy(w).to(self.device))
+
+    def _metric_many(self, stack: torch.Tensor, weights: np.ndarray, round_number: int):
+        """The engine's batch metric: each subset's test accuracy (f32
+        ``correct / max(count, 1)``), read from the device once a call."""
+        results = self.subset_results.setdefault(round_number, {})
+
+        def metric_many(subsets: list) -> list[float]:
+            t0 = time.monotonic()
+            sums = []
+            for subset in subsets:
+                mask = np.zeros(self.n_slots, np.float32)
+                mask[[int(w) for w in subset]] = 1.0
+                params = self.engine.layout.split(self.subset_params(stack, mask, weights))
+                summed = self.engine.evaluate(params, self._subset_batches)
+                sums.append(torch.stack([summed["loss_sum"], summed["correct"], summed["count"]]))
+            host = torch.stack(sums).cpu().numpy() if sums else np.zeros((0, 3), np.float32)
+            out = []
+            for subset, (loss_sum, correct, count) in zip(subsets, host):
+                results[tuple(sorted(int(w) for w in subset))] = (float(loss_sum), float(correct), float(count))
+                out.append(float(correct / np.maximum(count, np.float32(1.0))))
+            self.round_subsets[round_number] = self.round_subsets.get(round_number, 0) + len(subsets)
+            self.subset_seconds[round_number] = self.subset_seconds.get(round_number, 0.0) + time.monotonic() - t0
+            return out
+
+        return metric_many
+
+    def _engine_kwargs(self) -> dict:
+        return shapley.sv_engine_kwargs(
+            self.config, hierarchical=self.config.distributed_algorithm == "Hierarchical_shapley_value"
+        )
+
+    def run(self) -> dict:
+        config = self.config
+        save_dir = os.path.join(config.save_dir, "server")
+        os.makedirs(save_dir, exist_ok=True)
+        global_vec = self._init_global_params()
+        # the engine's round-0 metric (the reference's need_init_performance)
+        self._stat[0] = {f"test_{k}": v for k, v in self._evaluate(global_vec).items()}
+        choose_best = bool(config.algorithm_kwargs.get("choose_best_subset", False))
+        for round_number in range(1, config.round + 1):
+            start = time.monotonic()
+            weights = self._base_weight_row(round_number)
+            stack = self.train_stack(global_vec, round_number)
+            if self._sv_engine is None:
+                self._sv_engine = self._engine_cls(
+                    players=list(range(config.worker_number)),
+                    last_round_metric=self._stat[max(self._stat)]["test_accuracy"],
+                    **self._engine_kwargs(),
+                )
+            metric_many = self._metric_many(stack, weights, round_number)
+            self._sv_engine.set_metric_function(lambda subset, fn=metric_many: fn([subset])[0])
+            self._sv_engine.set_batch_metric_function(metric_many)
+            self.round_subsets[round_number] = 0
+            self._sv_engine.compute(round_number=round_number)
+            # worker ids as ints: the Monte-Carlo branches' subsets hold numpy
+            # integers, which json cannot take as keys (ROADMAP R11)
+            for record, source in (
+                (self.shapley_values, self._sv_engine.shapley_values),
+                (self.shapley_values_S, self._sv_engine.shapley_values_S),
+            ):
+                record[round_number] = {int(w): sv for w, sv in source[round_number].items()}
+            self._dump_sv()
+
+            agg_mask = np.zeros(self.n_slots, np.float32)
+            if choose_best and self.shapley_values_S[round_number]:
+                agg_mask[[int(w) for w in self.shapley_values_S[round_number]]] = 1.0
+                get_logger().info("use subset %s", sorted(self.shapley_values_S[round_number]))
+            else:
+                agg_mask[: config.worker_number] = 1.0
+            global_vec = self.round_aggregate(stack, agg_mask)
+            del stack
+            metric = self._evaluate(global_vec)
+            self._note_round(
+                round_number,
+                metric,
+                save_dir,
+                {
+                    "subsets": self.round_subsets[round_number],
+                    "subset_seconds": self.subset_seconds.get(round_number, 0.0),
+                    "round_seconds": time.monotonic() - start,
+                },
+            )
+        model_dir = os.path.join(config.save_dir, "aggregated_model")
+        os.makedirs(model_dir, exist_ok=True)
+        np.savez(
+            os.path.join(model_dir, f"round_{config.round}.npz"),
+            **to_jax(self.engine.layout.split(global_vec)),
+        )
+        return {
+            "performance": {k: v for k, v in self._stat.items() if k > 0},
+            "sv": self.shapley_values,
+            "sv_S": self.shapley_values_S,
+        }
+
+    def _dump_sv(self) -> None:
+        """Both SV records, rewritten after every round through a temp file
+        and ``os.replace`` (a crash mid-write leaves the last whole file)."""
+        for name, source in (
+            ("shapley_values.json", self.shapley_values),
+            ("shapley_values_S.json", self.shapley_values_S),
+        ):
+            path = os.path.join(self.config.save_dir, name)
+            with open(path + ".tmp", "w", encoding="utf8") as f:
+                json.dump({str(k): v for k, v in source.items()}, f)
+            os.replace(path + ".tmp", path)

@@ -1,0 +1,172 @@
+"""sign-SGD on one device (the port's ``SpmdSignSGDSession``; JAX
+``parallel/spmd.py::SpmdSignSGDSession``).
+
+The JAX session compiles a whole round of steps into one program: at each
+step every client slot takes its gradient on its own batch at the shared
+parameters, the slots vote with the signs, and every client applies the
+same momentum update.  Here the slots are a loop on one GPU, and a round
+resets the step counter and the velocity, so the cosine schedule over
+``epoch * n_batches`` steps restarts every round.  At step index ``i`` of
+each epoch:
+
+1. each participating slot computes its gradient on its batch ``i``
+   (:meth:`~..engine.engine.ComputeEngine.loss_and_grad`: the model call,
+   no optimizer) and writes ``sign(grad)`` into its row of a
+   ``[n_slots, D]`` bf16 stack (-1, 0 and +1 are exact in bf16);
+2. kernel K1 sums the rows once with the 0/1 vote weights
+   (``dataset_sizes > 0``, times the round's selection under
+   ``random_client_number``);
+3. ``direction = sign(total)``, ``v = momentum * v + direction``,
+   ``p = p - lr(step) * v`` in f32, with no weight decay, as in JAX.
+
+The step advances at every batch index, also where a client's batch
+counts 0: that client's row is 0 (no vote), as its zero gradient's sign
+is in the JAX program; the engine's ``train_step`` would skip the batch
+without advancing anything, so the session does not go through it.  The
+record row has the JAX keys (test metrics, and ``train_loss_per_epoch`` /
+``train_accuracy_per_epoch`` summed over the slots, masked by the vote
+weights only under selection) plus ``round_seconds``;
+``server/best_global_model.npz`` is rewritten whenever the test accuracy
+improves.  The initial parameters are ``engine.init_params(seed)``, as in
+JAX (which reads no ``global_model_path``).  ``round_horizon`` H > 1 runs
+its rounds one by one, a record each (the H = 1 run, bit for bit).
+"""
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..models.convert import to_jax
+from ..models.dropout import dropout_generator
+from ..ops.pytree import flat_stack_weighted_sum
+from ..utils.logging import get_logger
+from ..utils.selection import select_workers
+from .spmd import SpmdFedAvgSession
+
+
+class SpmdSignSGDSession(SpmdFedAvgSession):
+    """Majority-vote sign-SGD: one K1 vote over the slots' gradient signs
+    at every optimizer step."""
+
+    supported_algorithm_kwargs = frozenset({"random_client_number", "round_horizon"})
+    _uses_val_policy = False
+
+    @classmethod
+    def _horizon_unsupported_reason(cls) -> str | None:
+        return None  # the JAX session fuses rounds too
+
+    def __init__(self, config, *args, **kwargs) -> None:
+        mode = str(config.algorithm_kwargs.get("aggregation_mode") or "synchronous").lower()
+        if mode == "buffered":  # the JAX session's refusal
+            raise ValueError(
+                "algorithm_kwargs.aggregation_mode=buffered is unsupported here: buffered aggregation"
+                " (aggregation_mode: buffered) applies to round-level uploads; sign_SGD exchanges sign"
+                " votes on every optimizer step and has no round upload to buffer — drop the knob for"
+                " this session"
+            )
+        super().__init__(config, *args, **kwargs)
+        self.n_batches = len(self._counts[0])
+        k = config.algorithm_kwargs.get("random_client_number")
+        self._selection_active = k is not None and int(k) < config.worker_number
+
+    def round_weights(self, round_number: int) -> np.ndarray:
+        """``[n_slots]`` 0/1 vote weights: the workers with data, under
+        ``random_client_number`` only the round's selected ones."""
+        weights = (self._dataset_sizes > 0).astype(np.float32)
+        if self._selection_active:
+            selected = select_workers(
+                self.config.seed,
+                round_number,
+                self.config.worker_number,
+                self.config.algorithm_kwargs.get("random_client_number"),
+            )
+            mask = np.zeros(self.n_slots, np.float32)
+            mask[sorted(selected)] = 1.0
+            weights = weights * mask
+        return weights
+
+    def new_votes(self, size: int) -> torch.Tensor:
+        """The ``[n_slots, size]`` bf16 vote stack, zeroed, its rows on
+        128-byte boundaries."""
+        row_stride = -(-size // 64) * 64
+        return torch.zeros(self.n_slots, row_stride, dtype=torch.bfloat16, device=self.device)[:, :size]
+
+    def vote(self, params, votes, w, weights, i, generators, summed=None) -> torch.Tensor:
+        """Step index ``i``'s direction ``sign(sum_c w_c * sign(grad_c))`` at
+        ``params``: each participating slot's gradient sign in its row of
+        ``votes``, then one K1 launch.  Adds the slots' training metrics to
+        ``summed`` (``[loss_sum, correct, count]``) when given."""
+        for slot in range(self.n_slots):
+            if weights[slot] == 0:
+                continue  # its row stays 0 and its vote weighs 0
+            if self._counts[slot][i] <= 0:
+                votes[slot].zero_()  # a zero gradient: no vote
+                continue
+            batch = {k: v[slot, i] for k, v in self._data.items()}
+            metrics, grad = self.engine.loss_and_grad(params, batch, generators[slot])
+            votes[slot].copy_(grad.sign_())
+            if summed is not None:
+                summed += torch.stack([metrics["loss"] * metrics["count"], metrics["correct"], metrics["count"]])
+        return torch.sign(flat_stack_weighted_sum(votes, w))
+
+    def update(self, params: torch.Tensor, velocity: torch.Tensor, direction: torch.Tensor, lr) -> None:
+        """``v = momentum * v + direction``, ``p = p - lr * v``, in f32, in place."""
+        velocity.mul_(self.engine.hyper_parameter.momentum).add_(direction)
+        params.sub_(velocity * float(lr))
+
+    def run_round(self, params: torch.Tensor, weights: np.ndarray, round_number: int = 1) -> list:
+        """One round of ``epoch * n_batches`` voted steps on the f32
+        ``params`` in place, from a zero velocity and the schedule's start;
+        returns each epoch's summed ``[loss_sum, correct, count]`` (on the
+        device)."""
+        schedule = self.engine.hyper_parameter.make_schedule(self.config.epoch * self.n_batches)
+        velocity = torch.zeros_like(params)
+        votes = self.new_votes(params.numel())
+        w = torch.from_numpy(weights).to(self.device)
+        generators = {
+            slot: dropout_generator(self.config.seed, round_number, slot, self.device)
+            for slot in range(self.n_slots)
+            if weights[slot] != 0
+        }
+        epochs, step = [], 0
+        for _ in range(self.config.epoch):
+            summed = torch.zeros(3, device=self.device)
+            for i in range(self.n_batches):
+                direction = self.vote(params, votes, w, weights, i, generators, summed)
+                self.update(params, velocity, direction, schedule(step))
+                step += 1
+            epochs.append(summed)
+        return epochs
+
+    def run(self) -> dict:
+        config = self.config
+        save_dir = os.path.join(config.save_dir, "server")
+        os.makedirs(save_dir, exist_ok=True)
+        params = self.engine.layout.flatten(
+            {k: v.to(self.device, torch.float32) for k, v in self.engine.init_params(config.seed).items()}
+        )
+        best_acc = -1.0
+        for round_number in range(1, config.round + 1):
+            start = time.monotonic()
+            epochs = self.run_round(params, self.round_weights(round_number), round_number)
+            metric = self._evaluate(params)
+            sums = torch.stack(epochs).cpu().numpy()  # [epoch, 3] f32
+            count = np.maximum(sums[:, 2], np.float32(1.0))
+            extra = {
+                "train_loss_per_epoch": (sums[:, 0] / count).tolist(),
+                "train_accuracy_per_epoch": (sums[:, 1] / count).tolist(),
+                "round_seconds": time.monotonic() - start,
+            }
+            self._note_round(round_number, metric, save_dir, extra)
+            if metric["accuracy"] > best_acc:
+                best_acc = metric["accuracy"]
+                np.savez(
+                    os.path.join(save_dir, "best_global_model.npz"),
+                    **to_jax(self.engine.layout.split(params)),
+                )
+        get_logger().info(
+            "sign_SGD: %d rounds of %d steps (torch)", config.round, config.epoch * self.n_batches
+        )
+        return {"performance": self._stat}

@@ -8,7 +8,10 @@ executors:
   :data:`SPMD_SESSION_BUILDERS`: FedAvg and fed_paq
   (``parallel/spmd.py``), fed_obd and fed_obd_sq
   (``parallel/spmd_obd.py``), fed_dropout_avg and single_model_afd
-  (``parallel/spmd_sparse.py``);
+  (``parallel/spmd_sparse.py``), sign_SGD (``parallel/spmd_sign_sgd.py``),
+  and the three Shapley-value methods ``GTG_shapley_value``,
+  ``multiround_shapley_value`` and ``Hierarchical_shapley_value``
+  (``parallel/spmd_shapley.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
   endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
@@ -39,6 +42,8 @@ from .models import create_model_context
 from .models.registry import ModelContext
 from .parallel.spmd import SpmdFedAvgSession
 from .parallel.spmd_obd import SpmdFedOBDSession
+from .parallel.spmd_shapley import SpmdShapleySession
+from .parallel.spmd_sign_sgd import SpmdSignSGDSession
 from .parallel.spmd_sparse import SpmdFedDropoutAvgSession, SpmdSMAFDSession
 from .practitioner import create_practitioners
 from .topology.central_topology import CentralTopology
@@ -76,15 +81,27 @@ def _session_smafd(config, args):
     return SpmdSMAFDSession(*args)
 
 
+def _session_sign_sgd(config, args):
+    return SpmdSignSGDSession(*args)
+
+
+def _session_shapley(config, args):
+    return SpmdShapleySession(*args)
+
+
 #: algorithm name -> SPMD session builder (the JAX package's table, for
 #: the methods the port runs on it)
 SPMD_SESSION_BUILDERS = {
     "fed_avg": _session_fed_avg,
     "fed_paq": _session_fed_paq,
+    "sign_SGD": _session_sign_sgd,
     "fed_obd": _session_fed_obd,
     "fed_obd_sq": _session_fed_obd,
     "fed_dropout_avg": _session_fed_dropout_avg,
     "single_model_afd": _session_smafd,
+    "GTG_shapley_value": _session_shapley,
+    "multiround_shapley_value": _session_shapley,
+    "Hierarchical_shapley_value": _session_shapley,
 }
 
 
@@ -295,6 +312,19 @@ def run_task(ctx: TaskContext) -> dict:
     return result
 
 
+def _remap_sv(result: dict, practitioners) -> dict:
+    """The Shapley sessions' per-round dicts keyed by practitioner id, not
+    worker id (the JAX package's ``train``)."""
+    practitioner_of = {p.worker_id: p.practitioner_id for p in practitioners}
+    for key in ("sv", "sv_S"):
+        if key in result:
+            result[key] = {
+                round_number: {practitioner_of[int(w)]: value for w, value in round_sv.items()}
+                for round_number, round_sv in result[key].items()
+            }
+    return result
+
+
 def train(
     config: DistributedTrainingConfig, practitioners=None, device: str | None = None
 ) -> dict:
@@ -302,6 +332,6 @@ def train(
     if resolve_executor(config) == "sequential":
         return run_task(build_task(config, practitioners, device))
     session = build_session(config, practitioners, device)
-    result = session.run()
+    result = _remap_sv(session.run(), session.practitioners)
     get_logger().info("training done on %s (%d rounds)", session.device, len(result["performance"]))
     return result
