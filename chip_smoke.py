@@ -25,7 +25,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the kernels must cover (K2/K3 at 1 to 24 bits), and time
    kernel (K2-K5: their device time from the profiler, since a wrapper
    call's host cost is of its size; K1 also at the sign-SGD vote's and the
-   Shapley subset's DenseNet-40 shapes, the vote exact), plain version,
+   Shapley subset's DenseNet-40 shapes, the vote exact, and at the graph
+   session's round aggregate, ``[50, 9,231]`` f32), plain version,
    bound and one library
    call where one exists (a yardstick only: the port never calls it); K4,
    K5 and K6-K11 also check which kernel each case ran
@@ -59,7 +60,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    near-zero gradient allows, ``check_sign_sgd_task_against_cpu``) and a
    DenseNet-40 GTG task (``conf/gtg_sv/cifar10.yaml`` cut to 3 clients x 16
    samples and 64 test samples: the trained rows, every subset's metric
-   and the Shapley values, ``check_shapley_task_against_cpu``);
+   and the Shapley values, ``check_shapley_task_against_cpu``); and a
+   fed_gnn task (``conf/fed_gnn/cs.yaml`` cut to 4 workers and a 512-node
+   graph, 2 rounds, its minibatches, fan-in priorities and dropout masks
+   drawn on the host: every round's parameters and test loss within
+   ``GNN_TOL``, ``received_mb`` equal, ``check_gnn_task_against_cpu``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -105,8 +110,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``round x epoch x n_batches``), and the eight Shapley-value files
    (``SHAPLEY_FILES``: GTG, hierarchical, multi-round) at 1 local epoch
    for 1 round (the two LeNet5 files 2), each round's subsets and their
-   seconds printed, K1 once a subset and once a round, and a profiled GTG
-   round (training and 16 subset metrics);
+   seconds printed, K1 once a subset and once a round (no profiled GTG
+   round, for the script's time: its numbers stand in ``PERF.md``); then
+   (4h) the eight graph files
+   (``GNN_FILES``: ``conf/fed_gnn/*``, ``conf/fed_gcn/cs.yaml``,
+   ``conf/fed_aas/{cora,PubMed,dblp,reddit}.yaml``) as shipped but for 2
+   rounds, each round's time, time a step, ``received_mb`` and accuracy
+   and the peak memory printed, K1 once a round; ``conf/fed_aas/yelp.yaml``
+   must raise the JAX package's KeyError; and a profiled
+   ``fed_gnn/cs.yaml`` round;
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -148,6 +160,8 @@ CNN_MAIN = "fed_avg/cifar10.yaml"
 CNN_EXTRA = ("fed_avg/imdb.yaml", "fed_avg/imagenet.yaml", "fed_avg/mnist.yaml")
 #: the client slots of the shipped sign-SGD and Shapley DenseNet-40 files
 SV_SLOTS = 10
+#: the client slots of the shipped conf/fed_gnn files (TwoGCN on Coauthor_CS)
+GNN_SLOTS = 50
 
 
 def check(cond: bool, message: str) -> None:
@@ -339,16 +353,18 @@ def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = 
     return {**row, "shape": f"[{c}, {n}] {dtype}"}
 
 
-def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
+def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) -> dict:
     """K1 against its plain version: the ViT round's [2, D] chunk in bf16
     and f32 and the DenseNet-40 round's [5, D] chunk in f32 (rows on a
     padded stride, as the session lays them out), an unaligned stride, a
-    ragged small case, and the two DenseNet-40 shapes of the sign-SGD and
+    ragged small case, the two DenseNet-40 shapes of the sign-SGD and
     Shapley sessions at their 10 slots: a step's vote (bf16 rows of -1, 0
     and +1, 0/1 weights: the sum must be exact) and a subset's stack (f32
-    rows, a subset's mask times the dataset sizes).  The row's numbers are
-    the ViT chunk's in bf16; ``densenet40``, ``sign_vote`` and
-    ``shapley_subset`` hold the others', by device time."""
+    rows, a subset's mask times the dataset sizes), and the graph
+    session's round aggregate (``conf/fed_gnn/cs.yaml``: TwoGCN's 9,231
+    f32 values on 50 slots, an odd width the row stride pads).  The row's
+    numbers are the ViT chunk's in bf16; ``densenet40``, ``sign_vote``,
+    ``shapley_subset`` and ``fed_gnn`` hold the others', by device time."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
@@ -360,12 +376,13 @@ def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
     cnn_stride = -(-d_cnn // 64) * 64
     cases += [(torch.float32, CNN_CHUNK, d_cnn, cnn_stride, "densenet40"),
               (torch.bfloat16, SV_SLOTS, d_cnn, cnn_stride, "sign_vote"),
-              (torch.float32, SV_SLOTS, d_cnn, cnn_stride, "shapley_subset")]
-    # the sign-SGD and Shapley shapes draw from their own stream, so the
-    # later checks' inputs are those of the runs before them
+              (torch.float32, SV_SLOTS, d_cnn, cnn_stride, "shapley_subset"),
+              (torch.float32, GNN_SLOTS, d_gnn, -(-d_gnn // 64) * 64, "fed_gnn")]
+    # the sign-SGD, Shapley and graph shapes draw from their own stream, so
+    # the earlier cases' inputs are those of the runs before them
     own = torch.Generator(device="cuda").manual_seed(13)
     for dtype, c, n, ld, label in cases:
-        draw = own if label in ("sign_vote", "shapley_subset") else gen
+        draw = own if label in ("sign_vote", "shapley_subset", "fed_gnn") else gen
         x = torch.randn(c, ld, generator=draw, device="cuda").to(dtype)[:, :n]
         w = torch.rand(c, generator=draw, device="cuda") * SAMPLES
         exact = label == "sign_vote"
@@ -374,6 +391,8 @@ def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
             w = (torch.arange(c, device="cuda") % 4 != 3).float()
         elif label == "shapley_subset":  # a subset's mask times the dataset sizes
             w = torch.where(torch.arange(c, device="cuda") % 3 == 1, 0.0, torch.floor(w))
+        elif label == "fed_gnn":  # the slots' node counts
+            w = torch.floor(w)
         out, ref = wa.weighted_accum(x, w), wa.weighted_accum_plain(x, w)
         torch.cuda.synchronize()
         err = max_err(out, ref)
@@ -387,7 +406,8 @@ def check_weighted_accum(d: int, d_cnn: int, gen, yardsticks: bool) -> dict:
         if (dtype, c, n, ld) == (torch.bfloat16, CHUNK, d, row_stride):
             result.update(_k1_numbers(x, w, err))
         elif label:
-            result[label] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks)
+            # the graph shape: the library call by device time too, beside the kernel's
+            result[label] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks or label == "fed_gnn")
     return result
 
 
@@ -1170,6 +1190,9 @@ def _kernel_group(name: str) -> str:
         return "norms (LayerNorm, GroupNorm)"
     if "CatArray" in name:
         return "concatenation (torch.cat)"
+    if any(k in name for k in ("indexFunc", "indexSelect", "index_elementwise", "scatter_gather", "radixSort",
+                               "RadixSort", "segmented_sort", "sort_", "searchsorted")):
+        return "gathers, scatters, sorts"
     return "elementwise, reductions, copies"
 
 
@@ -2281,15 +2304,16 @@ SPARSE_FILES = tuple(
 
 
 def host_draws():
-    """A codec random source that makes the port's own draws on the host
-    and moves them to the device: a task then draws the same keep masks on
-    the card as on the CPU (a generator on the card draws another stream)."""
-    from distributed_learning_simulator_tpu_torch.ops.quantization import CodecRandom
+    """A random source (codec and graph) that makes the port's own draws on
+    the host and moves them to the device: a task then draws the same keep
+    masks, minibatches, fan-in priorities and dropout masks on the card as
+    on the CPU (a generator on the card draws another stream)."""
+    from distributed_learning_simulator_tpu_torch.ops.graph_sampling import GraphRandom
 
-    class HostDraws(CodecRandom):
+    class HostDraws(GraphRandom):
         @staticmethod
         def _uniform(entropy, shape, device):
-            return CodecRandom._uniform(entropy, shape, "cpu").to(device)
+            return GraphRandom._uniform(entropy, shape, "cpu").to(device)
 
     return HostDraws()
 
@@ -2829,27 +2853,144 @@ def run_shapley_files(workdir: str) -> tuple[dict[str, int], dict]:
     return total, records
 
 
-def profile_shapley_round(workdir: str) -> None:
-    """Where a ``gtg_sv/cifar10.yaml`` round's time goes: the 10 clients'
-    epoch (``train_stack``) and 16 subset metrics (the prefixes of two
-    permutations) under ``torch.profiler``, in a fresh session."""
+# ------------------------------------------------------------ graph FL slice
+#: the shipped graph files (phase 4h), as shipped but for ``GNN_ROUNDS``
+#: (two: fed_aas's between-round resample and the best-model write run);
+#: the ninth, ``conf/fed_aas/yelp.yaml``, names a dataset neither package
+#: registers and must raise the JAX package's KeyError
+GNN_FILES = (
+    "fed_gnn/cs.yaml",
+    "fed_gnn/yelp.yaml",
+    "fed_gnn/amazonproduct.yaml",
+    "fed_gcn/cs.yaml",
+    "fed_aas/cora.yaml",
+    "fed_aas/PubMed.yaml",
+    "fed_aas/dblp.yaml",
+    "fed_aas/reddit.yaml",
+)
+GNN_ROUNDS = 2
+#: the phase-3 fed_gnn task, card against CPU: every round's parameters
+#: (relative to each leaf's largest) and test loss (relative); f32 on both,
+#: the scatter-adds summed in other orders (atomics on the card)
+GNN_TOL = 1e-4
+
+
+def gnn_small_task(save_dir: str):
+    """``conf/fed_gnn/cs.yaml`` cut to 4 workers and a 512-node graph, 2
+    rounds of 1 epoch, with ``batch_number``, ``num_neighbor``,
+    ``edge_drop_rate`` and ``share_feature`` as shipped and every draw
+    (minibatches, fan-in priorities, dropout) made on the host."""
+    config = shipped_config(GNN_FILES[0], save_dir, round=2, worker_number=4, **{"dataset_kwargs.num_nodes_": 512})
+    config.endpoint_kwargs.setdefault("worker", {})["random"] = host_draws()
+    return config
+
+
+def check_gnn_task_against_cpu(workdir: str) -> None:
+    """:func:`gnn_small_task` by ``train()`` on the card and on the CPU
+    (K1's plain version), from the port's own init (drawn on the CPU):
+    every round's ``aggregated_model/round_N.npz`` and test loss within
+    ``GNN_TOL``, ``received_mb`` equal."""
     import numpy as np
 
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    results = {}
+    for device in ("cuda", "cpu"):
+        config = gnn_small_task(os.path.join(workdir, f"gnn_{device}"))
+        perf = train(config, device=device)["performance"]
+        results[device] = (perf, {r: _final_params(config, r) for r in perf})
+    (gpu_perf, gpu_params), (cpu_perf, cpu_params) = results["cuda"], results["cpu"]
+    check(sorted(gpu_perf) == sorted(cpu_perf) == [1, 2], f"fed_gnn task records {sorted(gpu_perf)}")
+    params = max(
+        float(np.abs(gpu_params[r][k] - want).max() / np.abs(want).max())
+        for r in cpu_params for k, want in cpu_params[r].items()
+    )
+    loss = max(abs(gpu_perf[r]["test_loss"] - cpu_perf[r]["test_loss"]) / abs(cpu_perf[r]["test_loss"])
+               for r in cpu_perf)
+    mb = [(gpu_perf[r]["received_mb"], cpu_perf[r]["received_mb"]) for r in cpu_perf]
+    print(
+        f"small task (fed_gnn Coauthor_CS, 4 workers, 512 nodes) card vs CPU: test loss"
+        f" {[round(gpu_perf[r]['test_loss'], 6) for r in (1, 2)]} vs"
+        f" {[round(cpu_perf[r]['test_loss'], 6) for r in (1, 2)]} (rel {loss:.3g}), parameters {params:.3g} apart"
+        f" (relative, every round), received_mb {mb}"
+    )
+    check(all(a == b > 0 for a, b in mb), f"fed_gnn task received_mb {mb}")
+    check(params <= GNN_TOL and loss <= GNN_TOL, "fed_gnn task: card and CPU disagree")
+
+
+def run_gnn_files(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on each of ``GNN_FILES`` at full width, as shipped but for
+    ``GNN_ROUNDS``, the launch counters set to 0 just before each and read
+    just after: each round's time and its time a step (eval included), the
+    peak memory, ``received_mb``, the test accuracy, every round's npz
+    written, and K1's launches checked exactly (once a round); no other
+    kernel.  Then ``conf/fed_aas/yelp.yaml`` must raise the JAX package's
+    KeyError.  Returns the launches of all runs and the records."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    total, records = {}, {}
+    for name in GNN_FILES:
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=GNN_ROUNDS)
+        steps = config.epoch * int(config.algorithm_kwargs.get("batch_number") or 1)
+        torch.cuda.empty_cache()
+        _reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+        print(
+            f"main path {name} ({config.distributed_algorithm}, {config.dataset_name}, {config.model_name},"
+            f" {config.worker_number} workers, {config.epoch} epochs of {steps // config.epoch} lockstep steps):"
+            f" {config.round} rounds in {wall:.2f} s (setup included); peak memory {peak:.2f} GiB over the"
+            f" {held / 2**30:.2f} GiB held before it; launches {launches}"
+        )
+        for key, row in sorted(perf.items()):
+            print(
+                f"  round {key}: {row['round_seconds']:.3f} s, {row['round_seconds'] / steps * 1e3:.1f} ms a step"
+                f" (eval included); received_mb {row['received_mb']}; test loss {row['test_loss']:.4f}"
+                f" accuracy {row['test_accuracy']:.4f}"
+            )
+            check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+            check((row["received_mb"] > 0) == (config.distributed_algorithm != "fed_aas"), f"{name} record {row}")
+            npz = os.path.join(config.save_dir, "aggregated_model", f"round_{key}.npz")
+            check(os.path.isfile(npz), f"{name}: no {npz}")
+        check(sorted(perf) == list(range(1, config.round + 1)), f"{name} records {sorted(perf)}")
+        check(launches["K1"] == config.round, f"{name} K1 launches {launches['K1']}, want {config.round}")
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
+    config = shipped_config("fed_aas/yelp.yaml", os.path.join(workdir, "fed_aas_yelp"))
+    try:
+        train(config)
+    except KeyError as error:
+        check("unknown dataset 'Yelp'" in str(error), f"fed_aas/yelp.yaml raised {error!r}")
+        print(f"conf/fed_aas/yelp.yaml raises the JAX package's KeyError: {str(error)[:60]}...")
+    else:
+        check(False, "fed_aas/yelp.yaml trained: 'Yelp' is not a registered dataset")
+    return total, records
+
+
+def profile_gnn_round(workdir: str, records: dict) -> None:
+    """Where a ``fed_gnn/cs.yaml`` round's time goes (50 slots, 10 lockstep
+    steps with the exchange and the fan-in cap, K1), under
+    ``torch.profiler``, in a fresh session."""
     from distributed_learning_simulator_tpu_torch.training import build_session
 
-    session = build_session(shipped_config(SHAPLEY_FILES[0][0], os.path.join(workdir, "gtg_profile"), round=1,
-                                           epoch=1))
-    g = session._init_global_params()
-    weights = session._base_weight_row(1)
-    order = np.random.default_rng(0).permutation(SV_SLOTS).tolist()
-    subsets = [tuple(order[: k + 1]) for k in range(8)] + [tuple(order[::-1][: k + 1]) for k in range(8)]
-
-    def round_work():
-        stack = session.train_stack(g, 1)
-        session._metric_many(stack, weights, 1)(subsets)
-
-    _profiled(round_work, " (GTG DenseNet-40: 10 clients x 1 epoch, 16 subset metrics)",
-              "subset metrics of the main path above", "training and 16 subsets", host_ops=10)
+    session = build_session(shipped_config(GNN_FILES[0], os.path.join(workdir, "gnn_profile"), round=1))
+    g = session.engine.layout.flatten(session.engine.init_params(session.config.seed)).cuda()
+    session.run_round(g, 1)  # warm: the caching allocator's first round
+    alone = records[GNN_FILES[0]]["records"][GNN_ROUNDS]["round_seconds"]
+    _profiled(lambda: session.run_round(g, 1), " (fed_gnn Coauthor_CS: 50 slots x 10 lockstep steps, K1)",
+              f"round {GNN_ROUNDS} of 4h took {alone:.3f} s with its eval and npz", "one training round",
+              host_ops=10)
 
 
 def print_phase_times(marks: list) -> None:
@@ -2908,7 +3049,7 @@ def main(argv: list[str]) -> int:
     yardsticks = kernels_only
     gen = torch.Generator(device="cuda").manual_seed(0)
     d = param_count()
-    k1 = check_weighted_accum(d, param_count("densenet40"), gen, yardsticks)
+    k1 = check_weighted_accum(d, param_count("densenet40"), param_count("TwoGCN", "Coauthor_CS"), gen, yardsticks)
     mark("2 K1")
     k4, k5 = check_short_attention(gen, yardsticks)
     mark("2 K4/K5")
@@ -2937,6 +3078,8 @@ def main(argv: list[str]) -> int:
     check_sign_sgd_task_against_cpu(workdir)
     check_shapley_task_against_cpu(workdir)
     mark("3 small tasks")
+    check_gnn_task_against_cpu(workdir)
+    mark("3 fed_gnn task")
 
     # 4. the main path
     config = dense_config(os.path.join(workdir, "main"))
@@ -3008,13 +3151,20 @@ def main(argv: list[str]) -> int:
     mark("4f FedDropoutAvg, SMAFD")
 
     # 4g. the shipped sign-SGD and Shapley-value files (K1: a vote a step,
-    # a subset's average and a round's aggregate) and a profiled GTG round
+    # a subset's average and a round's aggregate)
     sign_launches, _ = run_sign_sgd_files(workdir)
     mark("4g sign_SGD")
     shapley_launches, _ = run_shapley_files(workdir)
-    profile_shapley_round(workdir)
     launches["K1"] += sign_launches["K1"] + shapley_launches["K1"]
     mark("4g Shapley")
+
+    # 4h. the shipped graph files (K1: a round's aggregate) and a profiled
+    # fed_gnn round
+    gnn_launches, gnn_records = run_gnn_files(workdir)
+    launches["K1"] += gnn_launches["K1"]
+    mark("4h graph FL")
+    profile_gnn_round(workdir, gnn_records)
+    mark("4h profile")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

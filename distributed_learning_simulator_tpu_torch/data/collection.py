@@ -1,6 +1,6 @@
 """Dataset collections with phase splits, as host numpy arrays (the port's
-copy of the JAX package's ``data/collection.py``: vision and text splits;
-graph splits are not ported yet)."""
+copy of the JAX package's ``data/collection.py``: vision, text and graph
+splits)."""
 
 import dataclasses
 from typing import Any
@@ -13,15 +13,27 @@ from ..ml_type import MachineLearningPhase
 @dataclasses.dataclass
 class ArrayDataset:
     """One split: ``inputs`` (NHWC images for vision, ``[N, max_len]``
-    int32 token ids for text) and ``targets``."""
+    int32 token ids for text, or for a graph the dict ``{"x", "edge_index",
+    "mask"}`` of the whole graph with this phase's node mask) and
+    ``targets``."""
 
-    inputs: np.ndarray
+    inputs: Any
     targets: np.ndarray
 
     def __len__(self) -> int:
+        if isinstance(self.inputs, dict):
+            # a graph split counts the nodes under its phase mask
+            return int(self.inputs["mask"].sum())
         return int(len(self.targets))
 
     def subset(self, indices: np.ndarray) -> "ArrayDataset":
+        if isinstance(self.inputs, dict):
+            # a graph keeps its global shapes: the subset narrows the
+            # phase mask to the given nodes
+            mask = np.zeros_like(self.inputs["mask"])
+            if len(indices):
+                mask[indices[self.inputs["mask"][indices]]] = True
+            return ArrayDataset(inputs={**self.inputs, "mask": mask}, targets=self.targets)
         return ArrayDataset(inputs=self.inputs[indices], targets=self.targets[indices])
 
 
@@ -31,8 +43,9 @@ class DatasetCollection:
     datasets: dict[MachineLearningPhase, ArrayDataset]
     num_classes: int
     input_shape: tuple[int, ...]
-    dataset_type: str = "vision"  # vision | text
-    #: text: ``vocab_size``, ``max_len``, ``pad_id`` (and ``tokenizer``)
+    dataset_type: str = "vision"  # vision | text | graph
+    #: text: ``vocab_size``, ``max_len``, ``pad_id`` (and ``tokenizer``);
+    #: graph: ``num_nodes``, ``num_edges``
     metadata: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def get_dataset(self, phase: MachineLearningPhase) -> ArrayDataset:
@@ -77,9 +90,10 @@ def create_dataset_collection(config) -> DatasetCollection:
     ):
         train = dc.get_dataset(MachineLearningPhase.Training)
         val = dc.get_dataset(MachineLearningPhase.Validation)
-        dc.datasets[MachineLearningPhase.Training] = ArrayDataset(
-            inputs=np.concatenate([train.inputs, val.inputs]),
-            targets=np.concatenate([train.targets, val.targets]),
-        )
-        dc.remove_dataset(MachineLearningPhase.Validation)
+        if not isinstance(train.inputs, dict):  # a graph's splits stay apart
+            dc.datasets[MachineLearningPhase.Training] = ArrayDataset(
+                inputs=np.concatenate([train.inputs, val.inputs]),
+                targets=np.concatenate([train.targets, val.targets]),
+            )
+            dc.remove_dataset(MachineLearningPhase.Validation)
     return dc

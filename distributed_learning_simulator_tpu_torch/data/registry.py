@@ -1,12 +1,14 @@
 """Dataset registry with the deterministic synthetic generators.
 
-The port's copy of the JAX package's ``data/registry.py`` for the vision
-and text datasets: class-prototype images plus scale jitter and gaussian
-noise, and class-dependent unigram token streams, all from numpy
-``default_rng`` seeded by the dataset's name, so the arrays are
-byte-equal to the JAX package's.  Real data on disk
-(``$DLS_TPU_DATA_DIR/<name>.npz``) and graph datasets are not ported yet
-and raise rather than give different data.
+The port's copy of the JAX package's ``data/registry.py``: class-prototype
+images plus scale jitter and gaussian noise, class-dependent unigram token
+streams, and stochastic-block-model graphs with class-prototype node
+features, all from numpy ``default_rng`` seeded by the dataset's name, so
+the arrays are byte-equal to the JAX package's.  The graph names are the
+JAX registry's ten and no more (``Yelp``, which ``conf/fed_aas/yelp.yaml``
+names, is not among them, and raises the same ``KeyError`` there as in
+the JAX package).  Real data on disk (``$DLS_TPU_DATA_DIR/<name>.npz``)
+is not ported yet and raises rather than give different data.
 """
 
 import hashlib
@@ -176,3 +178,91 @@ def _text_factory(name: str, num_classes: int, default_train: int):
 _text_factory("imdb", 2, 4096)
 _text_factory("IMDB", 2, 4096)
 _text_factory("AGNews", 4, 8192)
+
+
+def _synthetic_graph(
+    name: str,
+    num_nodes: int,
+    num_features: int,
+    num_classes: int,
+    avg_degree: int = 10,
+    homophily: float = 0.8,
+) -> DatasetCollection:
+    """Stochastic-block-model node-classification graph with class-prototype
+    features; the numpy calls are the JAX package's, in its order, so every
+    array is byte-equal.  Each phase is the whole graph with its own node
+    mask (60/20/20 of a permutation)."""
+    rng = np.random.default_rng(_seed_for(name))
+    labels = rng.integers(0, num_classes, size=num_nodes).astype(np.int32)
+    prototypes = rng.normal(0, 1.0, size=(num_classes, num_features)).astype(np.float32)
+    x = prototypes[labels] + rng.normal(0, 0.6, size=(num_nodes, num_features)).astype(np.float32)
+
+    n_edges = num_nodes * avg_degree
+    src = rng.integers(0, num_nodes, size=2 * n_edges)
+    # homophilous wiring: with probability `homophily` the destination is
+    # redrawn from the source's class
+    dst = rng.integers(0, num_nodes, size=2 * n_edges)
+    same = rng.random(2 * n_edges) < homophily
+    by_class = [np.nonzero(labels == c)[0] for c in range(num_classes)]
+    for c in range(num_classes):
+        idx = np.nonzero(same & (labels[src] == c))[0]
+        if idx.size and by_class[c].size:
+            dst[idx] = rng.choice(by_class[c], size=idx.size)
+    keep = src != dst
+    edge_index = np.stack([src[keep], dst[keep]])[:, :n_edges]
+    edge_index = np.concatenate([edge_index, edge_index[::-1]], axis=1).astype(np.int32)  # symmetric
+
+    perm = rng.permutation(num_nodes)
+    n_train = int(num_nodes * 0.6)
+    n_val = int(num_nodes * 0.2)
+    masks = {}
+    for phase, nodes in (
+        (Phase.Training, perm[:n_train]),
+        (Phase.Validation, perm[n_train : n_train + n_val]),
+        (Phase.Test, perm[n_train + n_val :]),
+    ):
+        mask = np.zeros(num_nodes, dtype=bool)
+        mask[nodes] = True
+        masks[phase] = mask
+    datasets = {
+        phase: ArrayDataset(inputs={"x": x, "edge_index": edge_index, "mask": masks[phase]}, targets=labels)
+        for phase in masks
+    }
+    return DatasetCollection(
+        name=name,
+        datasets=datasets,
+        num_classes=num_classes,
+        input_shape=(num_features,),
+        dataset_type="graph",
+        metadata={"num_nodes": num_nodes, "num_edges": int(edge_index.shape[1])},
+    )
+
+
+def _graph_factory(name: str, num_nodes: int, num_features: int, num_classes: int):
+    @register_dataset(name)
+    def factory(num_nodes_: int = 0, num_features_: int = 0, **_: object) -> DatasetCollection:
+        _refuse_real_data(name)
+        return _synthetic_graph(name, num_nodes_ or num_nodes, num_features_ or num_features, num_classes)
+
+    return factory
+
+
+# the real datasets' class counts; node and feature counts scaled down
+_graph_factory("Cora", 2048, 128, 7)
+_graph_factory("PubMed", 2048, 128, 3)
+_graph_factory("Coauthor_CS", 4096, 128, 15)
+_graph_factory("dblp", 2048, 128, 4)
+_graph_factory("reddit", 4096, 128, 41)
+_graph_factory("Reddit", 4096, 128, 41)
+_graph_factory("yelp", 4096, 128, 10)
+_graph_factory("AmazonProduct", 4096, 128, 12)
+_graph_factory("amazonproduct", 4096, 128, 12)
+
+
+@register_dataset("CitationFull")
+def _citation_full(name: str = "DBLP", **kwargs: object) -> DatasetCollection:
+    """``conf/fed_aas/dblp.yaml`` picks a CitationFull sub-dataset through
+    ``dataset_kwargs: {name: DBLP}``; its size is fixed, as in the JAX
+    package (no ``num_nodes_``)."""
+    class_counts = {"DBLP": 4, "Cora": 70, "Cora_ML": 7, "CiteSeer": 6, "PubMed": 3}
+    return _synthetic_graph(f"CitationFull_{name}", 2048, 128, class_counts.get(str(name), 4))

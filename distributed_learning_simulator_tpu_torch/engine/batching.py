@@ -40,6 +40,17 @@ def make_epoch_batches(
     }
 
 
+def make_graph_batch(dataset: ArrayDataset) -> dict:
+    """A graph split as one batch: the whole graph (``{"x", "edge_index"}``)
+    with the phase mask as the sample weights."""
+    graph = dataset.inputs
+    return {
+        "input": {k: v for k, v in graph.items() if k != "mask"},
+        "target": dataset.targets,
+        "mask": graph["mask"].astype(np.float32),
+    }
+
+
 def fixed_size_partition(indices: np.ndarray, size: int) -> tuple[np.ndarray, np.ndarray]:
     """Pad or truncate an index set to exactly ``size``: ``(indices, mask)``."""
     n = len(indices)

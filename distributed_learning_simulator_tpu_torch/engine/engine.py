@@ -64,8 +64,9 @@ PORTED_POLICIES = {
     "checkpoint_dots": "dots",
     "everything_saveable": "everything",
 }
-#: extra_hyper_parameters the engine reads; any other raises
-SUPPORTED_EXTRA = frozenset({"remat", "remat_policy"})
+#: extra_hyper_parameters the port reads (the engine remat and
+#: remat_policy, fed_aas num_neighbor); any other raises
+SUPPORTED_EXTRA = frozenset({"remat", "remat_policy", "num_neighbor"})
 #: what ``dots_saveable`` keeps: the outputs of JAX's ``dot_general`` and
 #: ``conv_general_dilated``, here the aten ops the port's Linear, attention
 #: and convolution layers lower to
@@ -266,8 +267,10 @@ class ComputeEngine:
         n = self.model_ctx.num_classes
         cast = self.model_ctx._cast_for_compute
         acc = torch.zeros(n, n, device=batches["mask"].device)
+        inputs = batches["input"]
         for i in range(batches["mask"].shape[0]):
-            logits = self.model_ctx.apply(cast(params), cast(batches["input"][i]))
+            x = {k: v[i] for k, v in inputs.items()} if isinstance(inputs, dict) else inputs[i]
+            logits = self.model_ctx.apply(cast(params), cast(x))
             pred = logits.argmax(dim=-1)
             true = batches["target"][i].long()
             acc.index_put_(

@@ -1,5 +1,6 @@
 """Model zoo of the port; importing it registers the ported models."""
 
+from . import graph  # noqa: F401  (registers TwoGCN, ThreeGCN, SimpleGCN, OneGCN)
 from . import long_context  # noqa: F401  (registers LongContextTransformer, CausalLMTransformer)
 from . import text  # noqa: F401  (registers TransformerClassificationModel)
 from . import vision  # noqa: F401  (registers LeNet5, densenet40, resnet18, resnet50)

@@ -53,11 +53,14 @@ class ParamVecLayout:
 
     def split(self, vector: torch.Tensor) -> dict[str, torch.Tensor]:
         """Views of ``vector`` shaped like the layout's tensors (no copy;
-        the views keep ``vector``'s dtype)."""
-        if vector.shape != (self.size,):
+        the views keep ``vector``'s dtype).  Leading dims stay: the rows
+        of an ``[S, size]`` matrix (unit stride along a row) split into
+        ``[S, *shape]`` views."""
+        if vector.shape[-1:] != (self.size,):
             raise ValueError(f"vector of shape {tuple(vector.shape)}, layout size {self.size}")
-        pieces = torch.split(vector, [_numel(s) for s in self.shapes])
-        return {k: p.view(s) for k, p, s in zip(self.keys, pieces, self.shapes)}
+        lead = vector.shape[:-1]
+        pieces = torch.split(vector, [_numel(s) for s in self.shapes], dim=-1)
+        return {k: p.view(*lead, *s) for k, p, s in zip(self.keys, pieces, self.shapes)}
 
 
 def _numel(shape: tuple[int, ...]) -> int:

@@ -1,6 +1,7 @@
 """Dataset partitioning over federated participants (the port's copy of the
-JAX package's ``sampler/base.py``, iid split of vision and text datasets
-only; graph datasets are not ported yet).
+JAX package's ``sampler/base.py``: the iid split of vision, text and graph
+datasets).  A graph is split once, over all its nodes, and every phase
+shares that node partition.
 
 The iid split permutes each class with the repo's xorshift64 Fisher-Yates
 stream (``native/fastops.cc::permute_indices``), written out here in
@@ -58,7 +59,7 @@ class DatasetCollectionSampler:
         seed: int = 0,
         **kwargs,
     ) -> None:
-        if dataset_collection.dataset_type not in ("vision", "text"):
+        if dataset_collection.dataset_type not in ("vision", "text", "graph"):
             raise NotImplementedError(
                 f"{dataset_collection.dataset_type} partitions are not ported yet"
             )
@@ -66,6 +67,15 @@ class DatasetCollectionSampler:
         self.part_number = part_number
         self.seed = seed
         self._parts: dict[int, dict[Phase, np.ndarray]] = {i: {} for i in range(part_number)}
+        if dataset_collection.dataset_type == "graph":
+            # one label-stratified split of ALL nodes, with the Training
+            # salt, shared by every phase: a worker owns one subgraph
+            dataset = next(iter(dataset_collection.datasets.values()))
+            split = self._split_indices(np.arange(len(dataset.targets)), dataset.targets, Phase.Training)
+            for i, idx in enumerate(split):
+                for phase in dataset_collection.datasets:
+                    self._parts[i][phase] = np.sort(idx)
+            return
         for phase in list(dataset_collection.datasets):
             dataset = dataset_collection.get_dataset(phase)
             split = self._split_indices(np.arange(len(dataset)), dataset.targets, phase)

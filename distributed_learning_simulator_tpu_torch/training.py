@@ -9,9 +9,10 @@ executors:
   (``parallel/spmd.py``), fed_obd and fed_obd_sq
   (``parallel/spmd_obd.py``), fed_dropout_avg and single_model_afd
   (``parallel/spmd_sparse.py``), sign_SGD (``parallel/spmd_sign_sgd.py``),
-  and the three Shapley-value methods ``GTG_shapley_value``,
+  the three Shapley-value methods ``GTG_shapley_value``,
   ``multiround_shapley_value`` and ``Hierarchical_shapley_value``
-  (``parallel/spmd_shapley.py``);
+  (``parallel/spmd_shapley.py``), and graph FL: fed_gnn and fed_gcn
+  (``share_feature`` forced on) and fed_aas (``parallel/spmd_gnn.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
   endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
@@ -41,6 +42,7 @@ from .ml_type import TaskAbortedError
 from .models import create_model_context
 from .models.registry import ModelContext
 from .parallel.spmd import SpmdFedAvgSession
+from .parallel.spmd_gnn import SpmdFedAASSession, SpmdFedGNNSession
 from .parallel.spmd_obd import SpmdFedOBDSession
 from .parallel.spmd_shapley import SpmdShapleySession
 from .parallel.spmd_sign_sgd import SpmdSignSGDSession
@@ -89,6 +91,15 @@ def _session_shapley(config, args):
     return SpmdShapleySession(*args)
 
 
+def _session_fed_gnn(config, args):
+    share = True if config.distributed_algorithm == "fed_gcn" else None
+    return SpmdFedGNNSession(*args, share_feature=share)
+
+
+def _session_fed_aas(config, args):
+    return SpmdFedAASSession(*args)
+
+
 #: algorithm name -> SPMD session builder (the JAX package's table, for
 #: the methods the port runs on it)
 SPMD_SESSION_BUILDERS = {
@@ -97,6 +108,9 @@ SPMD_SESSION_BUILDERS = {
     "sign_SGD": _session_sign_sgd,
     "fed_obd": _session_fed_obd,
     "fed_obd_sq": _session_fed_obd,
+    "fed_gnn": _session_fed_gnn,
+    "fed_gcn": _session_fed_gnn,
+    "fed_aas": _session_fed_aas,
     "fed_dropout_avg": _session_fed_dropout_avg,
     "single_model_afd": _session_smafd,
     "GTG_shapley_value": _session_shapley,

@@ -273,3 +273,20 @@ def test_config_loads_like_jax():
 def test_selection_matches_jax(k):
     for round_number in range(1, 5):
         assert select_workers(0, round_number, 10, k) == j_select(0, round_number, 10, k)
+
+
+def test_param_vec_layout_splits_the_rows_of_a_matrix():
+    """An ``[S, size]`` matrix (rows on a padded stride, as the graph
+    sessions lay them out) splits into ``[S, *shape]`` views of its rows."""
+    params = {"b": torch.arange(6.0).reshape(2, 3), "a": torch.tensor([7.0, 8.0])}
+    layout = ParamVecLayout.of(params)
+    rows = torch.zeros(3, 16)[:, : layout.size]
+    rows.copy_(layout.flatten(params))
+    views = layout.split(rows)
+    assert views["b"].shape == (3, 2, 3) and views["a"].shape == (3, 2)
+    views["b"][2, 1, 0] = -1.0
+    assert rows[2, 5] == -1.0 and rows[1, 5] == 3.0
+    for s in range(3):
+        assert all(torch.equal(views[k][s], layout.split(rows[s])[k]) for k in params)
+    with pytest.raises(ValueError):
+        layout.split(torch.zeros(3, 9))
