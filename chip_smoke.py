@@ -26,14 +26,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernel (K2-K5: their device time from the profiler, since a wrapper
    call's host cost is of its size; K1 also at the sign-SGD vote's and the
    Shapley subset's DenseNet-40 shapes, the vote exact, and at the graph
-   session's round aggregate, ``[50, 9,231]`` f32), plain version,
+   session's round aggregate, ``[50, 9,231]`` f32, beside an empty
+   kernel on the same grid; every K1 case called twice and bit-equal, on
+   the variant ``ops/weighted_accum.py::plan`` gives it, with C = 1, 7 and
+   50 and ragged ends on padded and unpadded rows), plain version,
    bound and one library
    call where one exists (a yardstick only: the port never calls it); K4,
    K5 and K6-K11 also check which kernel each case ran
    (``short_attention.fwd_route`` / ``bwd_route``: wgmma or FMA;
    ``kernel_route``: wgmma, mma.sync, 3xTF32, FMA; both bf16 families at
    Dh 32), and show the C entries refusing the wgmma and 3xTF32 routes
-   off their layouts; faults planted at the ViT-small
+   off their layouts; faults planted at the graph shape (K1: a plan whose
+   row groups miss rows, refused by the C entry, and a row group skipped),
+   the ViT-small
    shape (two: K4 and K5), the main attention shape (two) and the f32
    task's shape (1xTF32 products), and two at the largest codec leaf, must
    fail the same comparisons.  ``--kernels`` adds the yardsticks: the
@@ -85,7 +90,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the count the protocol gives (``expected_qsgd_launches``); then
    ``conf/fed_avg/cifar10.yaml`` (DenseNet-40, 10 workers, 5 local
    epochs) as shipped but for ``round`` (1), and ``imdb.yaml``,
-   ``imagenet.yaml`` and ``mnist.yaml`` for 1 round each, with K1's
+   ``imagenet.yaml`` (at 1 local epoch) and ``mnist.yaml`` for 1 round each, with K1's
    launches checked exactly; then (4e) the SPMD
    session on the source paper's method as shipped but for ``round`` and
    ``second_phase_epoch`` (``SPMD_OBD_RUNS``: ``conf/fed_obd/cifar10.yaml``
@@ -97,7 +102,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    its 100-client geometry (``LARGE_OBD_FILES``: ``conf/large_scale/fed_obd/
    {cifar10,cifar100,cifar100_sq,imdb}.yaml``, 100 workers, 50 selected,
    ``round_horizon`` 5, ``remat_policy: dots_saveable``) as shipped but for
-   5 rounds and 2 tuning epochs (the DenseNet-40 file) or 1 (the others),
+   5 rounds and 2 tuning epochs (the DenseNet-40 file) or 2 and 1 (the others),
    each record's phase and K1's launches checked exactly; the horizon's parity (the DenseNet-40 file's run, made
    with cuDNN deterministic, against two runs of it at ``round_horizon`` 1:
    H = 5 no further from H = 1 than H = 1 from itself) and remat's (one
@@ -105,7 +110,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and again without ``dots_saveable``: peak memory, round time, and the
    remat round held to the plain rounds' spread); and the 12 FedDropoutAvg
    and SMAFD files (``SPARSE_FILES``) for one round each (the 100-worker
-   ones at 1 local epoch), K1 checked exactly; then (4g) the three sign_SGD
+   ones at 1 local epoch, the others at 2), K1 checked exactly; then (4g) the three sign_SGD
    files (``SIGN_SGD_FILES``) at 2 local epochs, K1 once a step
    (``round x epoch x n_batches``), and the eight Shapley-value files
    (``SHAPLEY_FILES``: GTG, hierarchical, multi-round) at 1 local epoch
@@ -158,6 +163,9 @@ CNN_CHUNK = 5
 #: the shipped files of the CNN zoo and the text classifier that 4d runs
 CNN_MAIN = "fed_avg/cifar10.yaml"
 CNN_EXTRA = ("fed_avg/imdb.yaml", "fed_avg/imagenet.yaml", "fed_avg/mnist.yaml")
+#: local epochs of the files that run a round long as shipped (ResNet-18's
+#: 5 took 24 s), cut for the script's time
+CNN_EPOCHS = {"fed_avg/imagenet.yaml": 1}
 #: the client slots of the shipped sign-SGD and Shapley DenseNet-40 files
 SV_SLOTS = 10
 #: the client slots of the shipped conf/fed_gnn files (TwoGCN on Coauthor_CS)
@@ -325,7 +333,7 @@ def param_count(model: str = "vit_small", dataset: str = "CIFAR10") -> int:
     return ParamVecLayout.of(ctx.module.state_dict()).size
 
 
-def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = True) -> dict:
+def _k1_numbers(x, w, err: float, variant: str, device_time: bool = False, yardsticks: bool = True) -> dict:
     """K1's row at one shape: kernel, plain version and ``w @ X``, and the
     bound.  Times by CUDA events around calls back to back; with
     ``device_time`` (a shape whose call costs the host more than the
@@ -342,7 +350,7 @@ def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = 
         "plain_ms": lambda: wa.weighted_accum_plain(x, w),
         "library_ms": lambda: wd @ xd,
     }
-    row = {"max_abs_err": err, "bound_ms": bound, "bound_by": by}
+    row = {"max_abs_err": err, "bound_ms": bound, "bound_by": by, "variant": variant}
     for key, fn in calls.items():
         row[key] = cuda_ms(fn)
         if device_time and (key == "ms" or yardsticks):
@@ -351,6 +359,38 @@ def _k1_numbers(x, w, err: float, device_time: bool = False, yardsticks: bool = 
             row[key] = kernel_device_ms(fn, names)
     dtype = {"torch.bfloat16": "bf16", "torch.float32": "f32"}[str(x.dtype)]
     return {**row, "shape": f"[{c}, {n}] {dtype}"}
+
+
+def empty_kernel_ms(blocks: int, threads: int) -> float:
+    """Device time of a launch of ``csrc/weighted_accum.cu``'s empty kernel
+    on ``blocks`` x ``threads`` (the profiler's, calls back to back): the
+    floor any kernel on that grid starts from."""
+    import ctypes
+
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import build
+
+    fn = build.load("weighted_accum").weighted_accum_empty
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(blocks, threads, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"empty kernel launch: CUDA error {err}")
+
+    return kernel_device_ms(launch, ("weighted_accum_empty_kernel",))
+
+
+def _k1_rows(x, n: int, ld: int, padded: bool):
+    """``[c, n]`` rows of ``x`` (``[c, ld]``) at row stride ``ld``; where not
+    ``padded``, a view whose storage ends at the last row's ``n``-th value,
+    so no padding past a row's end can be read."""
+    if padded:
+        return x[:, :n]
+    c = x.shape[0]
+    flat = x.reshape(-1)[: (c - 1) * ld + n].clone()
+    return flat.as_strided((c, n), (ld, 1))
 
 
 def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) -> dict:
@@ -362,53 +402,123 @@ def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) 
     and +1, 0/1 weights: the sum must be exact) and a subset's stack (f32
     rows, a subset's mask times the dataset sizes), and the graph
     session's round aggregate (``conf/fed_gnn/cs.yaml``: TwoGCN's 9,231
-    f32 values on 50 slots, an odd width the row stride pads).  The row's
-    numbers are the ViT chunk's in bf16; ``densenet40``, ``sign_vote``,
-    ``shapley_subset`` and ``fed_gnn`` hold the others', by device time."""
+    f32 values on 50 slots, an odd width the row stride pads).  Then the
+    edges of the plan (``ops/weighted_accum.py::plan``): C = 1, 7 and 50
+    at the graph's width (the split variant) and at DenseNet-40's (the
+    stream variant), 7 and 50 rows not dividing among the row groups, and
+    both widths' ragged ends (N % W != 0) on a padded stride and on rows
+    whose storage ends at the last value (read lane by lane), in f32 and
+    bf16.  Every case is called twice and must give the same bits, and
+    must take the variant ``plan`` gives (``route_launches``).  A plan
+    that skips a row group must be refused by the C entry, and a kernel
+    that skips one (its rows' weights at 0) must fail the comparison.  The
+    row's numbers are the ViT chunk's in bf16; ``densenet40``,
+    ``sign_vote``, ``shapley_subset`` and ``fed_gnn`` hold the others', by
+    device time, each with the variant it took, and ``fed_gnn`` also an
+    empty kernel's time on the same grid (``empty_ms``)."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
 
     result = {}
-    row_stride = -(-d // 64) * 64
-    cases = [(dtype, c, n, ld, None) for dtype in (torch.bfloat16, torch.float32)
+    pad = lambda n: -(-n // 64) * 64  # noqa: E731  (the sessions' row stride)
+    row_stride = pad(d)
+    cases = [(dtype, c, n, ld, True, None) for dtype in (torch.bfloat16, torch.float32)
              for c, n, ld in ((CHUNK, d, row_stride), (CHUNK, d, d), (3, 1001, 1003))]
-    cnn_stride = -(-d_cnn // 64) * 64
-    cases += [(torch.float32, CNN_CHUNK, d_cnn, cnn_stride, "densenet40"),
-              (torch.bfloat16, SV_SLOTS, d_cnn, cnn_stride, "sign_vote"),
-              (torch.float32, SV_SLOTS, d_cnn, cnn_stride, "shapley_subset"),
-              (torch.float32, GNN_SLOTS, d_gnn, -(-d_gnn // 64) * 64, "fed_gnn")]
+    cases += [(torch.float32, CNN_CHUNK, d_cnn, pad(d_cnn), True, "densenet40"),
+              (torch.bfloat16, SV_SLOTS, d_cnn, pad(d_cnn), True, "sign_vote"),
+              (torch.float32, SV_SLOTS, d_cnn, pad(d_cnn), True, "shapley_subset"),
+              (torch.float32, GNN_SLOTS, d_gnn, pad(d_gnn), True, "fed_gnn")]
+    cases += [(torch.float32, c, n, pad(n), True, None) for n in (d_gnn, d_cnn) for c in (1, 7, 50)]
+    cases += [(dtype, 7, n, pad(n), padded, None) for dtype in (torch.float32, torch.bfloat16)
+              for n in (d_gnn, d_cnn) for padded in (False, True) if dtype == torch.bfloat16 or not padded]
     # the sign-SGD, Shapley and graph shapes draw from their own stream, so
     # the earlier cases' inputs are those of the runs before them
     own = torch.Generator(device="cuda").manual_seed(13)
-    for dtype, c, n, ld, label in cases:
-        draw = own if label in ("sign_vote", "shapley_subset", "fed_gnn") else gen
-        x = torch.randn(c, ld, generator=draw, device="cuda").to(dtype)[:, :n]
+    for dtype, c, n, ld, padded, label in cases:
+        draw = own if label in ("sign_vote", "shapley_subset", "fed_gnn") or c in (1, 7, 50) else gen
+        x = _k1_rows(torch.randn(c, ld, generator=draw, device="cuda").to(dtype), n, ld, padded)
         w = torch.rand(c, generator=draw, device="cuda") * SAMPLES
         exact = label == "sign_vote"
-        if exact:  # a step's vote: gradient signs and 0/1 weights
-            x = torch.sign(x)
+        if exact:  # a step's vote: gradient signs (in place: the session's padded rows) and 0/1 weights
+            x.sign_()
             w = (torch.arange(c, device="cuda") % 4 != 3).float()
         elif label == "shapley_subset":  # a subset's mask times the dataset sizes
             w = torch.where(torch.arange(c, device="cuda") % 3 == 1, 0.0, torch.floor(w))
         elif label == "fed_gnn":  # the slots' node counts
             w = torch.floor(w)
-        out, ref = wa.weighted_accum(x, w), wa.weighted_accum_plain(x, w)
+        before = dict(wa.route_launches)
+        out, again = wa.weighted_accum(x, w), wa.weighted_accum(x, w)
+        ref = wa.weighted_accum_plain(x, w)
         torch.cuda.synchronize()
+        took = [v for v, k in wa.route_launches.items() if k != before[v]]
+        stride, aligned, extent = wa.layout(x)
+        want = wa.plan(c, n, stride, x.dtype, aligned, extent)
         err = max_err(out, ref)
-        # f32 accumulation of exact row values in the same order; fma
-        # versus multiply-then-add moves the last bit or two; a vote's
-        # sums are small integers, exact in f32
+        # f32 accumulation of exact row values; the split variant adds its
+        # row groups' partial sums in group order, and fma versus
+        # multiply-then-add moves the last bit or two; a vote's sums are
+        # small integers, exact in f32 in any order
         tol = 0.0 if exact else 1e-6 * max(1.0, float(ref.abs().max()))
-        print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}{' ' + label if label else ''}: max_abs_err {err:.3g}"
-              f" (tol {tol:.3g})")
+        print(f"K1 {str(dtype)[6:]} [{c}, {n}] stride {ld}{'' if padded else ' (no padding)'}"
+              f"{' ' + label if label else ''}: {want.variant} ({want.blocks} x {want.threads} threads, lanes"
+              f" {want.lanes}, rows {want.rows}, vectors {want.vectors}, unroll {want.unroll}, padded end"
+              f" {want.padded}): max_abs_err {err:.3g} (tol {tol:.3g})")
         check(err <= tol, f"weighted_accum {dtype} [{c},{n}] {label or ''} err {err}")
+        check(torch.equal(out, again), f"weighted_accum {dtype} [{c},{n}] {label or ''}: two calls differ")
+        check(took == [want.variant] and wa.route_launches[want.variant] == before[want.variant] + 2,
+              f"weighted_accum {dtype} [{c},{n}]: took {took}, plan says {want.variant}")
         if (dtype, c, n, ld) == (torch.bfloat16, CHUNK, d, row_stride):
-            result.update(_k1_numbers(x, w, err))
+            result.update(_k1_numbers(x, w, err, want.variant))
+            # the kernel's own device time, and a device-to-device copy of
+            # the bytes K1 reads and writes (the rate the card streams a
+            # read and write mix at), by events and by the profiler
+            copy_in = torch.empty(c * n * x.element_size(), dtype=torch.uint8, device="cuda")
+            copy_out = torch.empty_like(copy_in)
+            result["device_ms"] = kernel_device_ms(lambda: wa.weighted_accum(x, w), ("weighted_accum_kernel",))
+            result["copy_ms"] = cuda_ms(lambda: copy_out.copy_(copy_in))
+            result["copy_device_ms"] = kernel_device_ms(lambda: copy_out.copy_(copy_in), None)
+            print(f"  K1 at the ViT chunk: {result['ms']:.6f} ms by events, {result['device_ms']:.6f} ms device; a copy of"
+                  f" the same bytes {result['copy_ms']:.6f} / {result['copy_device_ms']:.6f} ms; bound"
+                  f" {result['bound_ms']:.6f} ms")
+            del copy_in, copy_out
         elif label:
             # the graph shape: the library call by device time too, beside the kernel's
-            result[label] = _k1_numbers(x, w, err, device_time=True, yardsticks=yardsticks or label == "fed_gnn")
+            result[label] = _k1_numbers(x, w, err, want.variant, device_time=True,
+                                        yardsticks=yardsticks or label == "fed_gnn")
+        if label == "fed_gnn":
+            result[label]["empty_ms"] = empty_kernel_ms(want.blocks, want.threads)
+            print(f"  K1 at the graph shape: {result[label]['ms']:.6f} ms on {want.blocks} x {want.threads} threads,"
+                  f" an empty kernel there {result[label]['empty_ms']:.6f} ms, w @ X {result[label]['library_ms']:.6f}"
+                  f" ms, bound {result[label]['bound_ms']:.6f} ms")
+            check_k1_planted_faults(x, w, ref, tol, want)
     return result
+
+
+def check_k1_planted_faults(x, w, ref, tol: float, p) -> None:
+    """At the graph shape (the split variant): a plan whose row groups stop
+    short of the last rows (a row fewer each) must be refused by the C
+    entry before any work; and a kernel that skips row group 0 (the same
+    plan, that group's weights at 0) must fail the comparison
+    ``check_weighted_accum`` makes."""
+    import dataclasses
+
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+
+    short = dataclasses.replace(p, rows=p.rows - 1)
+    try:
+        wa._launch(x, w, short)
+    except RuntimeError as e:
+        print(f"planted fault at the graph shape, a plan of {32 // short.lanes} row groups of {short.rows} rows for"
+              f" {x.shape[0]} rows: refused ({e})")
+    else:
+        check(False, "a plan whose row groups miss rows was launched")
+    skipped = w.clone()
+    skipped[: p.rows] = 0.0
+    err = max_err(wa._launch(x, skipped, p), ref)
+    print(f"planted fault at the graph shape, a kernel that skips row group 0 ({p.rows} rows): max_abs_err {err:.3g}"
+          f" (tol {tol:.3g}; rejected)")
+    check(err > tol, "a kernel that skips a row group passes the K1 check")
 
 
 #: (B, S, H, Dh, masked, dtype) of the K4/K5 checks: the ViT-small round's
@@ -2234,7 +2344,8 @@ def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
 def run_shipped_configs(workdir: str) -> dict[str, int]:
     """``train()`` on ``conf/fed_avg/cifar10.yaml`` (DenseNet-40),
     ``imdb.yaml`` (the text classifier), ``imagenet.yaml`` (ResNet-18) and
-    ``mnist.yaml`` (LeNet5) as shipped but for ``round`` (1), at full
+    ``mnist.yaml`` (LeNet5) as shipped but for ``round`` (1) and the local
+    epochs of ``CNN_EPOCHS``, at full
     width; checks each run's K1 launches exactly (a chunk of ``CNN_CHUNK``
     clients at a time) and that no other kernel ran.  Returns the launches
     of all four runs."""
@@ -2246,7 +2357,8 @@ def run_shipped_configs(workdir: str) -> dict[str, int]:
     _reset_launches()
     total = {}
     for name in (CNN_MAIN, *CNN_EXTRA):
-        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1)
+        depth = {"epoch": CNN_EPOCHS[name]} if name in CNN_EPOCHS else {}
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1, **depth)
         before = _read_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by earlier phases, still alive
@@ -2285,17 +2397,20 @@ def run_shipped_configs(workdir: str) -> dict[str, int]:
 #: takes 3-6 s, and the host's speed varies by machine: the depth the
 #: script can afford).  The DenseNet-40 file, whose run is also the horizon
 #: parity's, takes ``LARGE_OBD_TUNING`` tuning epochs, the others 1 (PR 13
-#: cut them for the script's time)
+#: cut them for the script's time), and the others ``LARGE_OBD_OTHER_ROUNDS``
+#: phase-1 rounds, a horizon clamped to 2 before the switch (for the
+#: script's time)
 LARGE_OBD_FILES = (
     "large_scale/fed_obd/cifar10.yaml",
     "large_scale/fed_obd/cifar100.yaml",
     "large_scale/fed_obd/cifar100_sq.yaml",
     "large_scale/fed_obd/imdb.yaml",
 )
-LARGE_OBD_ROUNDS, LARGE_OBD_TUNING = 5, 2
+LARGE_OBD_ROUNDS, LARGE_OBD_TUNING, LARGE_OBD_OTHER_ROUNDS = 5, 2, 2
 #: the FedDropoutAvg and SMAFD files, one round each as shipped, the
-#: 100-worker ones at 1 local epoch of their 5 (``SPARSE_LARGE_EPOCHS``)
-SPARSE_LARGE_EPOCHS = 1
+#: 100-worker ones at 1 local epoch of their 5 (``SPARSE_LARGE_EPOCHS``),
+#: the 10-worker ones at 2 (``SPARSE_EPOCHS``, for the script's time)
+SPARSE_LARGE_EPOCHS, SPARSE_EPOCHS = 1, 2
 SPARSE_FILES = tuple(
     f"{family}/{data}.yaml"
     for family in ("fed_dropout_avg", "large_scale/fed_dropout_avg", "smafd", "large_scale/smafd")
@@ -2374,8 +2489,8 @@ def deterministic_convolutions():
 def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on each of ``LARGE_OBD_FILES`` at full width for
     ``LARGE_OBD_ROUNDS`` rounds and ``LARGE_OBD_TUNING`` tuning epochs (the
-    others 1), the launch counters set to 0 just before each and read just
-    after: every
+    others ``LARGE_OBD_OTHER_ROUNDS`` and 1), the launch counters set to 0
+    just before each and read just after: every
     record and its phase, the peak memory, and K1's launches
     checked exactly (``expected_obd_k1``: 100 slots in chunks of
     ``CNN_CHUNK``); no other kernel.  The first file runs with cuDNN on
@@ -2391,7 +2506,8 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
     for name in LARGE_OBD_FILES:
         parity = name == LARGE_OBD_FILES[0]
         tuning = LARGE_OBD_TUNING if parity else 1
-        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=LARGE_OBD_ROUNDS,
+        rounds = LARGE_OBD_ROUNDS if parity else LARGE_OBD_OTHER_ROUNDS
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds,
                                 **{"algorithm_kwargs.second_phase_epoch": tuning})
         check(int(config.algorithm_kwargs["round_horizon"]) == 5, f"{name}: round_horizon {config.algorithm_kwargs}")
         check(config.extra_hyper_parameters == {"remat_policy": "dots_saveable"}, f"{name}: {config.extra_hyper_parameters}")
@@ -2409,7 +2525,7 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
         print(
             f"main path {name} ({config.distributed_algorithm}, {config.model_name}, {config.worker_number} workers,"
             f" {config.algorithm_kwargs['random_client_number']} selected, round_horizon 5, remat_policy"
-            f" dots_saveable{', deterministic cuDNN' if parity else ''}): {LARGE_OBD_ROUNDS} rounds +"
+            f" dots_saveable{', deterministic cuDNN' if parity else ''}): {rounds} rounds +"
             f" {tuning} tuning epochs in {wall:.2f} s (setup included); peak"
             f" memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches}"
         )
@@ -2422,7 +2538,7 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
             check(np.isfinite(row["test_loss"]), f"{name} record {key} test loss {row['test_loss']}")
             check(0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {key} accuracy {row['test_accuracy']}")
         phases = [row["phase"] for _, row in sorted(perf.items())]
-        want = ["block_dropout_rounds"] * LARGE_OBD_ROUNDS + ["epoch_tune"] * tuning
+        want = ["block_dropout_rounds"] * rounds + ["epoch_tune"] * tuning
         check(phases == want, f"{name} phases {phases}")
         k1 = expected_obd_k1(len(perf), config.worker_number, CNN_CHUNK)
         check(launches["K1"] == k1, f"{name} K1 launches {launches['K1']}, want {k1}")
@@ -2517,7 +2633,8 @@ def check_remat(workdir: str) -> None:
 
 def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on each of ``SPARSE_FILES`` for one round at full width
-    (the 100-worker files at ``SPARSE_LARGE_EPOCHS`` local epochs), the
+    (the 100-worker files at ``SPARSE_LARGE_EPOCHS`` local epochs, the
+    others at ``SPARSE_EPOCHS``), the
     launch counters set to 0 just before each and read just after:
     the record, the peak memory, and K1's launches checked exactly (one a
     chunk of ``CNN_CHUNK`` slots; FedDropoutAvg's over ``[mb, 2·D]``);
@@ -2529,7 +2646,7 @@ def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
 
     total, records = {}, {}
     for name in SPARSE_FILES:
-        depth = {"epoch": SPARSE_LARGE_EPOCHS} if name.startswith("large_scale/") else {}
+        depth = {"epoch": SPARSE_LARGE_EPOCHS if name.startswith("large_scale/") else SPARSE_EPOCHS}
         config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1, **depth)
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -3048,8 +3165,9 @@ def main(argv: list[str]) -> int:
     # 2. kernels against their plain versions (the yardsticks: --kernels)
     yardsticks = kernels_only
     gen = torch.Generator(device="cuda").manual_seed(0)
-    d = param_count()
-    k1 = check_weighted_accum(d, param_count("densenet40"), param_count("TwoGCN", "Coauthor_CS"), gen, yardsticks)
+    d, d_cnn, d_gnn = param_count(), param_count("densenet40"), param_count("TwoGCN", "Coauthor_CS")
+    mark("2 model sizes")
+    k1 = check_weighted_accum(d, d_cnn, d_gnn, gen, yardsticks)
     mark("2 K1")
     k4, k5 = check_short_attention(gen, yardsticks)
     mark("2 K4/K5")
@@ -3070,14 +3188,20 @@ def main(argv: list[str]) -> int:
     os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "session"))
     check_small_task_against_cpu(workdir, "ViT-small", vit_small_task)
+    mark("3 ViT-small")
     check_small_task_against_cpu(workdir, "DenseNet-40", densenet_small_task)
+    mark("3 DenseNet-40")
     stream_launches = check_long_context_f32_against_cpu(workdir)
+    mark("3 long context f32")
     check_obd_task_against_cpu(workdir)
+    mark("3 fed_obd")
     check_small_task_against_cpu(workdir, "DenseNet-40 fed_dropout_avg", sparse_small_task("fed_dropout_avg/cifar10.yaml"))
     check_small_task_against_cpu(workdir, "DenseNet-40 single_model_afd", sparse_small_task("smafd/cifar10.yaml"))
+    mark("3 fed_dropout_avg, smafd")
     check_sign_sgd_task_against_cpu(workdir)
+    mark("3 sign_SGD")
     check_shapley_task_against_cpu(workdir)
-    mark("3 small tasks")
+    mark("3 GTG")
     check_gnn_task_against_cpu(workdir)
     mark("3 fed_gnn task")
 

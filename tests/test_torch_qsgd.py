@@ -334,6 +334,16 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
         def data_ptr(self):
             return 0
 
+        # the wrapper plans from the storage the rows lie in
+        def element_size(self):
+            return 4
+
+        def storage_offset(self):
+            return 0
+
+        def untyped_storage(self):
+            return types.SimpleNamespace(nbytes=lambda: 4 * int(np.prod(self.shape)))
+
     fake_torch = types.SimpleNamespace(
         float32=torch.float32,
         bfloat16=torch.bfloat16,
@@ -346,6 +356,7 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
     monkeypatch.setattr(wa, "torch", fake_torch)
     monkeypatch.setattr(wa, "_library", lambda: lambda *args: 0)
     monkeypatch.setattr(wa, "launches", 0)
+    monkeypatch.setattr(wa, "route_launches", {variant: 0 for variant in wa.VARIANTS})
     x, w = FakeCudaTensor(2, 8), FakeCudaTensor(2)
     calls = 2000
     interval = sys.getswitchinterval()
@@ -362,3 +373,4 @@ def test_launch_counters_are_exact_under_threads(monkeypatch):
     finally:
         sys.setswitchinterval(interval)
     assert wa.launches == 8 * calls
+    assert sum(wa.route_launches.values()) == 8 * calls
