@@ -15,8 +15,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``HGMMA`` and ``UTMALDG``;
 2. hold each kernel against its plain PyTorch version on the card, at the
    FedAvg ViT-small round's shapes (K1, K4, K5), the DenseNet-40 round's
-   K1 chunk (``[5, 578,090]`` f32) and the fed_obd_sq path's
-   ``vit_base`` attention shape (K4, K5), at the long-context
+   K1 chunk (``[5, 578,090]`` f32), ``bert_agnews.yaml``'s K1 chunk
+   (``[8, D]`` bf16 rows of ``bert_base``) and evaluation attention shape
+   (K4, K5: ``(32, 128, 12, 64)`` with a key-padding mask, K4 on wgmma
+   and K5 on FMA, each timed beside SDPA with the mask), the fed_obd_sq
+   path's ``vit_base`` attention shape (K4, K5), at the long-context
    round's attention shape (K6-K8) and the f32 round's (K9-K11; also
    the f32 small task's), at the
    ViT-Base leaf sizes of the fed_obd_sq path (K2, K3: bit for bit, K2's
@@ -70,6 +73,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    graph, 2 rounds, its minibatches, fan-in priorities and dropout masks
    drawn on the host: every round's parameters and test loss within
    ``GNN_TOL``, ``received_mb`` equal, ``check_gnn_task_against_cpu``);
+   and, round by round (``check_rounds_against_cpu``), an f32 BERT task
+   (d_model 128, 2 heads, 2 layers, S = 32, dropout 0, 2 clients, 2
+   rounds: K4 and K5 through the model) and a buffered LeNet5 task
+   (``conf/fed_avg/mnist_buffered.yaml`` cut to 4 rounds, one corrupt
+   client, ``update_guard`` on: the flush columns and ``rejected_updates``
+   equal), K1 exact every round;
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -102,7 +111,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    its 100-client geometry (``LARGE_OBD_FILES``: ``conf/large_scale/fed_obd/
    {cifar10,cifar100,cifar100_sq,imdb}.yaml``, 100 workers, 50 selected,
    ``round_horizon`` 5, ``remat_policy: dots_saveable``) as shipped but for
-   5 rounds and 2 tuning epochs (the DenseNet-40 file) or 2 and 1 (the others),
+   5 rounds and 2 tuning epochs (the DenseNet-40 file) or 1 and 1 (the others),
    each record's phase and K1's launches checked exactly; the horizon's parity (the DenseNet-40 file's run, made
    with cuDNN deterministic, against two runs of it at ``round_horizon`` 1:
    H = 5 no further from H = 1 than H = 1 from itself) and remat's (one
@@ -123,7 +132,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rounds, each round's time, time a step, ``received_mb`` and accuracy
    and the peak memory printed, K1 once a round; ``conf/fed_aas/yelp.yaml``
    must raise the JAX package's KeyError; and a profiled
-   ``fed_gnn/cs.yaml`` round;
+   ``fed_gnn/cs.yaml`` round; then (4i) ``large_scale/fed_avg/
+   bert_agnews.yaml`` as shipped but for 2 rounds (``bert_base``, 1000
+   workers, 100 selected, ``use_amp``, ``client_chunk: auto``, which
+   misses the calibration and runs 8): each round's time, test loss and
+   accuracy, the peak memory, K1 exactly 125 a round, every K4 launch on
+   wgmma (one a layer per test batch per evaluation pass), no K5, and the
+   last round's training profiled; and ``fed_avg/mnist_buffered.yaml`` as shipped
+   (20 rounds), each record's flush columns printed and K1 exactly
+   ``n_chunks x (depth + 1)`` every round;
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -319,7 +336,7 @@ def dense_config(save_dir: str, **fields):
     return DistributedTrainingConfig(**base)
 
 
-def param_count(model: str = "vit_small", dataset: str = "CIFAR10") -> int:
+def param_count(model: str = "vit_small", dataset: str = "CIFAR10", **dataset_kwargs) -> int:
     import torch
 
     from distributed_learning_simulator_tpu_torch.data import create_dataset_collection
@@ -327,7 +344,8 @@ def param_count(model: str = "vit_small", dataset: str = "CIFAR10") -> int:
     from distributed_learning_simulator_tpu_torch.ops.pytree import ParamVecLayout
 
     config = dense_config(
-        "", dataset_name=dataset, dataset_kwargs={"train_size": 8, "val_size": 8, "test_size": 8}
+        "", dataset_name=dataset,
+        dataset_kwargs={"train_size": 8, "val_size": 8, "test_size": 8, **dataset_kwargs},
     )
     ctx = create_model_context(model, create_dataset_collection(config), torch.device("cpu"))
     return ParamVecLayout.of(ctx.module.state_dict()).size
@@ -393,7 +411,7 @@ def _k1_rows(x, n: int, ld: int, padded: bool):
     return flat.as_strided((c, n), (ld, 1))
 
 
-def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) -> dict:
+def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, d_bert: int, gen, yardsticks: bool) -> dict:
     """K1 against its plain version: the ViT round's [2, D] chunk in bf16
     and f32 and the DenseNet-40 round's [5, D] chunk in f32 (rows on a
     padded stride, as the session lays them out), an unaligned stride, a
@@ -415,7 +433,9 @@ def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) 
     row's numbers are the ViT chunk's in bf16; ``densenet40``,
     ``sign_vote``, ``shapley_subset`` and ``fed_gnn`` hold the others', by
     device time, each with the variant it took, and ``fed_gnn`` also an
-    empty kernel's time on the same grid (``empty_ms``)."""
+    empty kernel's time on the same grid (``empty_ms``); ``bert_base``
+    holds ``large_scale/fed_avg/bert_agnews.yaml``'s chunk, ``[8, D]`` bf16
+    rows of ``bert_base`` (about 1.76 GB), by events."""
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
@@ -428,7 +448,8 @@ def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) 
     cases += [(torch.float32, CNN_CHUNK, d_cnn, pad(d_cnn), True, "densenet40"),
               (torch.bfloat16, SV_SLOTS, d_cnn, pad(d_cnn), True, "sign_vote"),
               (torch.float32, SV_SLOTS, d_cnn, pad(d_cnn), True, "shapley_subset"),
-              (torch.float32, GNN_SLOTS, d_gnn, pad(d_gnn), True, "fed_gnn")]
+              (torch.float32, GNN_SLOTS, d_gnn, pad(d_gnn), True, "fed_gnn"),
+              (torch.bfloat16, BERT_CHUNK, d_bert, pad(d_bert), True, "bert_base")]
     cases += [(torch.float32, c, n, pad(n), True, None) for n in (d_gnn, d_cnn) for c in (1, 7, 50)]
     cases += [(dtype, 7, n, pad(n), padded, None) for dtype in (torch.float32, torch.bfloat16)
               for n in (d_gnn, d_cnn) for padded in (False, True) if dtype == torch.bfloat16 or not padded]
@@ -437,7 +458,14 @@ def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) 
     own = torch.Generator(device="cuda").manual_seed(13)
     for dtype, c, n, ld, padded, label in cases:
         draw = own if label in ("sign_vote", "shapley_subset", "fed_gnn") or c in (1, 7, 50) else gen
-        x = _k1_rows(torch.randn(c, ld, generator=draw, device="cuda").to(dtype), n, ld, padded)
+        if label == "bert_base":  # drawn in bf16 a row at a time: an f32 draw of all 8 rows is 3.5 GB
+            draw = torch.Generator(device="cuda").manual_seed(16)  # its own stream, as for K4/K5
+            x = torch.empty(c, ld, dtype=dtype, device="cuda")
+            for row in x:
+                row.copy_(torch.randn(ld, generator=draw, device="cuda"))
+            x = _k1_rows(x, n, ld, padded)
+        else:
+            x = _k1_rows(torch.randn(c, ld, generator=draw, device="cuda").to(dtype), n, ld, padded)
         w = torch.rand(c, generator=draw, device="cuda") * SAMPLES
         exact = label == "sign_vote"
         if exact:  # a step's vote: gradient signs (in place: the session's padded rows) and 0/1 weights
@@ -482,6 +510,11 @@ def check_weighted_accum(d: int, d_cnn: int, d_gnn: int, gen, yardsticks: bool) 
                   f" the same bytes {result['copy_ms']:.6f} / {result['copy_device_ms']:.6f} ms; bound"
                   f" {result['bound_ms']:.6f} ms")
             del copy_in, copy_out
+        elif label == "bert_base":  # a chunk of 1.76 GB: events time it well
+            result[label] = _k1_numbers(x, w, err, want.variant)
+            print(f"  K1 at bert_base's chunk: {result[label]['ms']:.4f} ms, w @ X {result[label]['library_ms']:.4f}"
+                  f" ms, plain {result[label]['plain_ms']:.4f} ms, bound {result[label]['bound_ms']:.4f} ms"
+                  f" ({result[label]['bound_ms'] / result[label]['ms']:.1%} of it)")
         elif label:
             # the graph shape: the library call by device time too, beside the kernel's
             result[label] = _k1_numbers(x, w, err, want.variant, device_time=True,
@@ -526,8 +559,11 @@ def check_k1_planted_faults(x, w, ref, tol: float, p) -> None:
 #: 2304-wide packed row) in both dtypes, then the edges: S = 50 with a
 #: kv_mask (a partial tile, masked keys), Dh 128, S = 1024, and bf16 at
 #: S = 128 and at S = 197 with a kv_mask (K4's two-pass walk with a full
-#: and a partial last tile; K5 on its FMA route above S = 64)
+#: and a partial last tile; K5 on its FMA route above S = 64), and last
+#: bert_base's evaluation shape (``bert_agnews.yaml``: batch 32, S = 128,
+#: 12 heads, a key-padding mask; the same routes)
 SHORT_MAIN = (BATCH, 64, 6, 64, False, "bfloat16")
+SHORT_BERT = (32, 128, 12, 64, True, "bfloat16")
 SHORT_CASES = [
     SHORT_MAIN,
     (BATCH, 64, 6, 64, False, "float32"),
@@ -541,6 +577,7 @@ SHORT_CASES = [
     (2, 1024, 6, 64, False, "float32"),
     (8, 128, 6, 64, False, "bfloat16"),
     (8, 197, 6, 64, True, "bfloat16"),
+    SHORT_BERT,
 ]
 
 
@@ -581,11 +618,14 @@ def check_short_attention(gen, yardsticks: bool) -> tuple[dict, dict]:
     for case in SHORT_CASES:
         b, s, h, dh, masked, dtype_name = case
         dtype, d = getattr(torch, dtype_name), h * dh
-        qkv = torch.randn(b, s, 3 * d, generator=gen, device="cuda").to(dtype)
-        dout = torch.randn(b, s, d, generator=gen, device="cuda").to(dtype)
+        # bert_base's case draws from a stream of its own: the later checks'
+        # inputs stay those of the runs before it
+        draw = torch.Generator(device="cuda").manual_seed(16) if case == SHORT_BERT else gen
+        qkv = torch.randn(b, s, 3 * d, generator=draw, device="cuda").to(dtype)
+        dout = torch.randn(b, s, d, generator=draw, device="cuda").to(dtype)
         mask = None
         if masked:
-            mask = (torch.rand(b, s, generator=gen, device="cuda") > 0.3).float()
+            mask = (torch.rand(b, s, generator=draw, device="cuda") > 0.3).float()
             mask[:, 0] = 1.0
         before = dict(sa.route_launches)
         out, lse = sa.short_attention_fwd(qkv, h, mask)
@@ -622,46 +662,26 @@ def check_short_attention(gen, yardsticks: bool) -> tuple[dict, dict]:
         )
         check(errs[0] <= tol and errs[2] <= tol and errs[1] <= 1e-5, f"short_attention {case}")
         check(bool(torch.isfinite(dqkv.float()).all()), f"short_attention {case} dqkv not finite")
+        if case == SHORT_BERT:
+            fwd_bert, bwd_bert = _short_numbers(case, qkv, dout, mask, lse, errs, fwd_family, bwd_family)
+            print(f"  K4 at bert_base's shape: {fwd_bert['ms']:.5f} ms on {fwd_family} (bound {fwd_bert['bound_ms']:.5f},"
+                  f" {fwd_bert['bound_ms'] / fwd_bert['ms']:.1%} of it; SDPA {fwd_bert['library_ms']:.5f});"
+                  f" K5 {bwd_bert['ms']:.5f} ms on {bwd_family} (bound {bwd_bert['bound_ms']:.5f}; SDPA"
+                  f" {bwd_bert['library_ms']:.5f})")
+            continue
         if case != SHORT_MAIN:
             continue
         check_short_planted_faults(qkv, dout, mask, h, ref_out, ref_lse, ref_dqkv)
-        itemsize, name = qkv.element_size(), "bfloat16"
-        mm = 2 * b * h * s * s * dh  # one [S, S] x [S, Dh] product, all heads
-        fwd_bound = bound_ms(b * s * 3 * d * itemsize + b * s * d * itemsize + b * h * s * 4, 2 * mm, name)
-        bwd_bound = bound_ms(
-            b * s * 3 * d * itemsize * 2 + b * s * d * itemsize + b * h * s * 4, 5 * mm, name
-        )
-        q, k, v = (t.view(b, s, h, dh).transpose(1, 2).contiguous() for t in qkv.split(d, -1))
-        do4 = dout.view(b, s, h, dh).transpose(1, 2).contiguous()
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
-
-        def sdpa_bwd():
-            return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
-
-        fwd_row = {
-            "max_abs_err": max(errs[0], errs[1]),
-            "ms": kernel_device_ms(lambda: sa.short_attention_fwd(qkv, h, mask), ("short_fwd_wgmma_kernel",)),
-            "plain_ms": cuda_ms(lambda: sa.short_attention_fwd_plain(qkv, h, mask)),
-            "bound_ms": fwd_bound[0],
-            "bound_by": fwd_bound[1],
-            # every kernel SDPA's forward launches, by the same clock
-            "library_ms": kernel_device_ms(lambda: F.scaled_dot_product_attention(q, k, v), None),
-            "shape": f"qkv [{b}, {s}, {3 * d}] bf16",
-            "family": fwd_family,
-        }
-        bwd_row = {
-            "max_abs_err": errs[2],
-            "ms": kernel_device_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask), ("short_bwd_wgmma_kernel",)),
-            "plain_ms": cuda_ms(lambda: sa.short_attention_bwd_plain(qkv, dout, lse, h, mask)),
-            "bound_ms": bwd_bound[0],
-            "bound_by": bwd_bound[1],
-            # every kernel SDPA's backward launches (all three gradients), by the same clock
-            "library_ms": kernel_device_ms(sdpa_bwd, None),
-            "shape": f"qkv, dout [{b}, {s}, {3 * d}], [{b}, {s}, {d}] bf16",
-            "family": bwd_family,
-        }
+        fwd_row, bwd_row = _short_numbers(case, qkv, dout, mask, lse, errs, fwd_family, bwd_family)
         if yardsticks:
+            q, k, v = (t.view(b, s, h, dh).transpose(1, 2).contiguous() for t in qkv.split(d, -1))
+            qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+            sdpa_out = F.scaled_dot_product_attention(qg, kg, vg)
+            do4 = dout.view(b, s, h, dh).transpose(1, 2).contiguous()
+
+            def sdpa_bwd():
+                return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
+
             fwd_row.update({
                 "call_ms": cuda_ms(lambda: sa.short_attention_fwd(qkv, h, mask)),
                 # the FMA kernel this route replaced, on the same inputs
@@ -678,7 +698,62 @@ def check_short_attention(gen, yardsticks: bool) -> tuple[dict, dict]:
                 "host_ms": host_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask)),
                 "entry_host_ms": host_ms(lambda: short_bwd_entry(qkv, dout, lse, h, dqkv)),
             })
-        del sdpa_out, qg, kg, vg
+            del sdpa_out, qg, kg, vg
+    fwd_row["bert_base"], bwd_row["bert_base"] = fwd_bert, bwd_bert
+    return fwd_row, bwd_row
+
+
+def _short_numbers(case, qkv, dout, mask, lse, errs, fwd_family: str, bwd_family: str) -> tuple[dict, dict]:
+    """K4's and K5's rows at one bf16 case: device times (the profiler's)
+    of the kernels, SDPA's forward and backward (every kernel each
+    launches; the key-padding mask, where there is one, as SDPA's boolean
+    mask) and the plain versions by events, and the bounds.  The products
+    count the valid (query, key) pairs of this case's mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+
+    b, s, h, dh, _, _ = case
+    d = h * dh
+    itemsize, name = qkv.element_size(), "bfloat16"
+    keys = b * s if mask is None else float(mask.sum())  # valid keys, all rows
+    mm = 2 * h * s * keys * dh  # one [S, S] x [S, Dh] product over the valid pairs, all heads
+    fwd_bound = bound_ms(b * s * 3 * d * itemsize + b * s * d * itemsize + b * h * s * 4, 2 * mm, name)
+    bwd_bound = bound_ms(b * s * 3 * d * itemsize * 2 + b * s * d * itemsize + b * h * s * 4, 5 * mm, name)
+    q, k, v = (t.view(b, s, h, dh).transpose(1, 2).contiguous() for t in qkv.split(d, -1))
+    do4 = dout.view(b, s, h, dh).transpose(1, 2).contiguous()
+    attn_mask = None if mask is None else (mask > 0)[:, None, None, :]
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=attn_mask)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4, retain_graph=True)
+
+    kernels = {"wgmma": ("short_bwd_wgmma_kernel",), "fma": ("dq_kernel", "dkv_kernel")}[bwd_family]
+    fwd_kernel = {"wgmma": "short_fwd_wgmma_kernel", "fma": "fwd_kernel"}[fwd_family]
+    fwd_row = {
+        "max_abs_err": max(errs[0], errs[1]),
+        "ms": kernel_device_ms(lambda: sa.short_attention_fwd(qkv, h, mask), (fwd_kernel,)),
+        "plain_ms": cuda_ms(lambda: sa.short_attention_fwd_plain(qkv, h, mask)),
+        "bound_ms": fwd_bound[0],
+        "bound_by": fwd_bound[1],
+        # every kernel SDPA's forward launches, by the same clock
+        "library_ms": kernel_device_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=attn_mask), None),
+        "shape": f"qkv [{b}, {s}, {3 * d}] bf16{' masked' if mask is not None else ''}",
+        "family": fwd_family,
+    }
+    bwd_row = {
+        "max_abs_err": errs[2],
+        "ms": kernel_device_ms(lambda: sa.short_attention_bwd(qkv, dout, lse, h, mask), kernels),
+        "plain_ms": cuda_ms(lambda: sa.short_attention_bwd_plain(qkv, dout, lse, h, mask)),
+        "bound_ms": bwd_bound[0],
+        "bound_by": bwd_bound[1],
+        # every kernel SDPA's backward launches (all three gradients), by the same clock
+        "library_ms": kernel_device_ms(sdpa_bwd, None),
+        "shape": f"qkv, dout [{b}, {s}, {3 * d}], [{b}, {s}, {d}] bf16{' masked' if mask is not None else ''}",
+        "family": bwd_family,
+    }
     return fwd_row, bwd_row
 
 
@@ -2118,9 +2193,9 @@ class CodecSteps:
                 self.steps[(aggregate, slot, leaf.jax_key)] = float(delta.abs().max() / session.quantization_level)
             return paq_upload(session, row, start, aggregate, slot)
 
-        def noted_round(session, global_vec, weights, round_number=1):
+        def noted_round(session, global_vec, weights, round_number=1, delays=None):
             self.weights[round_number - 1] = weights.copy()
-            return run_round(session, global_vec, weights, round_number)
+            return run_round(session, global_vec, weights, round_number, delays)
 
         for owner, name, fn in ((obd, "_code", noted_code), (obd, "run_aggregate", noted_aggregate),
                                 (avg, "_paq_upload", noted_paq), (avg, "run_round", noted_round)):
@@ -2398,7 +2473,7 @@ def run_shipped_configs(workdir: str) -> dict[str, int]:
 #: script can afford).  The DenseNet-40 file, whose run is also the horizon
 #: parity's, takes ``LARGE_OBD_TUNING`` tuning epochs, the others 1 (PR 13
 #: cut them for the script's time), and the others ``LARGE_OBD_OTHER_ROUNDS``
-#: phase-1 rounds, a horizon clamped to 2 before the switch (for the
+#: phase-1 round, a horizon clamped to 1 before the switch (for the
 #: script's time)
 LARGE_OBD_FILES = (
     "large_scale/fed_obd/cifar10.yaml",
@@ -2406,7 +2481,7 @@ LARGE_OBD_FILES = (
     "large_scale/fed_obd/cifar100_sq.yaml",
     "large_scale/fed_obd/imdb.yaml",
 )
-LARGE_OBD_ROUNDS, LARGE_OBD_TUNING, LARGE_OBD_OTHER_ROUNDS = 5, 2, 2
+LARGE_OBD_ROUNDS, LARGE_OBD_TUNING, LARGE_OBD_OTHER_ROUNDS = 5, 2, 1
 #: the FedDropoutAvg and SMAFD files, one round each as shipped, the
 #: 100-worker ones at 1 local epoch of their 5 (``SPARSE_LARGE_EPOCHS``),
 #: the 10-worker ones at 2 (``SPARSE_EPOCHS``, for the script's time)
@@ -3110,6 +3185,276 @@ def profile_gnn_round(workdir: str, records: dict) -> None:
               host_ops=10)
 
 
+# ------------------------------------------------- BERT and the round machinery
+BERT_FILE = "large_scale/fed_avg/bert_agnews.yaml"
+BERT_ROUNDS = 2
+#: ``client_chunk: auto`` misses the calibration (no entry has the port's
+#: key) and runs the session's default chunk
+BERT_CHUNK = 8
+BUFFERED_FILE = "fed_avg/mnist_buffered.yaml"
+#: the phase-3 BERT task's model: d_model 128, 2 heads (Dh 64), 2 layers,
+#: MLP 256 (registered by :func:`bert_task_config` under this name)
+BERT_TASK_MODEL = "bert_d128_task"
+BERT_TASK_WIDTHS = dict(d_model=128, num_layers=2, num_heads=2, mlp_dim=256)
+
+
+def bert_task_config(save_dir: str, **algorithm_kwargs):
+    """A small f32 BERT FedAvg task: AGNews at S = 32 (a 1000-token
+    vocabulary), :data:`BERT_TASK_WIDTHS`, ``dropout_rate`` 0 (so training
+    runs K4 and K5), 2 clients x 32 samples, batch 16, 2 rounds."""
+    from distributed_learning_simulator_tpu_torch.config import DistributedTrainingConfig
+    from distributed_learning_simulator_tpu_torch.models.bert import _make_bert
+    from distributed_learning_simulator_tpu_torch.models.registry import global_model_factory, register_model
+
+    if BERT_TASK_MODEL not in global_model_factory:
+        @register_model(BERT_TASK_MODEL)
+        def _task_model(dataset_collection, device, max_len: int = 0, dropout_rate: float = 0.1, **kwargs):
+            return _make_bert(dataset_collection, device, name=BERT_TASK_MODEL, max_len=max_len,
+                              dropout_rate=dropout_rate, **BERT_TASK_WIDTHS)
+
+    return DistributedTrainingConfig(
+        dataset_name="AGNews",
+        model_name=BERT_TASK_MODEL,
+        distributed_algorithm="fed_avg",
+        worker_number=2,
+        batch_size=16,
+        round=2,
+        epoch=1,
+        learning_rate=0.05,
+        dataset_kwargs={"max_len": 32, "vocab_size": 1000, "train_size": 64, "val_size": 16, "test_size": 32},
+        model_kwargs={"dropout_rate": 0.0},
+        algorithm_kwargs=algorithm_kwargs,
+        save_dir=save_dir,
+        log_file=os.path.join(save_dir, "train.log"),
+    )
+
+
+def buffered_task_config(save_dir: str, **algorithm_kwargs):
+    """``conf/fed_avg/mnist_buffered.yaml`` (LeNet5, 10 workers, 8 selected,
+    ``buffer_size`` 6, stragglers at rate 0.2) cut to 4 rounds and 16
+    samples a worker, with one corrupt client (the first worker selected
+    in round 2) and ``update_guard`` on."""
+    from distributed_learning_simulator_tpu_torch.utils.selection import select_workers
+
+    corrupt = min(select_workers(0, 2, 10, 8))
+    overrides = {"round": 4, "dataset_kwargs.train_size": 160, "dataset_kwargs.val_size": 16,
+                 "dataset_kwargs.test_size": 32, "fault_tolerance.corrupt_schedule": f"{{2: [{corrupt}]}}",
+                 "fault_tolerance.update_guard": True}
+    overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+    return shipped_config(BUFFERED_FILE, save_dir, **overrides)
+
+
+def expected_k1_a_round(session) -> int:
+    """K1 launches a FedAvg round makes: one a chunk, times the buckets of
+    the buffered replay (``depth + 1``; 1 when it is synchronous)."""
+    buckets = session._buffered_depth + 1 if session._buffered_active else 1
+    return session.n_slots // session.chunk_size() * buckets
+
+
+@contextlib.contextmanager
+def k1_by_round(counts: list):
+    """Appends the K1 launches of every ``SpmdFedAvgSession.run_round`` call
+    made inside the block to ``counts`` (the counter read around the call)."""
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+    from distributed_learning_simulator_tpu_torch.parallel.spmd import SpmdFedAvgSession
+
+    run_round = SpmdFedAvgSession.run_round
+
+    def counted(self, *args, **kwargs):
+        before = wa.launches
+        out = run_round(self, *args, **kwargs)
+        counts.append(wa.launches - before)
+        return out
+
+    SpmdFedAvgSession.run_round = counted
+    try:
+        yield counts
+    finally:
+        SpmdFedAvgSession.run_round = run_round
+
+
+@contextlib.contextmanager
+def profiled_round(which: int, label: str):
+    """Runs the ``which``-th ``SpmdFedAvgSession.run_round`` call made inside
+    the block under ``torch.profiler`` (:func:`_profiled`), beside the
+    unprofiled time of the call before it; appends the busy share to the
+    list it yields."""
+    from distributed_learning_simulator_tpu_torch.parallel.spmd import SpmdFedAvgSession
+
+    run_round, calls, busy = SpmdFedAvgSession.run_round, [], []
+
+    def maybe_profiled(self, *args, **kwargs):
+        calls.append(time.monotonic())
+        if len(calls) != which:
+            out = run_round(self, *args, **kwargs)
+            calls[-1] = time.monotonic() - calls[-1]
+            return out
+        out = []
+        alone = f"the training of round {which - 1} took {calls[-2]:.3f} s unprofiled"
+        busy.append(_profiled(lambda: out.append(run_round(self, *args, **kwargs)), label, alone,
+                              f"round {which}'s training", host_ops=10))
+        return out[0]
+
+    SpmdFedAvgSession.run_round = maybe_profiled
+    try:
+        yield busy
+    finally:
+        SpmdFedAvgSession.run_round = run_round
+
+
+def _by_round(config, device: str):
+    """``build_session(config).run()`` on ``device`` with every round's new
+    master kept (``run_round``'s result, on the host); returns the records,
+    those parameters, the K1 launches of each round and the session."""
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    session = build_session(config, device=device)
+    params = []
+    with k1_by_round([]) as k1:
+        run_round = session.run_round  # the counted method
+
+        def keep(*args, **kwargs):
+            out = run_round(*args, **kwargs)
+            params.append(out.detach().cpu().clone())
+            return out
+
+        session.run_round = keep
+        perf = session.run()["performance"]
+    return perf, params, k1, session
+
+
+def check_rounds_against_cpu(workdir: str, label: str, make_config, columns=()) -> dict[str, int]:
+    """A small f32 task from one init (the port's own, seed 0, through the
+    bridge), on the card and on the CPU, round by round: every round's
+    parameters (max |difference|) and test loss (relative) within the ViT
+    task's 1e-3, the record ``columns`` equal, and on the card K1's
+    launches exact every round.  Returns the card run's launches."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.training import build_session
+
+    init = os.path.join(workdir, f"{label}_init.npz")
+    session = build_session(make_config(os.path.join(workdir, f"{label}_init")), device="cpu")
+    np.savez(init, **convert.to_jax(session.engine.init_params(0)))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            _reset_launches()
+        runs[device] = _by_round(make_config(os.path.join(workdir, f"{label}_{device}"), global_model_path=init), device)
+        if device == "cuda":
+            launches = _read_launches()
+    (gpu_perf, gpu_params, k1, card), (cpu_perf, cpu_params, _, _) = runs["cuda"], runs["cpu"]
+    check(sorted(gpu_perf) == sorted(cpu_perf) == list(range(1, len(cpu_params) + 1)), f"{label} records")
+    params = [float((g - c).abs().max()) for g, c in zip(gpu_params, cpu_params)]
+    loss = [abs(gpu_perf[r]["test_loss"] - cpu_perf[r]["test_loss"]) / abs(cpu_perf[r]["test_loss"]) for r in cpu_perf]
+    print(
+        f"small task ({label}) card vs CPU, round by round: test loss"
+        f" {[round(gpu_perf[r]['test_loss'], 6) for r in gpu_perf]} vs {[round(cpu_perf[r]['test_loss'], 6) for r in cpu_perf]}"
+        f" (rel {max(loss):.2g}), max |param diff| {[f'{p:.3g}' for p in params]}; launches {launches}"
+    )
+    for r in cpu_perf:
+        for key in columns:
+            check(gpu_perf[r][key] == cpu_perf[r][key], f"{label} round {r} {key}: {gpu_perf[r][key]} vs {cpu_perf[r][key]}")
+        if columns:
+            print(f"  round {r}: " + ", ".join(f"{key} {cpu_perf[r][key]}" for key in columns))
+    check(k1 == [expected_k1_a_round(card)] * len(cpu_perf), f"{label} K1 by round {k1}")
+    check(max(loss) <= 1e-3 and max(params) <= 1e-3, f"small task ({label}): card and CPU disagree")
+    return launches
+
+
+def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
+    """``train()`` on ``large_scale/fed_avg/bert_agnews.yaml`` as shipped but
+    for ``BERT_ROUNDS`` (1000 workers, 100 selected, ``bert_base``,
+    ``use_amp``, ``client_chunk: auto``), the launch counters set to 0 just
+    before and read just after: each round's time, test loss and accuracy,
+    the peak memory; ``auto`` must miss the calibration and run
+    :data:`BERT_CHUNK`; K1 exactly ``worker_number / chunk`` a round; every
+    K4 launch on the wgmma forward, one a layer per test batch per
+    evaluation pass (the test metrics and, with
+    ``use_slow_performance_metrics``, the confusion matrix); no K5 (training
+    runs dropout 0.1: the dense path).  The last round's training runs
+    under ``torch.profiler`` (:func:`profiled_round`; its record's time
+    includes the profiler's cost)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.data import create_dataset_collection
+    from distributed_learning_simulator_tpu_torch.ml_type import MachineLearningPhase
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    config = shipped_config(BERT_FILE, os.path.join(workdir, "bert_agnews"), round=BERT_ROUNDS)
+    check(config.algorithm_kwargs.get("client_chunk") == "auto", f"{BERT_FILE}: client_chunk {config.algorithm_kwargs}")
+    test = create_dataset_collection(config).get_dataset(MachineLearningPhase.Test)
+    passes = 2 if config.use_slow_performance_metrics else 1
+    k4 = BERT_ROUNDS * passes * math.ceil(len(test.targets) / config.batch_size) * 12
+    torch.cuda.empty_cache()
+    _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    label = f" (bert_agnews: 100 clients x 1 step, {config.worker_number // BERT_CHUNK} K1)"
+    with k1_by_round([]) as k1, profiled_round(BERT_ROUNDS, label) as busy:
+        perf = train(config)["performance"]
+    wall = time.monotonic() - t0
+    launches, routes = _read_launches(), dict(sa.route_launches)
+    check(len(busy) == 1, f"{BERT_FILE}: round {BERT_ROUNDS} was not profiled")
+    peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    print(
+        f"main path {BERT_FILE} (bert_base, {config.worker_number} workers,"
+        f" {config.algorithm_kwargs['random_client_number']} selected, batch {config.batch_size}, use_amp):"
+        f" {BERT_ROUNDS} rounds in {wall:.2f} s (setup and a profiled round included); peak memory {peak:.2f} GiB over the"
+        f" {held / 2**30:.2f} GiB held before it; launches {launches}; K4/K5 by kernel {routes}; K1 by round {k1}"
+    )
+    for r, row in sorted(perf.items()):
+        print(f"  round {r}: {row['round_seconds']:.3f} s; test loss {row['test_loss']:.4f} accuracy"
+              f" {row['test_accuracy']:.4f} over {row['test_count']:.0f}")
+        check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{BERT_FILE} record {row}")
+    with open(config.log_file, encoding="utf8") as f:
+        check("client_chunk: auto found NO calibration entry" in f.read(), f"{BERT_FILE}: auto did not miss")
+    check(sorted(perf) == list(range(1, BERT_ROUNDS + 1)), f"{BERT_FILE} records {sorted(perf)}")
+    check(k1 == [config.worker_number // BERT_CHUNK] * BERT_ROUNDS, f"{BERT_FILE} K1 by round {k1}")
+    check(launches["K4"] == k4 and launches["K5"] == 0, f"{BERT_FILE} K4/K5 {launches}, want K4 {k4}, K5 0")
+    check_short_routes(routes, launches["K4"], 0, BERT_FILE)
+    others = [kid for kid, n in launches.items() if n and kid not in ("K1", "K4")]
+    check(not others, f"{BERT_FILE}: kernels off this path launched: {others}")
+    return launches, {"wall_s": wall, "peak_gib": peak, "records": perf}
+
+
+def run_buffered_file(workdir: str) -> dict[str, int]:
+    """``train()`` on ``fed_avg/mnist_buffered.yaml`` as shipped (20 rounds,
+    LeNet5, buffered with stragglers), the launch counters set to 0 just
+    before and read just after: each record's flush columns printed, K1
+    exactly ``n_chunks x (depth + 1)`` every round."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    config = shipped_config(BUFFERED_FILE, os.path.join(workdir, "mnist_buffered"))
+    want = expected_k1_a_round(build_session(config))  # the schedule's depth and the chunk
+    _reset_launches()
+    t0 = time.monotonic()
+    with k1_by_round([]) as k1:
+        perf = train(config)["performance"]
+    wall = time.monotonic() - t0
+    launches = _read_launches()
+    print(f"main path {BUFFERED_FILE}: {config.round} rounds in {wall:.2f} s (setup included); launches {launches};"
+          f" K1 {want} a round")
+    for r, row in sorted(perf.items()):
+        print(f"  round {r}: flush_cohort {row['flush_cohort']} stale_updates {row['stale_updates']} buffer_depth"
+              f" {row['buffer_depth']}; {row['round_seconds']:.3f} s; test loss {row['test_loss']:.4f}")
+        check(np.isfinite(row["test_loss"]), f"{BUFFERED_FILE} record {row}")
+    check(sorted(perf) == list(range(1, config.round + 1)), f"{BUFFERED_FILE} records {sorted(perf)}")
+    check(want > 2 and k1 == [want] * config.round, f"{BUFFERED_FILE} K1 by round {k1}, want {want}")
+    check(any(row["stale_updates"] for row in perf.values()), f"{BUFFERED_FILE}: no stale update merged")
+    others = [kid for kid, n in launches.items() if n and kid != "K1"]
+    check(not others, f"{BUFFERED_FILE}: kernels off this path launched: {others}")
+    return launches
+
+
 def print_phase_times(marks: list) -> None:
     print("phase wall times: " + "; ".join(
         f"{label} {t - before:.1f} s" for (_, before), (label, t) in zip(marks, marks[1:])
@@ -3166,8 +3511,9 @@ def main(argv: list[str]) -> int:
     yardsticks = kernels_only
     gen = torch.Generator(device="cuda").manual_seed(0)
     d, d_cnn, d_gnn = param_count(), param_count("densenet40"), param_count("TwoGCN", "Coauthor_CS")
+    d_bert = param_count("bert_base", "AGNews", max_len=128)  # bert_agnews.yaml's
     mark("2 model sizes")
-    k1 = check_weighted_accum(d, d_cnn, d_gnn, gen, yardsticks)
+    k1 = check_weighted_accum(d, d_cnn, d_gnn, d_bert, gen, yardsticks)
     mark("2 K1")
     k4, k5 = check_short_attention(gen, yardsticks)
     mark("2 K4/K5")
@@ -3204,6 +3550,11 @@ def main(argv: list[str]) -> int:
     mark("3 GTG")
     check_gnn_task_against_cpu(workdir)
     mark("3 fed_gnn task")
+    bert_task = check_rounds_against_cpu(workdir, "BERT d_model 128 f32", bert_task_config)
+    check(bert_task["K4"] > 0 and bert_task["K5"] > 0, f"BERT task: K4/K5 {bert_task}")
+    check_rounds_against_cpu(workdir, "LeNet5 buffered, guard", buffered_task_config,
+                             ("flush_cohort", "stale_updates", "buffer_depth", "rejected_updates", "received_mb"))
+    mark("3 BERT, buffered tasks")
 
     # 4. the main path
     config = dense_config(os.path.join(workdir, "main"))
@@ -3289,6 +3640,15 @@ def main(argv: list[str]) -> int:
     mark("4h graph FL")
     profile_gnn_round(workdir, gnn_records)
     mark("4h profile")
+
+    # 4i. bert_agnews.yaml (K1, K4 on wgmma) and its profile; the buffered
+    # mnist_buffered.yaml (K1 once a chunk and bucket)
+    bert_launches, _ = run_bert_agnews(workdir)
+    launches["K1"] += bert_launches["K1"]
+    launches["K4"] += bert_launches["K4"]
+    mark("4i bert_agnews (its last round profiled)")
+    launches["K1"] += run_buffered_file(workdir)["K1"]
+    mark("4i mnist_buffered")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

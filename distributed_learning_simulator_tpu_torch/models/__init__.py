@@ -1,5 +1,6 @@
 """Model zoo of the port; importing it registers the ported models."""
 
+from . import bert  # noqa: F401  (registers bert_base, bert_small, bert_tiny)
 from . import graph  # noqa: F401  (registers TwoGCN, ThreeGCN, SimpleGCN, OneGCN)
 from . import long_context  # noqa: F401  (registers LongContextTransformer, CausalLMTransformer)
 from . import text  # noqa: F401  (registers TransformerClassificationModel)

@@ -63,7 +63,7 @@ class EncoderLayer(nn.Module):
         super().__init__()
         if ffn is not None:
             raise NotImplementedError(
-                "EncoderLayer's ffn hook (the MoE family) is not ported yet (ROADMAP.md, Queue 1 item 5)"
+                "EncoderLayer's ffn hook (the MoE family) is not ported yet (ROADMAP.md, Queue 1 item 6)"
             )
         if activation not in ("relu", "gelu"):
             raise ValueError(f"activation must be relu or gelu, not {activation!r}")
@@ -149,7 +149,7 @@ def _transformer(
         raise NotImplementedError(
             "TransformerClassificationModel with pipeline_stages / pp_mesh / pp_axis (the JAX"
             " package's stacked trunk and GPipe schedule) is not ported yet (ROADMAP.md,"
-            " Queue 1 item 7: spmd_pp.py)"
+            " Queue 1 item 8: spmd_pp.py)"
         )
     meta = dataset_collection.metadata
     # the JAX factory loads GloVe vectors only where the dataset carries a
@@ -158,7 +158,7 @@ def _transformer(
         raise NotImplementedError(
             f"word_vector_name {word_vector_name!r} over a dataset vocab reads the real-data"
             " loader (data/real.py), which is not ported yet (ROADMAP.md,"
-            " Queue 1 item 6)"
+            " Queue 1 item 7)"
         )
     module = TransformerClassifier(
         vocab_size=meta.get("vocab_size", 20000),

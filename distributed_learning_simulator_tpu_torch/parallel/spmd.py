@@ -32,6 +32,31 @@ bought no time on the card, PERF.md).  As in the JAX package, only this
 class (fed_avg, fed_paq) and the FedOBD session take a horizon; a
 subclass with its own round program raises ``ValueError``.
 
+``client_chunk: auto`` resolves through the calibration cache
+(``util/calibration.py``) once the slot count is known; a miss gives the
+default chunk.
+
+``fault_tolerance`` (``util/faults.py``) folds into the round's host weight
+row as in the JAX session: a dropped client weighs 0, a corrupt one NaN,
+the host sleeps once for the slowest straggler, and the quorum is checked
+before the round.  The update guard (``update_guard``, ``max_update_norm``)
+checks each trained client's delta on the device (finite, and within the
+norm) and zeroes a rejected client's entry of the device weight vector
+that K1 reads; the survivors' total divides the sum, a round that rejects
+everyone keeps the old master, and the reject count reaches the host after
+the round's evaluation, where the post-guard quorum is checked.
+
+``aggregation_mode: buffered`` (``util/buffered.py``) replays the arrival
+schedule in logical time: each training round's weights are discounted by
+the staleness their update lands with, and each client's row is routed to
+the bucket of the flush it lands at, by one K1 launch per (chunk, bucket)
+over the chunk's rows with the bucket's masked weights.  Bucket 0 and the
+head of a ``[depth, D]`` f32 pending ring form the flush; the other
+buckets refill the ring, shifted once a round.  A flush of weight 0 keeps
+the old master.  A depth-0 schedule runs the synchronous round, bit for
+bit.  Only this class (fed_avg, fed_paq) takes buffered aggregation and
+the fault plan; the other sessions refuse them.
+
 The sparse-upload sessions (``parallel/spmd_sparse.py``) reuse the client
 loop through :meth:`SpmdFedAvgSession._upload` (a trained client's row),
 ``_row_width``, ``_upload_dtype`` and ``_finish`` (the new master).
@@ -54,12 +79,25 @@ from ..models.dropout import dropout_generator
 from ..models.registry import causal_lm_targets
 from ..ops.pytree import flat_stack_weighted_sum
 from ..ops.quantization import CodecRandom, qsgd_quantize_dequantize
+from ..util.buffered import BufferedSettings, compute_arrival_schedule, selection_uploaders, staleness_discount
+from ..util.calibration import resolve_client_chunk
+from ..util.faults import FaultPlan, QuorumLostError, apply_fault_plan
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
 
 #: algorithm_kwargs this session reads; any other key raises
 SUPPORTED_ALGORITHM_KWARGS = frozenset(
-    {"client_chunk", "global_model_path", "random_client_number", "round_horizon"}
+    {
+        "aggregation_mode",
+        "buffer_size",
+        "calibration_path",
+        "client_chunk",
+        "global_model_path",
+        "min_client_quorum",
+        "random_client_number",
+        "round_horizon",
+        "staleness_alpha",
+    }
 )
 
 
@@ -238,8 +276,15 @@ class SpmdFedAvgSession:
         self.engine = engine
         self.device = model_ctx.device
         self.n_slots = config.worker_number
-        self.client_chunk = int(config.algorithm_kwargs.get("client_chunk", 0) or 0)
+        #: the slots a round walks (the calibration key's ``s_pad``)
+        self.s_pad = self.n_slots
+        raw_chunk = config.algorithm_kwargs.get("client_chunk", 0)
+        if isinstance(raw_chunk, str) and raw_chunk.strip().lower() == "auto":
+            # a hit is the calibrated chunk; a miss is 0, the default
+            raw_chunk = resolve_client_chunk(self, path=config.algorithm_kwargs.get("calibration_path"))
+        self.client_chunk = int(raw_chunk or 0)
         self._stat: dict[int, dict] = {}
+        self._init_faults(config)
 
         host, self._dataset_sizes, _ = stack_client_data(
             config, dataset_collection, practitioners, self.n_slots
@@ -253,6 +298,75 @@ class SpmdFedAvgSession:
                 self._val_data = self._to_device(val)
         test = dataset_collection.get_dataset(Phase.Test)
         self._eval_batches = self._to_device(make_epoch_batches(test, config.batch_size))
+
+    def _init_faults(self, config) -> None:
+        """The fault plan, the update guard and the buffered schedule, each
+        gated per class as in the JAX session."""
+        self._fault_plan = FaultPlan.from_config(config)
+        self._min_quorum = int(config.algorithm_kwargs.get("min_client_quorum", 0) or 0)
+        self._update_guard = bool(self._fault_plan is not None and self._fault_plan.update_guard)
+        self._max_update_norm = self._fault_plan.max_update_norm if self._fault_plan else 0.0
+        reason = self._class_update_guard_reason()
+        if self._update_guard and reason:
+            raise ValueError(
+                f"fault_tolerance.update_guard is unsupported here: {reason} — drop the knob for this session"
+            )
+        plan = self._fault_plan
+        if (plan is not None or self._min_quorum) and type(self) is not SpmdFedAvgSession:
+            raise NotImplementedError(
+                f"fault_tolerance and min_client_quorum on {type(self).__name__} are not ported yet"
+                " (ROADMAP.md, Queue 1 item 7)"
+            )
+        if plan is not None and (plan.kill_after_rounds or plan.auto_resume):
+            raise NotImplementedError(
+                "fault_tolerance.kill_after_rounds / auto_resume need resume and checkpoints, which are"
+                " not ported yet (ROADMAP.md, Queue 1 item 7)"
+            )
+        if plan is not None and plan.client_faults_nonfatal:
+            raise NotImplementedError(
+                "fault_tolerance.client_faults_nonfatal is the threaded executor's, which is not ported"
+                " yet (ROADMAP.md, Queue 1 item 5)"
+            )
+        self._buffered = BufferedSettings.from_config(config)
+        self._arrival_schedule = None
+        self._buffered_depth = 0
+        if self._buffered is not None:
+            reason = self._class_buffered_reason()
+            if reason:
+                raise ValueError(
+                    f"algorithm_kwargs.aggregation_mode=buffered is unsupported here: {reason} — drop the"
+                    " knob for this session"
+                )
+            self._arrival_schedule = compute_arrival_schedule(
+                self._buffered, plan, config.worker_number, config.round, selection_uploaders(config)
+            )
+            self._buffered_depth = self._arrival_schedule.max_staleness
+        #: a depth-0 schedule runs the synchronous round, bit for bit
+        self._buffered_active = self._buffered_depth > 0
+        #: the buffered pending ring: ([depth, D] f32 sums, [depth] weights)
+        self._pending = None
+        #: the guard's reject count of the last round (a device scalar)
+        self._rejected = None
+
+    @classmethod
+    def _class_update_guard_reason(cls) -> str | None:
+        """Why the JAX session refuses ``update_guard`` for this class (None:
+        it runs it): the sessions with a round program of their own."""
+        if cls is not SpmdFedAvgSession:
+            return f"{cls.__name__} builds its own round program"
+        return None
+
+    @classmethod
+    def _class_buffered_reason(cls) -> str | None:
+        """Why ``aggregation_mode: buffered`` is refused for this class, in
+        the JAX session's words (None: taken)."""
+        if cls is not SpmdFedAvgSession:
+            return (
+                "buffered aggregation (aggregation_mode: buffered) is"
+                " implemented on the client-axis FedAvg family;"
+                f" {cls.__name__} still runs round-barriered"
+            )
+        return None
 
     @classmethod
     def _horizon_unsupported_reason(cls) -> str | None:
@@ -295,6 +409,98 @@ class SpmdFedAvgSession:
             weights[worker_id] = self._dataset_sizes[worker_id]
         return weights
 
+    def _select_weights(self, round_number: int) -> np.ndarray:
+        """The round's weight row with the fault plan folded in (dropped:
+        0, corrupt: NaN) and the quorum enforced; without a plan, the base
+        row, bit for bit."""
+        return apply_fault_plan(
+            self._fault_plan,
+            self._min_quorum,
+            round_number,
+            None,
+            self._base_weight_row(round_number),
+            self.config.worker_number,
+        )
+
+    def _buffered_select_weights(self, round_number: int) -> tuple[np.ndarray, np.ndarray]:
+        """The buffered replay's ``(weights, delays)`` of one training round:
+        the flush quorum checked, a landing update's weight discounted by
+        its staleness, a never-landing one 0, a corrupt one NaN; no
+        straggler sleep (the replay runs in logical time)."""
+        self._buffered_flush_quorum(round_number)
+        weights = self._base_weight_row(round_number)
+        schedule, plan = self._arrival_schedule, self._fault_plan
+        delays = np.zeros(len(weights), np.int32)
+        corrupt = (
+            plan.corrupt_clients(round_number, self.config.worker_number)
+            if plan is not None and plan.injection_active
+            else frozenset()
+        )
+        for wid in range(len(weights)):
+            if not weights[wid]:
+                continue  # unselected
+            delay = schedule.delay(wid, round_number)
+            if delay is None:
+                weights[wid] = 0.0  # lost, or lands past the run's end
+                continue
+            delays[wid] = delay
+            if wid in corrupt:
+                weights[wid] = np.nan
+            else:
+                weights[wid] = np.float32(
+                    float(weights[wid]) * staleness_discount(delay, self._buffered.staleness_alpha)
+                )
+        return weights, delays
+
+    def _buffered_flush_quorum(self, round_number: int) -> None:
+        """An explicit ``min_client_quorum`` against the flush's arrivals that
+        are not corrupt (no implicit floor: an empty flush keeps the old
+        master)."""
+        if self._min_quorum <= 0:
+            return
+        plan = self._fault_plan
+        survivors = sum(
+            1
+            for item in self._arrival_schedule.cohort(round_number)
+            if plan is None or item.worker not in plan.corrupt_clients(item.origin, self.config.worker_number)
+        )
+        if survivors < self._min_quorum:
+            message = (
+                f"flush {round_number}: {survivors} surviving buffered"
+                f" arrivals below min_client_quorum={self._min_quorum} —"
+                " aborting the round loudly"
+            )
+            get_logger().error(message)
+            raise QuorumLostError(message)
+
+    def _buffered_round_extras(self, round_number: int) -> dict:
+        """The flush's record columns, from the host schedule."""
+        schedule = self._arrival_schedule
+        return {
+            "flush_cohort": len(schedule.cohort(round_number)),
+            "stale_updates": schedule.stale_count(round_number),
+            "buffer_depth": schedule.buffer_depth_after(round_number),
+        }
+
+    def _post_guard_quorum(self, round_number: int, participating: int, rejected: int) -> None:
+        """Survivors after the guard (uploads that reached aggregation, NaN
+        weights included, less the rejected) against the quorum, floor 1;
+        the round's record is already written.  Not under the buffered
+        replay, whose flush quorum is checked before the round."""
+        if not self._update_guard or self._buffered_active:
+            return
+        survivors = participating - rejected
+        quorum = max(self._min_quorum, 1)
+        if survivors < quorum:
+            message = (
+                f"round {round_number}: {survivors} surviving uploads after "
+                f"update-guard rejections ({rejected} rejected of "
+                f"{participating}) below min_client_quorum={quorum} — "
+                "aborting loudly (the round kept the previous params)"
+            )
+            get_logger().error(message)
+            raise QuorumLostError(message)
+
     def _init_global_params(self) -> torch.Tensor:
         """The f32 master as one flat vector: ``global_model_path`` (an npz
         of JAX parameters, through the weight bridge) or a fresh init."""
@@ -315,9 +521,15 @@ class SpmdFedAvgSession:
         return size
 
     def run_round(
-        self, global_vec: torch.Tensor, weights: np.ndarray, round_number: int = 1
+        self,
+        global_vec: torch.Tensor,
+        weights: np.ndarray,
+        round_number: int = 1,
+        delays: np.ndarray | None = None,
     ) -> torch.Tensor:
-        """One round: the new f32 master from ``global_vec``."""
+        """One round: the new f32 master from ``global_vec``.  With
+        ``delays`` (the buffered replay) each slot's row goes to the bucket
+        of the flush it lands at, ``delays[slot]`` flushes from now."""
         engine = self.engine
         start = global_vec.to(self.model_ctx.compute_dtype)  # once per round
         work = torch.empty_like(start)
@@ -327,8 +539,15 @@ class SpmdFedAvgSession:
         row_stride = -(-width // 64) * 64
         rows = torch.empty(mb, row_stride, dtype=self._upload_dtype or start.dtype, device=self.device)
         rows = rows[:, :width]
-        acc = torch.zeros(width, device=self.device)
-        w = torch.from_numpy(weights).to(self.device)  # one host->device copy a round
+        buckets = 1 if delays is None else self._buffered_depth + 1
+        acc = torch.zeros(buckets, width, device=self.device)
+        # one host->device copy a round (a copy on the CPU too: the guard writes to it)
+        w = torch.from_numpy(weights).to(self.device, copy=True)
+        if delays is not None:
+            routes = torch.from_numpy(delays).to(self.device)
+            bucket_weights = torch.zeros(buckets, device=self.device)
+        if self._update_guard:
+            self._rejected = torch.zeros((), device=self.device)
         for c0 in range(0, self.n_slots, mb):
             for j in range(mb):
                 slot = c0 + j
@@ -350,8 +569,49 @@ class SpmdFedAvgSession:
                 )
                 with torch.no_grad():
                     self._upload(rows[j], work, start, global_vec, round_number - 1, slot)
-            acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
-        return self._finish(acc, weights)
+                    if self._update_guard:
+                        self._guard(rows[j], start, w, slot)
+            if delays is None:
+                acc[0] += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
+                continue
+            for k in range(buckets):  # one K1 a bucket, over the chunk's rows
+                wk = torch.where(routes[c0 : c0 + mb] == k, w[c0 : c0 + mb], 0.0)
+                acc[k] += flat_stack_weighted_sum(rows, wk)
+                bucket_weights[k] += wk.sum()
+        if delays is not None:
+            return self._flush(acc, bucket_weights, global_vec)
+        if self._update_guard:
+            # the survivors' total; a round that rejects everyone keeps the old master
+            total = w.sum()
+            return torch.where(total > 0, acc[0] / torch.clamp(total, min=1e-12), global_vec)
+        return self._finish(acc[0], weights)
+
+    def _guard(self, row: torch.Tensor, start: torch.Tensor, w: torch.Tensor, slot: int) -> None:
+        """The update guard on one trained row, on the device: a delta
+        against the round's start that is not finite or (``max_update_norm``)
+        too long, or a poisoned (NaN) weight, zeroes the slot's weight in
+        ``w``; a participating slot rejected adds 1 to the round's count."""
+        delta = row.float() - start.float()
+        ok = torch.isfinite(delta).all() & torch.isfinite(w[slot])
+        if self._max_update_norm > 0:
+            limit = torch.tensor(self._max_update_norm, dtype=torch.float32, device=delta.device) ** 2
+            ok &= delta.square().sum() <= limit
+        self._rejected += torch.where(ok, 0.0, (w[slot] != 0).float())  # NaN != 0
+        w[slot] = torch.where(ok, w[slot], 0.0)
+
+    def _flush(self, bucket_sums: torch.Tensor, bucket_weights: torch.Tensor, global_vec: torch.Tensor):
+        """The buffered flush: bucket 0 plus the pending ring's head, over
+        their weight (a flush of weight 0 keeps the old master; a NaN weight
+        poisons it visibly); buckets 1..depth refill the shifted ring."""
+        sums, totals = self._pending
+        flush_weight = bucket_weights[0] + totals[0]
+        flush_sum = bucket_sums[0] + sums[0]
+        new = torch.where(flush_weight == 0, global_vec, flush_sum / torch.clamp(flush_weight, min=1e-12))
+        self._pending = (
+            bucket_sums[1:] + torch.cat([sums[1:], torch.zeros_like(sums[:1])]),
+            bucket_weights[1:] + torch.cat([totals[1:], torch.zeros_like(totals[:1])]),
+        )
+        return new
 
     def _upload(self, row, trained, start, g, aggregate: int, slot: int) -> None:
         """A trained client's row: its parameters ``trained`` (fed_paq:
@@ -397,22 +657,35 @@ class SpmdFedAvgSession:
         save_dir = os.path.join(config.save_dir, "server")
         os.makedirs(save_dir, exist_ok=True)
         param_mb = global_vec.numel() * 4 / 1e6
+        if self._buffered_active:
+            depth = self._buffered_depth
+            self._pending = (
+                torch.zeros(depth, global_vec.numel(), device=self.device),
+                torch.zeros(depth, device=self.device),
+            )
         for round_number in range(1, config.round + 1):
             start = time.monotonic()
-            weights = self._base_weight_row(round_number)
-            global_vec = self.run_round(global_vec, weights, round_number)
+            delays = None
+            if self._buffered_active:
+                weights, delays = self._buffered_select_weights(round_number)
+            else:
+                weights = self._select_weights(round_number)
+            global_vec = self.run_round(global_vec, weights, round_number, delays)
             metric = self._evaluate(global_vec)  # reads the metrics: the round's one sync
             selected = int((weights > 0).sum())
-            self._note_round(
-                round_number,
-                metric,
-                save_dir,
-                {
-                    "received_mb": selected * param_mb * self._upload_cost_factor(),
-                    "sent_mb": selected * param_mb,
-                    "round_seconds": time.monotonic() - start,
-                },
-            )
+            extra = {
+                "received_mb": selected * param_mb * self._upload_cost_factor(),
+                "sent_mb": selected * param_mb,
+                "round_seconds": time.monotonic() - start,
+            }
+            rejected = 0
+            if self._update_guard:
+                rejected = int(self._rejected)  # ready: the evaluation has synced
+                extra["rejected_updates"] = rejected
+            if self._buffered_active:
+                extra.update(self._buffered_round_extras(round_number))
+            self._note_round(round_number, metric, save_dir, extra)
+            self._post_guard_quorum(round_number, int((weights != 0).sum()), rejected)
         # the exit state, in the JAX package's keys and layout
         model_dir = os.path.join(config.save_dir, "aggregated_model")
         os.makedirs(model_dir, exist_ok=True)

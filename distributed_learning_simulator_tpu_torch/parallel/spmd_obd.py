@@ -62,6 +62,10 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
     def _horizon_unsupported_reason(cls) -> str | None:
         return None  # the phases fuse (JAX: the session's own horizon programs)
 
+    @classmethod
+    def _class_update_guard_reason(cls) -> str | None:
+        return None  # the JAX session guards its phases (here: not ported, item 7)
+
     def __init__(self, *args, codec: str = "nnadq", **kwargs) -> None:
         super().__init__(*args, **kwargs)
         if codec not in ("nnadq", "qsgd"):

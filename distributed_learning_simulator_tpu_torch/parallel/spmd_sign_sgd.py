@@ -57,6 +57,10 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
     def _horizon_unsupported_reason(cls) -> str | None:
         return None  # the JAX session fuses rounds too
 
+    @classmethod
+    def _class_update_guard_reason(cls) -> str | None:
+        return None  # the JAX session guards its votes (here: not ported, item 7)
+
     def __init__(self, config, *args, **kwargs) -> None:
         mode = str(config.algorithm_kwargs.get("aggregation_mode") or "synchronous").lower()
         if mode == "buffered":  # the JAX session's refusal

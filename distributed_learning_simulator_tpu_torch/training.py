@@ -21,7 +21,10 @@ executors:
 
 It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
 and raises where no GPU is visible.  What the port does not run yet raises
-``NotImplementedError`` naming the ROADMAP item.
+``NotImplementedError`` naming the ROADMAP item.  ``fault_tolerance`` and
+``aggregation_mode: buffered`` run on the SPMD FedAvg session (fed_avg,
+fed_paq); the other sessions refuse them (``parallel/spmd.py``), and the
+threaded executor refuses both.
 """
 
 import copy
@@ -55,6 +58,7 @@ from .utils.logging import add_file_handler, get_logger
 #: model_kwargs that select a multi-device layout in the JAX package
 _LAYOUT_KWARGS = ("sequence_parallel", "expert_parallel", "pipeline_stages")
 _EXECUTORS = ("auto", "spmd", "sequential")
+_GRAPH_METHODS = ("fed_gnn", "fed_gcn", "fed_aas")
 #: algorithm_kwargs the threaded executor's roles read; any other raises
 THREADED_ALGORITHM_KWARGS = frozenset(
     {"global_model_path", "random_client_number", "early_stop", "second_phase_epoch", "dropout_rate"}
@@ -163,9 +167,12 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
                 " ROADMAP.md)"
             )
     layouts = [k for k in _LAYOUT_KWARGS if int(config.model_kwargs.get(k, 0) or 0) > 1]
+    # the SPMD sessions gate fault_tolerance per class (parallel/spmd.py);
+    # the threaded executor and the graph sessions run none of it
+    faults_gated = resolve_executor(config) == "spmd" and algorithm not in _GRAPH_METHODS
     refused = {
         "model_kwargs": layouts,
-        "fault_tolerance": bool(config.fault_tolerance),
+        "fault_tolerance": bool(config.fault_tolerance) and not faults_gated,
         "telemetry": bool(dict(config.telemetry).get("enabled")),
         "profile": config.profile,
         "watchdog_seconds": bool(config.watchdog_seconds),

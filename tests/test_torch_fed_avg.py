@@ -190,7 +190,7 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
         {"algorithm_kwargs": {"population_store": "streamed"}},
         {"extra_hyper_parameters": {"donate_buffers": True}},
         {"extra_hyper_parameters": {"remat_policy": "save_only_these_names"}},
-        {"model_name": "bert_base"},
+        {"fault_tolerance": {"kill_after_rounds": [1]}},
         {
             "model_name": "TransformerClassificationModel",
             "dataset_name": "imdb",
@@ -220,6 +220,7 @@ SHIPPED = [
     "large_scale/fed_avg/cifar10.yaml",
     "large_scale/fed_avg/cifar100.yaml",
     "large_scale/fed_avg/imdb.yaml",
+    "fed_avg/mnist_buffered.yaml",
 ]
 
 
