@@ -1,7 +1,9 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # everything below
-    python3 chip_smoke.py --kernels    # phases 1-2 only, with the yardsticks
+    python3 chip_smoke.py                    # everything below
+    python3 chip_smoke.py --kernels          # phases 1-2 only, with the yardsticks
+    python3 chip_smoke.py --checkpoint-cost  # phase 1, then bert_agnews.yaml's round
+                                             # times with checkpoint_every 1 and 100
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -78,7 +80,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rounds: K4 and K5 through the model) and a buffered LeNet5 task
    (``conf/fed_avg/mnist_buffered.yaml`` cut to 4 rounds, one corrupt
    client, ``update_guard`` on: the flush columns and ``rejected_updates``
-   equal), K1 exact every round;
+   equal), K1 exact every round; then two recovery tasks
+   (``check_recovery_against_cpu``): ``conf/fed_avg/mnist.yaml`` cut to 4
+   rounds and a DenseNet-40 fed_obd task (1 round and 2 tuning epochs),
+   each killed once on the card (``kill_after_rounds``: after round 2, the
+   first tuning epoch for fed_obd, so its resume restores
+   ``opt_state.npz`` onto the card) and recovered by
+   ``train_with_recovery``, against the uninterrupted run on the CPU round
+   by round, K1 exact over both attempts;
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -97,12 +106,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (``vit_base``, 10 workers, 5 selected, QSGD per leaf: ``obd_config``)
    for 1 round and 2 tuning epochs, with K2/K3 launches checked against
    the count the protocol gives (``expected_qsgd_launches``); then
-   ``conf/fed_avg/cifar10.yaml`` (DenseNet-40, 10 workers, 5 local
-   epochs) as shipped but for ``round`` (1), and ``imdb.yaml``,
-   ``imagenet.yaml`` (at 1 local epoch) and ``mnist.yaml`` for 1 round each, with K1's
-   launches checked exactly; then (4e) the SPMD
-   session on the source paper's method as shipped but for ``round`` and
-   ``second_phase_epoch`` (``SPMD_OBD_RUNS``: ``conf/fed_obd/cifar10.yaml``
+   ``conf/fed_avg/cifar10.yaml`` (DenseNet-40, 10 workers) as shipped
+   but for ``round`` (1) and 1 local epoch of its 5, and ``imdb.yaml``
+   and ``imagenet.yaml`` (each 1 of 5) and ``mnist.yaml`` for 1 round
+   each (``CNN_EPOCHS``), with K1's launches checked exactly; then (4e)
+   the SPMD session on the source paper's method as shipped but for
+   ``round``, ``second_phase_epoch`` and ``SPMD_OBD_EPOCHS`` local epochs
+   of 5 (``SPMD_OBD_RUNS``: ``conf/fed_obd/cifar10.yaml``
    for 1 round and 1 tuning epoch, ``fed_obd/vit_cifar100.yaml`` and
    ``fed_obd_sq/cifar100.yaml`` for 1 and 1, ``fed_paq/cifar10.yaml`` for
    1 round), each record's phase, time, test loss and wire MB printed,
@@ -113,14 +123,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``round_horizon`` 5, ``remat_policy: dots_saveable``) as shipped but for
    5 rounds and 2 tuning epochs (the DenseNet-40 file) or 1 and 1 (the others),
    each record's phase and K1's launches checked exactly; the horizon's parity (the DenseNet-40 file's run, made
-   with cuDNN deterministic, against two runs of it at ``round_horizon`` 1:
-   H = 5 no further from H = 1 than H = 1 from itself) and remat's (one
-   phase-1 round of the DenseNet-40 and the classifier files without, with
-   and again without ``dots_saveable``: peak memory, round time, and the
-   remat round held to the plain rounds' spread); and the 12 FedDropoutAvg
+   with cuDNN deterministic, against a run of it at ``round_horizon`` 1:
+   every row and the final parameters equal bit for bit) and remat's (one
+   phase-1 round of the DenseNet-40 and the classifier files without and
+   with ``dots_saveable``: peak memory, round time, and the remat round
+   equal to the plain one bit for bit); and the 12 FedDropoutAvg
    and SMAFD files (``SPARSE_FILES``) for one round each (the 100-worker
-   ones at 1 local epoch, the others at 2), K1 checked exactly; then (4g) the three sign_SGD
-   files (``SIGN_SGD_FILES``) at 2 local epochs, K1 once a step
+   ones at 1 local epoch of 5, the others too), K1 checked exactly; then (4g) the three sign_SGD
+   files (``SIGN_SGD_FILES``) at 1 local epoch, K1 once a step
    (``round x epoch x n_batches``), and the eight Shapley-value files
    (``SHAPLEY_FILES``: GTG, hierarchical, multi-round) at 1 local epoch
    for 1 round (the two LeNet5 files 2), each round's subsets and their
@@ -135,14 +145,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``fed_gnn/cs.yaml`` round; then (4i) ``large_scale/fed_avg/
    bert_agnews.yaml`` as shipped but for 2 rounds (``bert_base``, 1000
    workers, 100 selected, ``use_amp``, ``client_chunk: auto``, which
-   misses the calibration and runs 8): each round's time, test loss and
-   accuracy, the peak memory, K1 exactly 125 a round, every K4 launch on
-   wgmma (one a layer per test batch per evaluation pass), no K5, and the
-   last round's training profiled; and ``fed_avg/mnist_buffered.yaml`` as shipped
-   (20 rounds), each record's flush columns printed and K1 exactly
+   misses the calibration and runs 8) under ``train_with_recovery``,
+   killed after round 1: ``round_1.npz`` reloads bit-equal to round 1's
+   master and attempt 1 starts from it bit for bit, the last record holds
+   both rounds once; each round's time, test loss and accuracy, each
+   attempt's setup time, each checkpoint's queue and write seconds, the
+   peak memory, K1 exactly 125 a round over both attempts, every K4 launch
+   on wgmma (one a layer per test batch per evaluation pass), no K5, and
+   round 2's training profiled; and ``fed_avg/mnist_buffered.yaml`` as shipped
+   but for 10 of its 20 rounds, each record's flush columns printed and K1 exactly
    ``n_chunks x (depth + 1)`` every round;
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
+
+Every phase writes into a directory of its own under ``session/``, removed
+when the phase ends (every SPMD round now writes its checkpoint).
 
 Every ``train()`` call runs at the precision the port sets for itself
 (``utils/device.py``: TF32 off for f32 matrix products and convolutions),
@@ -181,8 +198,8 @@ CNN_CHUNK = 5
 CNN_MAIN = "fed_avg/cifar10.yaml"
 CNN_EXTRA = ("fed_avg/imdb.yaml", "fed_avg/imagenet.yaml", "fed_avg/mnist.yaml")
 #: local epochs of the files that run a round long as shipped (ResNet-18's
-#: 5 took 24 s), cut for the script's time
-CNN_EPOCHS = {"fed_avg/imagenet.yaml": 1}
+#: 5 took 24 s, DenseNet-40's 12.8 s), cut for the script's time
+CNN_EPOCHS = {"fed_avg/imagenet.yaml": 1, "fed_avg/cifar10.yaml": 1, "fed_avg/imdb.yaml": 1}
 #: the client slots of the shipped sign-SGD and Shapley DenseNet-40 files
 SV_SLOTS = 10
 #: the client slots of the shipped conf/fed_gnn files (TwoGCN on Coauthor_CS)
@@ -2119,7 +2136,9 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
 
 # ------------------------------- FedOBD, FedOBD-SQ and FedPAQ on the SPMD session
 #: (shipped file, rounds, tuning epochs) of phase 4e: each as shipped but
-#: for ``round`` and ``second_phase_epoch`` (fed_paq has no tuning phase)
+#: for ``round``, ``second_phase_epoch`` (fed_paq has no tuning phase) and
+#: ``SPMD_OBD_EPOCHS`` local epochs of their 5 (for the script's time)
+SPMD_OBD_EPOCHS = 1
 SPMD_OBD_RUNS = (
     ("fed_obd/cifar10.yaml", 1, 1),
     ("fed_obd/vit_cifar100.yaml", 1, 1),
@@ -2357,7 +2376,8 @@ def check_obd_task_against_cpu(workdir: str) -> None:
 
 
 def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
-    """``train()`` on each of ``SPMD_OBD_RUNS`` at full width, with the
+    """``train()`` on each of ``SPMD_OBD_RUNS`` at full width (``SPMD_OBD_EPOCHS``
+    local epochs), with the
     launch counters set to 0 just before each and read just after: every
     record's phase, time, test loss and wire MB, the peak memory, K1's
     launches checked exactly (``expected_obd_k1``: the files' 10 workers in
@@ -2372,7 +2392,7 @@ def run_obd_spmd_files(workdir: str) -> tuple[dict[str, int], dict]:
 
     total, records = {}, {}
     for name, rounds, tuning in SPMD_OBD_RUNS:
-        overrides = {"round": rounds}
+        overrides = {"round": rounds, "epoch": SPMD_OBD_EPOCHS}
         if tuning:
             overrides["algorithm_kwargs.second_phase_epoch"] = tuning
         config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), **overrides)
@@ -2466,15 +2486,15 @@ def run_shipped_configs(workdir: str) -> dict[str, int]:
 #: the source paper's method at its 100-client geometry: 100 workers, 50
 #: selected, ``round_horizon`` 5, ``remat_policy: dots_saveable``; run as
 #: shipped but for ``round`` and ``second_phase_epoch``: one phase-1
-#: horizon of 5 rounds, then a phase-2 horizon clamped to its budget of 2
-#: (two tuning epochs: the carried optimizer states and the phase-2 keys
-#: taken past one epoch), the switch on a boundary (a host-bound round
-#: takes 3-6 s, and the host's speed varies by machine: the depth the
-#: script can afford).  The DenseNet-40 file, whose run is also the horizon
-#: parity's, takes ``LARGE_OBD_TUNING`` tuning epochs, the others 1 (PR 13
-#: cut them for the script's time), and the others ``LARGE_OBD_OTHER_ROUNDS``
-#: phase-1 round, a horizon clamped to 1 before the switch (for the
-#: script's time)
+#: horizon of 5 rounds, then ``LARGE_OBD_TUNING`` tuning epochs, the
+#: switch on a boundary: phase 2 runs as one chunk of 2 aggregates (no
+#: checkpoint between them, ``opt_state.npz`` at its end), the optimizer
+#: states carried from the first to the second, and the horizon parity
+#: holds both phases (a host-bound round takes 3-6 s, and the host's speed
+#: varies by machine: the depth the script can afford).
+#: The DenseNet-40 file's run is also the horizon parity's; the others
+#: take ``LARGE_OBD_OTHER_ROUNDS`` phase-1 round, a horizon clamped to 1
+#: before the switch, and 1 tuning epoch (for the script's time)
 LARGE_OBD_FILES = (
     "large_scale/fed_obd/cifar10.yaml",
     "large_scale/fed_obd/cifar100.yaml",
@@ -2482,10 +2502,9 @@ LARGE_OBD_FILES = (
     "large_scale/fed_obd/imdb.yaml",
 )
 LARGE_OBD_ROUNDS, LARGE_OBD_TUNING, LARGE_OBD_OTHER_ROUNDS = 5, 2, 1
-#: the FedDropoutAvg and SMAFD files, one round each as shipped, the
-#: 100-worker ones at 1 local epoch of their 5 (``SPARSE_LARGE_EPOCHS``),
-#: the 10-worker ones at 2 (``SPARSE_EPOCHS``, for the script's time)
-SPARSE_LARGE_EPOCHS, SPARSE_EPOCHS = 1, 2
+#: the FedDropoutAvg and SMAFD files, one round each as shipped but for 1
+#: local epoch of their 5 (``SPARSE_EPOCHS``, for the script's time)
+SPARSE_EPOCHS = 1
 SPARSE_FILES = tuple(
     f"{family}/{data}.yaml"
     for family in ("fed_dropout_avg", "large_scale/fed_dropout_avg", "smafd", "large_scale/smafd")
@@ -2525,10 +2544,11 @@ def sparse_small_task(name: str):
     return make_config
 
 
-def _final_params(config, key: int) -> dict:
+def _round_params(save_dir: str, key: int) -> dict:
+    """``aggregated_model/round_<key>.npz`` of a run's ``save_dir``."""
     import numpy as np
 
-    with np.load(os.path.join(config.save_dir, "aggregated_model", f"round_{key}.npz")) as blob:
+    with np.load(os.path.join(save_dir, "aggregated_model", f"round_{key}.npz")) as blob:
         return {k: blob[k] for k in blob.files}
 
 
@@ -2570,7 +2590,8 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
     checked exactly (``expected_obd_k1``: 100 slots in chunks of
     ``CNN_CHUNK``); no other kernel.  The first file runs with cuDNN on
     deterministic algorithms: it is also the H = 5 run of
-    :func:`check_horizon_parity`.  Returns the launches of all runs and
+    :func:`check_horizon_parity`, and its checkpoints must lie on the
+    horizon's boundaries.  Returns the launches of all runs and
     each file's records (the first one's with its final parameters)."""
     import numpy as np
     import torch
@@ -2622,48 +2643,54 @@ def run_large_scale_obd(workdir: str) -> tuple[dict[str, int], dict]:
         check(not torch.backends.cudnn.allow_tf32, f"{name}: f32 convolutions ran in TF32")
         records[name] = {"wall_s": wall, "peak_gib": peak, "records": perf}
         if parity:
-            records[name]["final"] = _final_params(config, max(perf))
+            records[name]["final"] = _round_params(config.save_dir, max(perf))
+            # checkpoints on the horizon's boundaries only: phase 1's end and
+            # phase 2's chunk end, the optimizer states saved with the latter
+            model_dir = os.path.join(config.save_dir, "aggregated_model")
+            saved = sorted(int(f[6:-4]) for f in os.listdir(model_dir) if f.startswith("round_"))
+            with np.load(os.path.join(model_dir, "opt_state.npz")) as blob:
+                stat_key = int(blob["stat_key"])
+            check(saved == [rounds, rounds + tuning] and stat_key == rounds + tuning,
+                  f"{name}: checkpoints {saved}, opt_state.npz of aggregate {stat_key}")
     return total, records
 
 
 def check_horizon_parity(workdir: str, records: dict) -> None:
     """``large_scale/fed_obd/cifar10.yaml`` at ``LARGE_OBD_ROUNDS`` rounds and
-    ``LARGE_OBD_TUNING`` tuning epochs with ``round_horizon`` 1, twice, cuDNN
-    on deterministic algorithms: the main path's run of the file (H = 5,
-    the same algorithms) must be no further from the first H = 1 run, by
-    its rows and final parameters, than the second H = 1 run is."""
+    ``LARGE_OBD_TUNING`` tuning epochs with ``round_horizon`` 1, cuDNN on
+    deterministic algorithms: the main path's run of the file (H = 5, the
+    same algorithms) must equal it bit for bit, every row and the final
+    parameters: with those algorithms two runs of the file agree bit for
+    bit, so no run-to-run spread is allowed."""
     from distributed_learning_simulator_tpu_torch.training import train
 
     name = LARGE_OBD_FILES[0]
-    runs = {"h5": (records[name]["records"], records[name]["final"])}
     with deterministic_convolutions():
-        for label in ("h1", "h1_again"):
-            config = shipped_config(name, os.path.join(workdir, f"parity_{label}"), round=LARGE_OBD_ROUNDS,
-                                    **{"algorithm_kwargs.second_phase_epoch": LARGE_OBD_TUNING,
-                                       "algorithm_kwargs.round_horizon": 1})
-            t0 = time.monotonic()
-            perf = train(config)["performance"]
-            runs[label] = (perf, _final_params(config, max(perf)))
-            print(f"  horizon parity {label}: {len(perf)} aggregates in {time.monotonic() - t0:.2f} s (setup"
-                  f" included), test loss {[round(perf[k]['test_loss'], 6) for k in sorted(perf)]}")
-    spread, fused = _apart(runs["h1_again"], runs["h1"]), _apart(runs["h5"], runs["h1"])
+        config = shipped_config(name, os.path.join(workdir, "parity_h1"), round=LARGE_OBD_ROUNDS,
+                                **{"algorithm_kwargs.second_phase_epoch": LARGE_OBD_TUNING,
+                                   "algorithm_kwargs.round_horizon": 1})
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+    print(f"  horizon parity h1: {len(perf)} aggregates in {time.monotonic() - t0:.2f} s (setup included), test"
+          f" loss {[round(perf[k]['test_loss'], 6) for k in sorted(perf)]}")
+    fused = _apart((records[name]["records"], records[name]["final"]), (perf, _round_params(config.save_dir, max(perf))))
     print(
         f"horizon parity ({name}, {LARGE_OBD_ROUNDS} rounds + {LARGE_OBD_TUNING} tuning epochs, deterministic"
-        f" cuDNN): H = 5 against H = 1 rows rel {fused[0]:.3g}, params {fused[1]:.3g}; H = 1 against H = 1 rows"
-        f" rel {spread[0]:.3g}, params {spread[1]:.3g}"
+        f" cuDNN): H = 5 against H = 1 rows rel {fused[0]:.3g}, params {fused[1]:.3g}"
     )
-    check(fused[0] <= spread[0] and fused[1] <= spread[1], "the H = 5 run is further from H = 1 than H = 1 from itself")
+    check(fused == (0.0, 0.0), "the H = 5 run is not the H = 1 run bit for bit")
 
 
 def check_remat(workdir: str) -> None:
     """One phase-1 round (``run_aggregate``) of ``large_scale/fed_obd/cifar10.yaml``
-    and of ``imdb.yaml``, each without remat, with the file's
-    ``dots_saveable``, and without again, in fresh sessions, cuDNN on
-    deterministic algorithms: the peak memory over what the session held
-    before the round (remat's below both plain rounds': it checkpoints
-    each block of the model, so the backward holds one block's recompute
-    at a time), the round's time (to a sync), and the remat round's exact
-    average and test loss held to the two plain rounds' spread."""
+    and of ``imdb.yaml``, each without remat and with the file's
+    ``dots_saveable``, in fresh sessions, cuDNN on deterministic
+    algorithms: the peak memory over what the session held before the
+    round (remat's below the plain round's: it checkpoints each block of
+    the model, so the backward holds one block's recompute at a time), the
+    round's time (to a sync), and the remat round's exact average and test
+    loss equal to the plain round's bit for bit (with those algorithms two
+    plain rounds agree bit for bit, so no run-to-run spread is allowed)."""
     import numpy as np
     import torch
 
@@ -2672,7 +2699,7 @@ def check_remat(workdir: str) -> None:
     for name in (LARGE_OBD_FILES[0], LARGE_OBD_FILES[3]):
         results = {}
         with deterministic_convolutions():
-            for label in ("plain", "remat", "plain_again"):
+            for label in ("plain", "remat"):
                 config = shipped_config(name, os.path.join(workdir, f"remat_{label}"), round=1,
                                         **{"algorithm_kwargs.second_phase_epoch": 1})
                 if label != "remat":
@@ -2692,24 +2719,20 @@ def check_remat(workdir: str) -> None:
                 loss = session._evaluate(exact)["loss"]
                 results[label] = (exact.cpu().numpy(), loss, seconds, peak)
                 del session, exact, g
-        (plain, loss0, t0_, p0), (remat, loss1, t1, p1), (again, loss2, t2, p2) = (
-            results[k] for k in ("plain", "remat", "plain_again"))
-        spread = (float(np.abs(again - plain).max()), abs(loss2 - loss0))
+        (plain, loss0, t0_, p0), (remat, loss1, t1, p1) = results["plain"], results["remat"]
         moved = (float(np.abs(remat - plain).max()), abs(loss1 - loss0))
         print(
             f"remat ({name}, one phase-1 round: 50 clients, deterministic cuDNN): peak memory over the session"
-            f" plain {p0:.3f} GiB, dots_saveable {p1:.3f} GiB, plain {p2:.3f} GiB; round {t0_:.3f} s, {t1:.3f} s,"
-            f" {t2:.3f} s; remat against plain: params {moved[0]:.3g}, test loss {moved[1]:.3g}; plain against"
-            f" plain: params {spread[0]:.3g}, test loss {spread[1]:.3g}"
+            f" plain {p0:.3f} GiB, dots_saveable {p1:.3f} GiB; round {t0_:.3f} s, {t1:.3f} s; remat against"
+            f" plain: params {moved[0]:.3g}, test loss {moved[1]:.3g}"
         )
-        check(moved[0] <= spread[0] and moved[1] <= spread[1], f"{name}: remat moved the round beyond the spread")
-        check(p1 < min(p0, p2), f"{name}: remat's peak memory {p1:.3f} GiB is not below the plain rounds'")
+        check(moved == (0.0, 0.0), f"{name}: remat moved the round")
+        check(p1 < p0, f"{name}: remat's peak memory {p1:.3f} GiB is not below the plain round's")
 
 
 def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on each of ``SPARSE_FILES`` for one round at full width
-    (the 100-worker files at ``SPARSE_LARGE_EPOCHS`` local epochs, the
-    others at ``SPARSE_EPOCHS``), the
+    (``SPARSE_EPOCHS`` local epochs), the
     launch counters set to 0 just before each and read just after:
     the record, the peak memory, and K1's launches checked exactly (one a
     chunk of ``CNN_CHUNK`` slots; FedDropoutAvg's over ``[mb, 2·D]``);
@@ -2721,8 +2744,7 @@ def run_sparse_files(workdir: str) -> tuple[dict[str, int], dict]:
 
     total, records = {}, {}
     for name in SPARSE_FILES:
-        depth = {"epoch": SPARSE_LARGE_EPOCHS if name.startswith("large_scale/") else SPARSE_EPOCHS}
-        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1, **depth)
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=1, epoch=SPARSE_EPOCHS)
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
@@ -2767,7 +2789,7 @@ GRAD_TOL, FLIP_TAU = 1e-2, 1e-3
 ROW_TOL = 1e-3
 #: the shipped sign-SGD files, as shipped but for their 100 local epochs
 SIGN_SGD_FILES = ("sign_sgd/cifar10.yaml", "sign_sgd/cifar100.yaml", "sign_sgd/imdb.yaml")
-SIGN_SGD_EPOCHS = 2
+SIGN_SGD_EPOCHS = 1
 #: the shipped Shapley files and the rounds each runs, at 1 local epoch;
 #: the two LeNet5 files run 2 rounds (the between-round truncation and the
 #: carried ``last_round_metric``)
@@ -3090,7 +3112,7 @@ def check_gnn_task_against_cpu(workdir: str) -> None:
     for device in ("cuda", "cpu"):
         config = gnn_small_task(os.path.join(workdir, f"gnn_{device}"))
         perf = train(config, device=device)["performance"]
-        results[device] = (perf, {r: _final_params(config, r) for r in perf})
+        results[device] = (perf, {r: _round_params(config.save_dir, r) for r in perf})
     (gpu_perf, gpu_params), (cpu_perf, cpu_params) = results["cuda"], results["cpu"]
     check(sorted(gpu_perf) == sorted(cpu_perf) == [1, 2], f"fed_gnn task records {sorted(gpu_perf)}")
     params = max(
@@ -3192,6 +3214,8 @@ BERT_ROUNDS = 2
 #: key) and runs the session's default chunk
 BERT_CHUNK = 8
 BUFFERED_FILE = "fed_avg/mnist_buffered.yaml"
+#: the rounds its main path runs (20 as shipped; cut for the script's time)
+BUFFERED_ROUNDS = 10
 #: the phase-3 BERT task's model: d_model 128, 2 heads (Dh 64), 2 layers,
 #: MLP 256 (registered by :func:`bert_task_config` under this name)
 BERT_TASK_MODEL = "bert_d128_task"
@@ -3363,19 +3387,204 @@ def check_rounds_against_cpu(workdir: str, label: str, make_config, columns=()) 
     return launches
 
 
+RECOVERY_FILE = "fed_avg/mnist.yaml"
+#: the rounds of each ``--checkpoint-cost`` run
+COST_ROUNDS = 5
+#: the kill of each recovery task and of bert_agnews.yaml: after this round
+RECOVERY_KILL, OBD_RECOVERY_KILL, BERT_KILL = 2, 2, 1
+
+
+@contextlib.contextmanager
+def phase_dir(workdir: str):
+    """A directory for one phase's output, removed when the phase ends:
+    every round of the SPMD sessions writes a checkpoint (404 MB a round
+    for ``bert_agnews.yaml``)."""
+    import shutil
+
+    path = tempfile.mkdtemp(dir=workdir)
+    try:
+        yield path
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def _record_rows(save_dir: str) -> list[str]:
+    with open(os.path.join(save_dir, "server", "round_record.json"), encoding="utf8") as f:
+        return list(json.load(f))
+
+
+def recovery_task_config(save_dir: str, **algorithm_kwargs):
+    """``conf/fed_avg/mnist.yaml`` (LeNet5, 10 workers, 2 local epochs) cut
+    to 4 rounds and 16 samples a worker."""
+    overrides = {"round": 4, "dataset_kwargs.train_size": 160, "dataset_kwargs.val_size": 16,
+                 "dataset_kwargs.test_size": 64}
+    overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+    return shipped_config(RECOVERY_FILE, save_dir, **overrides)
+
+
+def obd_recovery_config(save_dir: str, **algorithm_kwargs):
+    """``conf/fed_obd/cifar10.yaml`` (DenseNet-40, NNADQ) cut to 2 clients x
+    16 samples, 1 round and 2 tuning epochs."""
+    overrides = {"round": 1, "epoch": 1, "worker_number": 2, "batch_size": 16,
+                 "algorithm_kwargs.second_phase_epoch": 2, "dataset_kwargs.train_size": 32,
+                 "dataset_kwargs.val_size": 16, "dataset_kwargs.test_size": 32}
+    overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+    return shipped_config(SPMD_OBD_RUNS[0][0], save_dir, **overrides)
+
+
+def _supervised(config, kill: int):
+    """``train_with_recovery`` on the card with a kill after round ``kill``
+    and no backoff; the launch counters set to 0 just before and read just
+    after.  Returns the result and the launches."""
+    from distributed_learning_simulator_tpu_torch.training import train_with_recovery
+
+    config.fault_tolerance = {"kill_after_rounds": [kill], "restart_backoff_seconds": 0.0}
+    _reset_launches()
+    result = train_with_recovery(config)
+    return result, _read_launches()
+
+
+def check_recovery_against_cpu(workdir: str) -> None:
+    """Two recovery tasks, each from one init: killed once on the card and
+    recovered by ``train_with_recovery`` (attempt 1 resumes from attempt 0's
+    checkpoint), against the uninterrupted run on the CPU.
+
+    * FedAvg (:func:`recovery_task_config`), killed after round
+      ``RECOVERY_KILL``: every round's parameters (each attempt's
+      ``round_N.npz``) within 1e-3 and test loss within 1e-3 (relative) of
+      the CPU's, the last attempt's record holding every round once, K1
+      exact over both attempts;
+    * FedOBD (:func:`obd_recovery_config`), killed after the first tuning
+      epoch (aggregate ``OBD_RECOVERY_KILL``), so the resume lands in phase
+      2 and restores ``opt_state.npz`` on the card: the same phases, every
+      record's test loss within the FedOBD task's whole-run 1e-2 (level
+      flips), the optimizer states restored onto the card bit-equal, slot
+      by slot, to the states the killed attempt held when it saved them
+      (traces and step counts), K1 exact."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.parallel.spmd_obd import SpmdFedOBDSession
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    for label, make_config, kill in (("LeNet5 fed_avg", recovery_task_config, RECOVERY_KILL),
+                                     ("DenseNet-40 fed_obd", obd_recovery_config, OBD_RECOVERY_KILL)):
+        name = label.replace(" ", "_")
+        init, cpu_dir = os.path.join(workdir, f"{name}_init.npz"), os.path.join(workdir, f"{name}_cpu")
+        session = build_session(make_config(os.path.join(workdir, f"{name}_init")), device="cpu")
+        np.savez(init, **convert.to_jax(session.engine.init_params(0)))
+        want = train(make_config(cpu_dir, global_model_path=init), device="cpu")["performance"]
+        restored, held, load, save = [], {}, SpmdFedOBDSession._load_opt_state, SpmdFedOBDSession._save_opt_state
+
+        def save_kept(self, stat_key):
+            # the states the killed attempt holds when it saves them (zeros: a fresh state)
+            held[stat_key] = [(None, 0) if st is None else (st.trace.detach().cpu().clone(), st.count)
+                              for st in self._opt_states]
+            save(self, stat_key)
+
+        def load_checked(self, resume_dir, expect_key):
+            load(self, resume_dir, expect_key)
+            restored.append(sorted({st.trace.device.type for st in self._opt_states if st is not None}))
+            check(expect_key in held, f"{label}: no optimizer states were saved with aggregate {expect_key}")
+            for slot, (st, (trace, count)) in enumerate(zip(self._opt_states, held[expect_key])):
+                same = st is not None and st.count == count and torch.equal(
+                    st.trace.cpu(), torch.zeros_like(st.trace.cpu()) if trace is None else trace)
+                check(same, f"{label}: slot {slot}'s optimizer state is not the one saved with aggregate {expect_key}")
+
+        SpmdFedOBDSession._load_opt_state, SpmdFedOBDSession._save_opt_state = load_checked, save_kept
+        try:
+            card_config = make_config(os.path.join(workdir, f"{name}_cuda"), global_model_path=init)
+            result, launches = _supervised(card_config, kill)
+        finally:
+            SpmdFedOBDSession._load_opt_state, SpmdFedOBDSession._save_opt_state = load, save
+        got, recovery = result["performance"], result["recovery"]
+        first, last = recovery["attempt_dirs"]
+        rounds = sorted(want)
+        check(recovery["restarts"] == 1 and last == recovery["save_dir"], f"{label} recovery {recovery}")
+        check(sorted(got) == rounds and _record_rows(last) == [str(r) for r in rounds], f"{label} records {sorted(got)}")
+        check(_record_rows(first) == [str(r) for r in range(1, kill + 1)], f"{label} killed attempt's records")
+        loss = [abs(got[r]["test_loss"] - want[r]["test_loss"]) / abs(want[r]["test_loss"]) for r in rounds]
+        params = []
+        if make_config is recovery_task_config:
+            for r in rounds:
+                card, cpu = _round_params(first if r <= kill else last, r), _round_params(cpu_dir, r)
+                params.append(max(float(np.abs(card[k] - cpu[k]).max()) for k in cpu))
+            check(max(loss) <= 1e-3 and max(params) <= 1e-3, f"{label}: recovered card run and CPU run disagree")
+        else:
+            check([got[r]["phase"] for r in rounds] == [want[r]["phase"] for r in rounds], f"{label} phases")
+            check(restored == [["cuda"]], f"{label}: the optimizer states restored {restored}")
+            check(max(loss) <= 1e-2, f"{label}: recovered card run and CPU run disagree")
+        k1_want = expected_obd_k1(len(rounds), session.n_slots, session.chunk_size())
+        check(launches["K1"] == k1_want, f"{label} K1 {launches['K1']}, want {k1_want}")
+        print(f"recovery task ({label}, killed after round {kill}, resumed by train_with_recovery) card vs the"
+              f" uninterrupted CPU run, round by round: test loss {[round(got[r]['test_loss'], 6) for r in rounds]}"
+              f" vs {[round(want[r]['test_loss'], 6) for r in rounds]} (rel {max(loss):.2g}), max |param diff|"
+              f" {[f'{p:.3g}' for p in params]}; optimizer states restored on {restored}; launches {launches}")
+
+
+@contextlib.contextmanager
+def bert_recovery_probe(kill: int):
+    """Around a ``train_with_recovery`` call: each attempt's setup time
+    (``train()`` entered to its first round), the host copy of round
+    ``kill``'s new master, each resumed session's starting master (on the
+    host) and every session (for its writer's timings)."""
+    from distributed_learning_simulator_tpu_torch import training
+    from distributed_learning_simulator_tpu_torch.parallel.spmd import SpmdFedAvgSession
+
+    probe = {"setup_s": [], "entered": [], "master": None, "starts": [], "sessions": []}
+    train, run_round, start = training.train, SpmdFedAvgSession.run_round, SpmdFedAvgSession._start
+
+    def timed_train(*args, **kwargs):
+        probe["entered"].append(time.monotonic())
+        return train(*args, **kwargs)
+
+    def kept_round(self, global_vec, weights, round_number=1, delays=None):
+        if len(probe["setup_s"]) < len(probe["entered"]):
+            probe["setup_s"].append(time.monotonic() - probe["entered"][-1])
+        out = run_round(self, global_vec, weights, round_number, delays)
+        if round_number == kill:
+            probe["master"] = out.detach().cpu().clone()
+        return out
+
+    def kept_start(self):
+        vec, start_round = start(self)
+        probe["sessions"].append(self)
+        if start_round > 1:
+            probe["starts"].append((start_round, vec.detach().cpu().clone()))
+        return vec, start_round
+
+    training.train, SpmdFedAvgSession.run_round, SpmdFedAvgSession._start = timed_train, kept_round, kept_start
+    try:
+        yield probe
+    finally:
+        training.train, SpmdFedAvgSession.run_round, SpmdFedAvgSession._start = train, run_round, start
+
+
 def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
-    """``train()`` on ``large_scale/fed_avg/bert_agnews.yaml`` as shipped but
-    for ``BERT_ROUNDS`` (1000 workers, 100 selected, ``bert_base``,
-    ``use_amp``, ``client_chunk: auto``), the launch counters set to 0 just
-    before and read just after: each round's time, test loss and accuracy,
-    the peak memory; ``auto`` must miss the calibration and run
-    :data:`BERT_CHUNK`; K1 exactly ``worker_number / chunk`` a round; every
-    K4 launch on the wgmma forward, one a layer per test batch per
-    evaluation pass (the test metrics and, with
-    ``use_slow_performance_metrics``, the confusion matrix); no K5 (training
-    runs dropout 0.1: the dense path).  The last round's training runs
-    under ``torch.profiler`` (:func:`profiled_round`; its record's time
-    includes the profiler's cost)."""
+    """``train_with_recovery`` on ``large_scale/fed_avg/bert_agnews.yaml`` as
+    shipped but for ``BERT_ROUNDS`` (1000 workers, 100 selected,
+    ``bert_base``, ``use_amp``, ``client_chunk: auto``) and a kill after
+    round ``BERT_KILL``: attempt 0 trains round 1, writes ``round_1.npz``
+    (the f32 master) and is killed; attempt 1 resumes and trains round 2.
+    The launch counters are set to 0 just before and read just after:
+
+    * ``round_1.npz`` reloads bit-equal to the host copy of round 1's new
+      master, and attempt 1 starts from that file bit for bit;
+    * the last attempt's record holds rounds 1 and 2 once, and
+      ``best_global_model.npz`` exists;
+    * ``auto`` misses the calibration and runs :data:`BERT_CHUNK`; K1
+      exactly ``worker_number / chunk`` a round over both attempts; every K4
+      launch on the wgmma forward, one a layer per test batch per
+      evaluation pass (the test metrics and, with
+      ``use_slow_performance_metrics``, the confusion matrix); no K5
+      (training runs dropout 0.1: the dense path);
+    * printed: each round's time, test loss and accuracy, the peak memory,
+      each attempt's setup time, and for each checkpoint the seconds the
+      round loop was blocked queueing it and the seconds the writer took.
+
+    Round 2's training runs under ``torch.profiler`` (:func:`profiled_round`;
+    its record's time includes the profiler's cost)."""
     import math
 
     import numpy as np
@@ -3383,8 +3592,8 @@ def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
 
     from distributed_learning_simulator_tpu_torch.data import create_dataset_collection
     from distributed_learning_simulator_tpu_torch.ml_type import MachineLearningPhase
+    from distributed_learning_simulator_tpu_torch.models import convert
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
-    from distributed_learning_simulator_tpu_torch.training import train
 
     config = shipped_config(BERT_FILE, os.path.join(workdir, "bert_agnews"), round=BERT_ROUNDS)
     check(config.algorithm_kwargs.get("client_chunk") == "auto", f"{BERT_FILE}: client_chunk {config.algorithm_kwargs}")
@@ -3392,48 +3601,101 @@ def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
     passes = 2 if config.use_slow_performance_metrics else 1
     k4 = BERT_ROUNDS * passes * math.ceil(len(test.targets) / config.batch_size) * 12
     torch.cuda.empty_cache()
-    _reset_launches()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     t0 = time.monotonic()
     label = f" (bert_agnews: 100 clients x 1 step, {config.worker_number // BERT_CHUNK} K1)"
-    with k1_by_round([]) as k1, profiled_round(BERT_ROUNDS, label) as busy:
-        perf = train(config)["performance"]
+    # the probe outermost: an attempt's setup ends where its first round begins, before any profiler starts
+    with (k1_by_round([]) as k1, profiled_round(BERT_ROUNDS, label) as busy,
+          bert_recovery_probe(BERT_KILL) as probe):
+        result, launches = _supervised(config, BERT_KILL)
     wall = time.monotonic() - t0
-    launches, routes = _read_launches(), dict(sa.route_launches)
+    routes = dict(sa.route_launches)
+    perf, recovery = result["performance"], result["recovery"]
+    first, last = recovery["attempt_dirs"]
     check(len(busy) == 1, f"{BERT_FILE}: round {BERT_ROUNDS} was not profiled")
     peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    layout = probe["sessions"][0].engine.layout
+    saved = layout.flatten(convert.from_jax(_round_params(first, BERT_KILL)))
+    (start_round, start_master), = probe["starts"]
+    timings = [(os.path.basename(t.path), t.queue_seconds, t.write_seconds)
+               for session in probe["sessions"] for t in session._ckpt.timings]
     print(
         f"main path {BERT_FILE} (bert_base, {config.worker_number} workers,"
-        f" {config.algorithm_kwargs['random_client_number']} selected, batch {config.batch_size}, use_amp):"
-        f" {BERT_ROUNDS} rounds in {wall:.2f} s (setup and a profiled round included); peak memory {peak:.2f} GiB over the"
-        f" {held / 2**30:.2f} GiB held before it; launches {launches}; K4/K5 by kernel {routes}; K1 by round {k1}"
+        f" {config.algorithm_kwargs['random_client_number']} selected, batch {config.batch_size}, use_amp),"
+        f" killed after round {BERT_KILL} and resumed by train_with_recovery: {BERT_ROUNDS} rounds in {wall:.2f} s"
+        f" (both attempts' setup and a profiled round included); setup {[f'{t:.2f}' for t in probe['setup_s']]} s an"
+        f" attempt; peak memory {peak:.2f} GiB over the {held / 2**30:.2f} GiB held before it; launches {launches};"
+        f" K4/K5 by kernel {routes}; K1 by round {k1}"
     )
+    print("  checkpoints (file, s the round loop was blocked queueing it, s the writer took): "
+          + "; ".join(f"{name} {queue:.4f} {write:.3f}" for name, queue, write in timings))
     for r, row in sorted(perf.items()):
         print(f"  round {r}: {row['round_seconds']:.3f} s; test loss {row['test_loss']:.4f} accuracy"
               f" {row['test_accuracy']:.4f} over {row['test_count']:.0f}")
         check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{BERT_FILE} record {row}")
     with open(config.log_file, encoding="utf8") as f:
         check("client_chunk: auto found NO calibration entry" in f.read(), f"{BERT_FILE}: auto did not miss")
+    check(recovery["restarts"] == 1 and last == recovery["save_dir"], f"{BERT_FILE} recovery {recovery}")
+    check(torch.equal(saved, probe["master"]), f"{BERT_FILE}: round_{BERT_KILL}.npz is not round {BERT_KILL}'s master")
+    check(start_round == BERT_KILL + 1 and torch.equal(start_master, saved),
+          f"{BERT_FILE}: attempt 1 did not start from round_{BERT_KILL}.npz")
     check(sorted(perf) == list(range(1, BERT_ROUNDS + 1)), f"{BERT_FILE} records {sorted(perf)}")
+    check(_record_rows(last) == [str(r) for r in range(1, BERT_ROUNDS + 1)], f"{BERT_FILE} last attempt's record")
+    check(any(os.path.isfile(os.path.join(d, "server", "best_global_model.npz")) for d in (first, last)),
+          f"{BERT_FILE}: no best_global_model.npz")
     check(k1 == [config.worker_number // BERT_CHUNK] * BERT_ROUNDS, f"{BERT_FILE} K1 by round {k1}")
     check(launches["K4"] == k4 and launches["K5"] == 0, f"{BERT_FILE} K4/K5 {launches}, want K4 {k4}, K5 0")
     check_short_routes(routes, launches["K4"], 0, BERT_FILE)
     others = [kid for kid, n in launches.items() if n and kid not in ("K1", "K4")]
     check(not others, f"{BERT_FILE}: kernels off this path launched: {others}")
-    return launches, {"wall_s": wall, "peak_gib": peak, "records": perf}
+    return launches, {"wall_s": wall, "peak_gib": peak, "records": perf, "setup_s": probe["setup_s"],
+                      "checkpoints": timings}
+
+
+def measure_checkpoint_cost(workdir: str) -> dict:
+    """``bert_agnews.yaml`` as shipped but for ``COST_ROUNDS`` rounds, with
+    ``checkpoint_every`` 1, 100, 100 and 1 (the final round always writes
+    its checkpoint): each run's round times and its checkpoints' queue and
+    write seconds.  Rounds 2 to ``COST_ROUNDS - 1`` train while the round
+    before's checkpoint is written under ``checkpoint_every`` 1, with none
+    in flight under 100."""
+    from distributed_learning_simulator_tpu_torch.parallel.spmd import SpmdFedAvgSession
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    runs, start, sessions = [], SpmdFedAvgSession._start, []
+
+    def kept_start(self):
+        sessions.append(self)
+        return start(self)
+
+    SpmdFedAvgSession._start = kept_start
+    try:
+        for every in (1, 100, 100, 1):
+            with phase_dir(workdir) as save_dir:
+                config = shipped_config(BERT_FILE, save_dir, round=COST_ROUNDS, checkpoint_every=every)
+                perf = train(config)["performance"]
+            timings = [(os.path.basename(t.path), t.queue_seconds, t.write_seconds) for t in sessions[-1]._ckpt.timings]
+            runs.append({"checkpoint_every": every, "round_seconds": [perf[r]["round_seconds"] for r in sorted(perf)],
+                         "checkpoints": timings})
+            print(f"checkpoint_every {every}: round seconds {runs[-1]['round_seconds']}; checkpoints (file, queue s,"
+                  f" write s) {timings}")
+    finally:
+        SpmdFedAvgSession._start = start
+    return {"file": BERT_FILE, "runs": runs}
 
 
 def run_buffered_file(workdir: str) -> dict[str, int]:
-    """``train()`` on ``fed_avg/mnist_buffered.yaml`` as shipped (20 rounds,
-    LeNet5, buffered with stragglers), the launch counters set to 0 just
+    """``train()`` on ``fed_avg/mnist_buffered.yaml`` as shipped but for
+    ``BUFFERED_ROUNDS`` of its 20 rounds (LeNet5, buffered with
+    stragglers), the launch counters set to 0 just
     before and read just after: each record's flush columns printed, K1
     exactly ``n_chunks x (depth + 1)`` every round."""
     import numpy as np
 
     from distributed_learning_simulator_tpu_torch.training import build_session, train
 
-    config = shipped_config(BUFFERED_FILE, os.path.join(workdir, "mnist_buffered"))
+    config = shipped_config(BUFFERED_FILE, os.path.join(workdir, "mnist_buffered"), round=BUFFERED_ROUNDS)
     want = expected_k1_a_round(build_session(config))  # the schedule's depth and the chunk
     _reset_launches()
     t0 = time.monotonic()
@@ -3463,8 +3725,9 @@ def print_phase_times(marks: list) -> None:
 
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print("usage: chip_smoke.py [--kernels]", file=sys.stderr)
+    checkpoint_cost = argv == ["--checkpoint-cost"]
+    if argv and not (kernels_only or checkpoint_cost):
+        print("usage: chip_smoke.py [--kernels | --checkpoint-cost]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         print(f"{PACKAGE}/ is not beside chip_smoke.py", file=sys.stderr)
@@ -3475,12 +3738,9 @@ def main(argv: list[str]) -> int:
         print("torch.cuda.is_available() is False: no card to run on", file=sys.stderr)
         return 3
     sys.path.insert(0, ROOT)
-    import numpy as np
+    import shutil
 
     from distributed_learning_simulator_tpu_torch.ops import build
-    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
-    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
-    from distributed_learning_simulator_tpu_torch.training import train
 
     started = time.monotonic()
     marks = [("start", started)]
@@ -3506,6 +3766,29 @@ def main(argv: list[str]) -> int:
     for library in WGMMA_KERNELS:
         check_wgmma_build(library)
     mark("1 build")
+    # every phase's output lands in a directory of its own, removed after it
+    os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "session"))
+    try:
+        if checkpoint_cost:  # bert_agnews.yaml's round time with and without a checkpoint every round
+            cost = measure_checkpoint_cost(workdir)
+            print(card)
+            print(json.dumps({"checkpoint_cost": cost, "card": card}))
+            return 0
+        return _phases(kernels_only, workdir, card, started, marks, mark)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: list, mark) -> int:
+    """Phases 2-5 of :func:`main` (the module docstring), ``workdir`` the
+    parent of every phase's output directory."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+    from distributed_learning_simulator_tpu_torch.training import train
 
     # 2. kernels against their plain versions (the yardsticks: --kernels)
     yardsticks = kernels_only
@@ -3531,38 +3814,49 @@ def main(argv: list[str]) -> int:
         return 0
 
     # 3. small tasks on the card against the CPU
-    os.makedirs(os.path.join(ROOT, "session"), exist_ok=True)
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "session"))
-    check_small_task_against_cpu(workdir, "ViT-small", vit_small_task)
+    with phase_dir(workdir) as d:
+        check_small_task_against_cpu(d, "ViT-small", vit_small_task)
     mark("3 ViT-small")
-    check_small_task_against_cpu(workdir, "DenseNet-40", densenet_small_task)
+    with phase_dir(workdir) as d:
+        check_small_task_against_cpu(d, "DenseNet-40", densenet_small_task)
     mark("3 DenseNet-40")
-    stream_launches = check_long_context_f32_against_cpu(workdir)
+    with phase_dir(workdir) as d:
+        stream_launches = check_long_context_f32_against_cpu(d)
     mark("3 long context f32")
-    check_obd_task_against_cpu(workdir)
+    with phase_dir(workdir) as d:
+        check_obd_task_against_cpu(d)
     mark("3 fed_obd")
-    check_small_task_against_cpu(workdir, "DenseNet-40 fed_dropout_avg", sparse_small_task("fed_dropout_avg/cifar10.yaml"))
-    check_small_task_against_cpu(workdir, "DenseNet-40 single_model_afd", sparse_small_task("smafd/cifar10.yaml"))
+    with phase_dir(workdir) as d:
+        check_small_task_against_cpu(d, "DenseNet-40 fed_dropout_avg", sparse_small_task("fed_dropout_avg/cifar10.yaml"))
+        check_small_task_against_cpu(d, "DenseNet-40 single_model_afd", sparse_small_task("smafd/cifar10.yaml"))
     mark("3 fed_dropout_avg, smafd")
-    check_sign_sgd_task_against_cpu(workdir)
+    with phase_dir(workdir) as d:
+        check_sign_sgd_task_against_cpu(d)
     mark("3 sign_SGD")
-    check_shapley_task_against_cpu(workdir)
+    with phase_dir(workdir) as d:
+        check_shapley_task_against_cpu(d)
     mark("3 GTG")
-    check_gnn_task_against_cpu(workdir)
+    with phase_dir(workdir) as d:
+        check_gnn_task_against_cpu(d)
     mark("3 fed_gnn task")
-    bert_task = check_rounds_against_cpu(workdir, "BERT d_model 128 f32", bert_task_config)
-    check(bert_task["K4"] > 0 and bert_task["K5"] > 0, f"BERT task: K4/K5 {bert_task}")
-    check_rounds_against_cpu(workdir, "LeNet5 buffered, guard", buffered_task_config,
-                             ("flush_cohort", "stale_updates", "buffer_depth", "rejected_updates", "received_mb"))
+    with phase_dir(workdir) as d:
+        bert_task = check_rounds_against_cpu(d, "BERT d_model 128 f32", bert_task_config)
+        check(bert_task["K4"] > 0 and bert_task["K5"] > 0, f"BERT task: K4/K5 {bert_task}")
+        check_rounds_against_cpu(d, "LeNet5 buffered, guard", buffered_task_config,
+                                 ("flush_cohort", "stale_updates", "buffer_depth", "rejected_updates", "received_mb"))
     mark("3 BERT, buffered tasks")
+    with phase_dir(workdir) as d:
+        check_recovery_against_cpu(d)
+    mark("3 recovery tasks")
 
     # 4. the main path
-    config = dense_config(os.path.join(workdir, "main"))
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    t0 = time.monotonic()
-    perf = train(config)["performance"]
-    wall = time.monotonic() - t0
+    with phase_dir(workdir) as d:
+        config = dense_config(os.path.join(d, "main"))
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        t0 = time.monotonic()
+        perf = train(config)["performance"]
+        wall = time.monotonic() - t0
     launches = {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches}
     short_routes = dict(sa.route_launches)
     last = perf[ROUNDS]
@@ -3583,32 +3877,36 @@ def main(argv: list[str]) -> int:
     mark("4 ViT")
 
     # 4b. the long-context main path (K6-K8, K1) and its profile
-    lc_launches, _ = run_long_context_main_path(workdir)
+    with phase_dir(workdir) as d:
+        lc_launches, _ = run_long_context_main_path(d)
+        # the full-width f32 round: K9-K11's main path (the small task's
+        # launches, checked above, are a card-vs-CPU check)
+        f32_launches = run_long_context_f32_round(d)
     launches.update({kid: lc_launches[kid] for kid in ("K6", "K7", "K8")})
     launches["K1"] += lc_launches["K1"]
-    # the full-width f32 round: K9-K11's main path (the small task's
-    # launches, checked above, are a card-vs-CPU check)
-    f32_launches = run_long_context_f32_round(workdir)
     launches.update({kid: f32_launches[kid] for kid in ("K9", "K10", "K11")})
     launches["K1"] += f32_launches["K1"]
     print(f"small f32 task launches (card vs CPU): {stream_launches}")
     mark("4b long context")
 
     # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5)
-    obd_launches, _ = run_obd_main_path(workdir)
+    with phase_dir(workdir) as d:
+        obd_launches, _ = run_obd_main_path(d)
     launches.update({kid: obd_launches[kid] for kid in ("K2", "K3")})
     launches["K4"] += obd_launches["K4"]
     launches["K5"] += obd_launches["K5"]
     mark("4c threaded fed_obd_sq")
 
     # 4d. the shipped conf/fed_avg files (K1)
-    cnn_launches = run_shipped_configs(workdir)
+    with phase_dir(workdir) as d:
+        cnn_launches = run_shipped_configs(d)
     launches["K1"] += cnn_launches["K1"]
     mark("4d conf/fed_avg")
 
     # 4e. the shipped fed_obd, fed_obd_sq and fed_paq files on the SPMD
     # session (K1; K4 and K5 on the ViT file)
-    spmd_obd_launches, spmd_obd_records = run_obd_spmd_files(workdir)
+    with phase_dir(workdir) as d:
+        spmd_obd_launches, spmd_obd_records = run_obd_spmd_files(d)
     for kid in ("K1", "K4", "K5"):
         launches[kid] += spmd_obd_launches[kid]
     mark("4e SPMD FedOBD, FedOBD-SQ, FedPAQ")
@@ -3616,38 +3914,46 @@ def main(argv: list[str]) -> int:
     # 4f. the large-scale FedOBD files (round_horizon 5, remat_policy);
     # horizon parity and remat on the card; the FedDropoutAvg and SMAFD
     # files (K1 each)
-    large_launches, large_records = run_large_scale_obd(workdir)
-    mark("4f large-scale FedOBD")
-    check_horizon_parity(workdir, large_records)
-    check_remat(workdir)
+    with phase_dir(workdir) as d:
+        large_launches, large_records = run_large_scale_obd(d)
+        mark("4f large-scale FedOBD")
+        check_horizon_parity(d, large_records)
+        check_remat(d)
     mark("4f horizon parity, remat")
-    sparse_launches, _ = run_sparse_files(workdir)
+    with phase_dir(workdir) as d:
+        sparse_launches, _ = run_sparse_files(d)
     launches["K1"] += large_launches["K1"] + sparse_launches["K1"]
     mark("4f FedDropoutAvg, SMAFD")
 
     # 4g. the shipped sign-SGD and Shapley-value files (K1: a vote a step,
     # a subset's average and a round's aggregate)
-    sign_launches, _ = run_sign_sgd_files(workdir)
+    with phase_dir(workdir) as d:
+        sign_launches, _ = run_sign_sgd_files(d)
     mark("4g sign_SGD")
-    shapley_launches, _ = run_shapley_files(workdir)
+    with phase_dir(workdir) as d:
+        shapley_launches, _ = run_shapley_files(d)
     launches["K1"] += sign_launches["K1"] + shapley_launches["K1"]
     mark("4g Shapley")
 
     # 4h. the shipped graph files (K1: a round's aggregate) and a profiled
     # fed_gnn round
-    gnn_launches, gnn_records = run_gnn_files(workdir)
-    launches["K1"] += gnn_launches["K1"]
-    mark("4h graph FL")
-    profile_gnn_round(workdir, gnn_records)
+    with phase_dir(workdir) as d:
+        gnn_launches, gnn_records = run_gnn_files(d)
+        launches["K1"] += gnn_launches["K1"]
+        mark("4h graph FL")
+        profile_gnn_round(d, gnn_records)
     mark("4h profile")
 
-    # 4i. bert_agnews.yaml (K1, K4 on wgmma) and its profile; the buffered
-    # mnist_buffered.yaml (K1 once a chunk and bucket)
-    bert_launches, _ = run_bert_agnews(workdir)
+    # 4i. bert_agnews.yaml killed after round 1 and recovered (K1, K4 on
+    # wgmma; round 2 profiled); the buffered mnist_buffered.yaml (K1 once a
+    # chunk and bucket)
+    with phase_dir(workdir) as d:
+        bert_launches, _ = run_bert_agnews(d)
     launches["K1"] += bert_launches["K1"]
     launches["K4"] += bert_launches["K4"]
-    mark("4i bert_agnews (its last round profiled)")
-    launches["K1"] += run_buffered_file(workdir)["K1"]
+    mark("4i bert_agnews (killed, recovered, round 2 profiled)")
+    with phase_dir(workdir) as d:
+        launches["K1"] += run_buffered_file(d)["K1"]
     mark("4i mnist_buffered")
 
     # 5. the record

@@ -120,6 +120,10 @@ class JaxLeaf:
     def stop(self) -> int:
         return self.start + self.size
 
+    @property
+    def jax_shape(self) -> tuple[int, ...]:
+        return self.shape if self.perm is None else tuple(self.shape[p] for p in self.perm)
+
     def to_jax(self, flat: torch.Tensor) -> torch.Tensor:
         """The leaf's values (a flat slice in the port's layout) in the JAX
         layout's flat order: the order its codec draws meet them."""
@@ -131,8 +135,7 @@ class JaxLeaf:
         """The inverse of :meth:`to_jax`."""
         if self.perm is None:
             return flat
-        jax_shape = tuple(self.shape[p] for p in self.perm)
-        return flat.reshape(jax_shape).permute(tuple(np.argsort(self.perm))).reshape(-1)
+        return flat.reshape(self.jax_shape).permute(tuple(np.argsort(self.perm))).reshape(-1)
 
 
 def jax_leaves(keys, shapes) -> list[JaxLeaf]:

@@ -55,14 +55,34 @@ head of a ``[depth, D]`` f32 pending ring form the flush; the other
 buckets refill the ring, shifted once a round.  A flush of weight 0 keeps
 the old master.  A depth-0 schedule runs the synchronous round, bit for
 bit.  Only this class (fed_avg, fed_paq) takes buffered aggregation and
-the fault plan; the other sessions refuse them.
+the fault plan; the other sessions refuse them, but for the plan's kill
+schedule and restart knobs.
+
+Round checkpoints and resume follow the JAX session.  The round's new
+master is queued to ``aggregated_model/round_N.npz`` (the JAX package's
+keys and layouts, through :class:`~..util.checkpoint.AsyncCheckpointWriter`:
+one device-to-host copy of the flat f32 master, written on the writer's
+thread while the evaluation runs) every ``checkpoint_every`` rounds (0: the
+horizon), and always in the final round.  ``round_record.json`` is flushed
+atomically every ``record_flush_every`` rounds (0: the horizon) and at exit;
+``server/best_global_model.npz`` is a file copy of the best checkpointed
+round.  A horizon H > 1 runs round by round but checkpoints, flushes,
+promotes and fires kills on the JAX session's horizon boundaries, so both
+packages write the same files.  ``resume_dir`` restores the newest round
+that has a loadable checkpoint and a record row (``util/resume.py``) and
+starts at the next; the random streams are keyed by ``(seed, round,
+slot)``, so nothing is replayed.  A buffered resume drains the buffer: the
+pending ring restarts at zeros and the updates trained before the resume
+leave the cohort counts and the flush quorum.  ``kill_after_rounds`` fires
+once the killed round is durable (``util/faults.py``), and
+``watchdog_seconds`` guards the round call and the evaluation
+(``parallel/watchdog.py``).
 
 The sparse-upload sessions (``parallel/spmd_sparse.py``) reuse the client
 loop through :meth:`SpmdFedAvgSession._upload` (a trained client's row),
 ``_row_width``, ``_upload_dtype`` and ``_finish`` (the new master).
 """
 
-import json
 import math
 import os
 import time
@@ -74,16 +94,19 @@ from ..config import DistributedTrainingConfig
 from ..engine.batching import fixed_size_partition, make_epoch_batches, stage_batches
 from ..engine.engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
 from ..ml_type import MachineLearningPhase as Phase
-from ..models.convert import from_jax, jax_leaves, to_jax
+from ..models.convert import from_jax, jax_leaves
 from ..models.dropout import dropout_generator
 from ..models.registry import causal_lm_targets
 from ..ops.pytree import flat_stack_weighted_sum
 from ..ops.quantization import CodecRandom, qsgd_quantize_dequantize
 from ..util.buffered import BufferedSettings, compute_arrival_schedule, selection_uploaders, staleness_discount
 from ..util.calibration import resolve_client_chunk
+from ..util.checkpoint import AsyncCheckpointWriter, atomic_json_dump, jax_views
 from ..util.faults import FaultPlan, QuorumLostError, apply_fault_plan
+from ..util.resume import load_resume_state
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
+from .watchdog import DeadlineWatchdog
 
 #: algorithm_kwargs this session reads; any other key raises
 SUPPORTED_ALGORITHM_KWARGS = frozenset(
@@ -95,6 +118,8 @@ SUPPORTED_ALGORITHM_KWARGS = frozenset(
         "global_model_path",
         "min_client_quorum",
         "random_client_number",
+        "record_flush_every",
+        "resume_dir",
         "round_horizon",
         "staleness_alpha",
     }
@@ -285,6 +310,7 @@ class SpmdFedAvgSession:
         self.client_chunk = int(raw_chunk or 0)
         self._stat: dict[int, dict] = {}
         self._init_faults(config)
+        self._init_checkpoints(config)
 
         host, self._dataset_sizes, _ = stack_client_data(
             config, dataset_collection, practitioners, self.n_slots
@@ -312,15 +338,12 @@ class SpmdFedAvgSession:
                 f"fault_tolerance.update_guard is unsupported here: {reason} — drop the knob for this session"
             )
         plan = self._fault_plan
-        if (plan is not None or self._min_quorum) and type(self) is not SpmdFedAvgSession:
+        # the other sessions take the kill schedule and the supervisor's knobs only
+        partial = plan is not None and not plan.only_recovery
+        if (partial or self._min_quorum) and type(self) is not SpmdFedAvgSession:
             raise NotImplementedError(
-                f"fault_tolerance and min_client_quorum on {type(self).__name__} are not ported yet"
-                " (ROADMAP.md, Queue 1 item 7)"
-            )
-        if plan is not None and (plan.kill_after_rounds or plan.auto_resume):
-            raise NotImplementedError(
-                "fault_tolerance.kill_after_rounds / auto_resume need resume and checkpoints, which are"
-                " not ported yet (ROADMAP.md, Queue 1 item 7)"
+                f"fault_tolerance (beyond kill_after_rounds and the restart knobs) and min_client_quorum"
+                f" on {type(self).__name__} are not ported yet (ROADMAP.md, Queue 1 item 7)"
             )
         if plan is not None and plan.client_faults_nonfatal:
             raise NotImplementedError(
@@ -347,6 +370,29 @@ class SpmdFedAvgSession:
         self._pending = None
         #: the guard's reject count of the last round (a device scalar)
         self._rejected = None
+        #: origins below this trained before a resume: their pending
+        #: contributions died with the killed process
+        self._buffered_origin_floor = 1
+        #: the earliest scheduled kill reached but not fired yet
+        self._kill_armed_round: int | None = None
+
+    def _init_checkpoints(self, config) -> None:
+        """The checkpoint and record cadences, the writer and the watchdog,
+        as the JAX session sets them up."""
+        self._checkpoint_every = max(1, int(config.checkpoint_every or 0) or self.round_horizon)
+        self._record_flush_every = max(
+            1, int(config.algorithm_kwargs.get("record_flush_every", 0) or 0) or self.round_horizon
+        )
+        self._last_ckpt_round = 0
+        self._ckpt_queued_round: int | None = None
+        self._record_path: str | None = None
+        self._record_dirty = False
+        self._max_acc = 0.0
+        #: the accuracy high-water mark over checkpointed rounds (the promotable ones)
+        self._best_ckpt_acc = 0.0
+        self._ckpt = AsyncCheckpointWriter()
+        self._ckpt.register_finalizer("round_record", self._flush_record)
+        self._watchdog = DeadlineWatchdog.from_config(config, self.device)
 
     @classmethod
     def _class_update_guard_reason(cls) -> str | None:
@@ -461,7 +507,7 @@ class SpmdFedAvgSession:
         plan = self._fault_plan
         survivors = sum(
             1
-            for item in self._arrival_schedule.cohort(round_number)
+            for item in self._arrival_schedule.live_cohort(round_number, self._buffered_origin_floor)
             if plan is None or item.worker not in plan.corrupt_clients(item.origin, self.config.worker_number)
         )
         if survivors < self._min_quorum:
@@ -475,11 +521,11 @@ class SpmdFedAvgSession:
 
     def _buffered_round_extras(self, round_number: int) -> dict:
         """The flush's record columns, from the host schedule."""
-        schedule = self._arrival_schedule
+        schedule, floor = self._arrival_schedule, self._buffered_origin_floor
         return {
-            "flush_cohort": len(schedule.cohort(round_number)),
-            "stale_updates": schedule.stale_count(round_number),
-            "buffer_depth": schedule.buffer_depth_after(round_number),
+            "flush_cohort": len(schedule.live_cohort(round_number, floor)),
+            "stale_updates": schedule.stale_count(round_number, floor),
+            "buffer_depth": schedule.buffer_depth_after(round_number, floor),
         }
 
     def _post_guard_quorum(self, round_number: int, participating: int, rejected: int) -> None:
@@ -501,16 +547,38 @@ class SpmdFedAvgSession:
             get_logger().error(message)
             raise QuorumLostError(message)
 
+    def _start(self) -> tuple[torch.Tensor, int]:
+        """The f32 master and the first round to run: the newest resumable
+        round of ``resume_dir`` (its record rows restored), else
+        :meth:`_init_global_params` and round 1."""
+        resume_dir = self.config.algorithm_kwargs.get("resume_dir")
+        if resume_dir:
+            params, stats, last = load_resume_state(resume_dir)
+            if params is not None:
+                self._stat.update(stats)
+                self._max_acc = max(s["test_accuracy"] for s in self._stat.values())
+                # the restored best_global_model.npz is at most this good
+                self._best_ckpt_acc = self._max_acc
+                self._buffered_origin_floor = last + 1  # a resume drains the buffer
+                get_logger().info("resumed from %s round %d", resume_dir, last)
+                return self._master_from_jax(params), last + 1
+            get_logger().warning("nothing resumable under %s; starting fresh", resume_dir)
+        return self._init_global_params(), 1
+
     def _init_global_params(self) -> torch.Tensor:
         """The f32 master as one flat vector: ``global_model_path`` (an npz
         of JAX parameters, through the weight bridge) or a fresh init."""
         init_path = self.config.algorithm_kwargs.get("global_model_path")
         if init_path:
             with np.load(init_path) as blob:
-                params = from_jax({k: blob[k] for k in blob.files})
-        else:
-            params = self.engine.init_params(self.config.seed)
-        params = {k: v.to(self.device, torch.float32) for k, v in params.items()}
+                return self._master_from_jax({k: blob[k] for k in blob.files})
+        params = self.engine.init_params(self.config.seed)
+        return self.engine.layout.flatten({k: v.to(self.device, torch.float32) for k, v in params.items()})
+
+    def _master_from_jax(self, params: dict) -> torch.Tensor:
+        """JAX-keyed numpy parameters as the flat f32 master (exact: the
+        bridge only transposes)."""
+        params = {k: v.to(self.device, torch.float32) for k, v in from_jax(params).items()}
         return self.engine.layout.flatten(params)
 
     #: the rows' dtype (None: the compute dtype, as the client trained)
@@ -653,7 +721,8 @@ class SpmdFedAvgSession:
 
     def run(self) -> dict:
         config = self.config
-        global_vec = self._init_global_params()
+        global_vec, start_round = self._start()
+        self._last_ckpt_round = start_round - 1
         save_dir = os.path.join(config.save_dir, "server")
         os.makedirs(save_dir, exist_ok=True)
         param_mb = global_vec.numel() * 4 / 1e6
@@ -663,39 +732,94 @@ class SpmdFedAvgSession:
                 torch.zeros(depth, global_vec.numel(), device=self.device),
                 torch.zeros(depth, device=self.device),
             )
-        for round_number in range(1, config.round + 1):
-            start = time.monotonic()
-            delays = None
-            if self._buffered_active:
-                weights, delays = self._buffered_select_weights(round_number)
-            else:
-                weights = self._select_weights(round_number)
-            global_vec = self.run_round(global_vec, weights, round_number, delays)
-            metric = self._evaluate(global_vec)  # reads the metrics: the round's one sync
-            selected = int((weights > 0).sum())
-            extra = {
-                "received_mb": selected * param_mb * self._upload_cost_factor(),
-                "sent_mb": selected * param_mb,
-                "round_seconds": time.monotonic() - start,
-            }
-            rejected = 0
-            if self._update_guard:
-                rejected = int(self._rejected)  # ready: the evaluation has synced
-                extra["rejected_updates"] = rejected
-            if self._buffered_active:
-                extra.update(self._buffered_round_extras(round_number))
-            self._note_round(round_number, metric, save_dir, extra)
-            self._post_guard_quorum(round_number, int((weights != 0).sum()), rejected)
-        # the exit state, in the JAX package's keys and layout
-        model_dir = os.path.join(config.save_dir, "aggregated_model")
-        os.makedirs(model_dir, exist_ok=True)
-        np.savez(
-            os.path.join(model_dir, f"round_{config.round}.npz"),
-            **to_jax(self.engine.layout.split(global_vec)),
-        )
+        with self._ckpt:  # flushes the record and drains the writes at exit, errors included
+            for round_number in range(start_round, config.round + 1):
+                start = time.monotonic()
+                # the JAX session's horizon chunk: [first, boundary]
+                first = round_number - (round_number - start_round) % self.round_horizon
+                boundary = min(first + self.round_horizon - 1, config.round)
+                delays = None
+                if self._buffered_active:
+                    weights, delays = self._buffered_select_weights(round_number)
+                else:
+                    weights = self._select_weights(round_number)
+                global_vec = self._watchdog.call(
+                    lambda g=global_vec, w=weights, r=round_number, d=delays: self.run_round(g, w, r, d),
+                    phase="round",
+                    round_number=round_number,
+                )
+                # queued now, so the copy and the write overlap the evaluation
+                if round_number == boundary and self._should_checkpoint(round_number):
+                    self._save_checkpoint(round_number, global_vec)
+                # reads the metrics: the round's one sync
+                metric = self._watchdog.call(
+                    lambda g=global_vec: self._evaluate(g), phase="eval", round_number=round_number
+                )
+                selected = int((weights > 0).sum())
+                extra = {
+                    "received_mb": selected * param_mb * self._upload_cost_factor(),
+                    "sent_mb": selected * param_mb,
+                    "round_seconds": time.monotonic() - start,
+                }
+                rejected = 0
+                if self._update_guard:
+                    rejected = int(self._rejected)  # ready: the evaluation has synced
+                    extra["rejected_updates"] = rejected
+                if self._buffered_active:
+                    extra.update(self._buffered_round_extras(round_number))
+                # mid-horizon rounds have no checkpoint, as in the JAX session's fused loop
+                self._record(round_number, metric, global_vec if round_number == boundary else None, save_dir, extra)
+                self._post_guard_quorum(round_number, int((weights != 0).sum()), rejected)
+                if round_number == boundary:
+                    self._maybe_kill(first, boundary)
         return {"performance": self._stat}
 
+    def _should_checkpoint(self, round_number: int) -> bool:
+        """Every ``checkpoint_every`` rounds since the last checkpoint, and
+        always the run's final round (so the exit state resumes)."""
+        if round_number >= self.config.round:
+            return True
+        return round_number - self._last_ckpt_round >= self._checkpoint_every
+
+    def _save_checkpoint(self, round_number: int, global_vec: torch.Tensor) -> None:
+        """Queue ``aggregated_model/round_N.npz``: the f32 master in the JAX
+        keys and layouts, one device-to-host copy."""
+        model_dir = os.path.join(self.config.save_dir, "aggregated_model")
+        os.makedirs(model_dir, exist_ok=True)
+        path = os.path.join(model_dir, f"round_{round_number}.npz")
+        self._ckpt.save_rows(path, [global_vec], lambda host: jax_views(host[0], self._jax_leaves))
+        self._ckpt_queued_round = round_number
+        self._last_ckpt_round = round_number
+
+    def _record(self, round_number, metric, global_vec, save_dir, extra) -> None:
+        """The round's row, then (sessions that queue no checkpoint of their
+        own) the round's checkpoint on its cadence, then the promotion of a
+        better checkpointed round to ``best_global_model.npz`` by a file
+        copy chained behind its save."""
+        self._note_round(round_number, metric, save_dir, extra)
+        if self._ckpt_queued_round != round_number and global_vec is not None and self._should_checkpoint(round_number):
+            self._save_checkpoint(round_number, global_vec)
+        self._max_acc = max(self._max_acc, metric["accuracy"])
+        if self._ckpt_queued_round == round_number and metric["accuracy"] > self._best_ckpt_acc:
+            self._best_ckpt_acc = metric["accuracy"]
+            self._ckpt.copy_last_to(os.path.join(save_dir, "best_global_model.npz"))
+
+    def _maybe_kill(self, first_round: int, last_round: int | None = None) -> None:
+        """Arm a kill scheduled in the rounds ``first_round..last_round`` and
+        fire the earliest armed one once its round is durable: a checkpoint
+        at or past it queued and the record rows flushed.  The raise leaves
+        through the writer's ``with`` block, which drains the writes."""
+        plan = self._fault_plan
+        if plan is None:
+            return
+        last = first_round if last_round is None else last_round
+        self._kill_armed_round = plan.arm_kill(first_round, last, self._kill_armed_round)
+        plan.fire_armed_kill(self._kill_armed_round, self._last_ckpt_round, record_durable=not self._record_dirty)
+
     def _note_round(self, round_number, metric, save_dir, extra) -> None:
+        """The round's row, and ``round_record.json`` flushed atomically on
+        the ``record_flush_every`` cadence and in the final round (the exit
+        flush is the writer's finalizer)."""
         row = {f"test_{k}": v for k, v in metric.items()}
         row.update(extra)
         self._stat[round_number] = row
@@ -705,7 +829,13 @@ class SpmdFedAvgSession:
             metric["accuracy"],
             metric["loss"],
         )
-        path = os.path.join(save_dir, "round_record.json")
-        with open(path + ".tmp", "w", encoding="utf8") as f:
-            json.dump(self._stat, f)
-        os.replace(path + ".tmp", path)
+        self._record_path = os.path.join(save_dir, "round_record.json")
+        self._record_dirty = True
+        if round_number % self._record_flush_every == 0 or round_number >= self.config.round:
+            self._flush_record()
+
+    def _flush_record(self) -> None:
+        if not self._record_dirty or self._record_path is None:
+            return
+        atomic_json_dump(self._record_path, self._stat)
+        self._record_dirty = False

@@ -42,13 +42,19 @@ fan-in resample are the JAX package's numpy streams, exact.  As in the
 JAX session, every node a worker owns trains, its test nodes included
 (``ROADMAP.md`` R13).
 
-Each round writes ``aggregated_model/round_N.npz`` (JAX keys), a row of
-``server/round_record.json`` (the test metrics, ``received_mb`` /
-``sent_mb`` of the boundary exchange, ``round_seconds``) and, on an
-improvement, ``server/best_global_model.npz``.
+Each round queues ``aggregated_model/round_N.npz`` (JAX keys, through the
+checkpoint writer: one device-to-host copy of the f32 master, written
+while the evaluation runs), writes a row of ``server/round_record.json``
+atomically (the test metrics, ``received_mb`` / ``sent_mb`` of the
+boundary exchange, ``round_seconds``) and, on an improvement, promotes the
+round's checkpoint to ``server/best_global_model.npz`` by a file copy.
+``resume_dir`` restores the newest resumable round and its record rows
+(``util/resume.py``) and runs on from the next; every draw is keyed by
+the round, so nothing is replayed.  As in the JAX session, the fault plan's
+kill is ignored, and ``watchdog_seconds`` guards the round and the
+evaluation.
 """
 
-import json
 import os
 import time
 
@@ -58,14 +64,19 @@ import torch
 from ..engine.batching import make_graph_batch
 from ..engine.engine import maybe_slow_metrics, summarize_metrics
 from ..ml_type import MachineLearningPhase as Phase
-from ..models.convert import to_jax
+from ..models.convert import from_jax, jax_leaves
 from ..models.registry import masked_ce_loss
 from ..ops.graph_sampling import GraphRandom, cap_fan_in, cap_fan_in_torch, minibatch_assignment
 from ..ops.pytree import flat_stack_weighted_sum
+from ..util.checkpoint import AsyncCheckpointWriter, atomic_json_dump, jax_views
+from ..util.resume import load_resume_state
 from ..utils.logging import get_logger
+from .watchdog import DeadlineWatchdog
 
 #: algorithm_kwargs the graph sessions read; any other key raises
-SUPPORTED_ALGORITHM_KWARGS = frozenset({"share_feature", "batch_number", "edge_drop_rate", "num_neighbor"})
+SUPPORTED_ALGORITHM_KWARGS = frozenset(
+    {"share_feature", "batch_number", "edge_drop_rate", "num_neighbor", "resume_dir"}
+)
 
 
 class SpmdFedGNNSession:
@@ -78,11 +89,7 @@ class SpmdFedGNNSession:
 
     def __init__(self, config, dataset_collection, model_ctx, engine, practitioners, share_feature=None) -> None:
         kwargs = config.algorithm_kwargs
-        if kwargs.get("resume_dir"):
-            raise NotImplementedError(
-                "resume_dir on the graph sessions is not ported yet (ROADMAP.md Queue 1 item 7)"
-            )
-        unsupported = sorted(set(kwargs) - self.supported_algorithm_kwargs - {"resume_dir"})
+        unsupported = sorted(set(kwargs) - self.supported_algorithm_kwargs)
         if unsupported:
             raise NotImplementedError(
                 f"algorithm_kwargs {unsupported} are not ported yet on the graph sessions"
@@ -104,6 +111,8 @@ class SpmdFedGNNSession:
             raise TypeError(f"the graph sessions draw from a GraphRandom, not {type(self._random).__name__}")
         self._stat: dict[int, dict] = {}
         self._max_acc = 0.0
+        self._ckpt = AsyncCheckpointWriter()
+        self._watchdog = DeadlineWatchdog.from_config(config, self.device)
         self._prepare_data(dataset_collection, practitioners)
         self._weights = torch.from_numpy(self._dataset_sizes).to(self.device)
         test = make_graph_batch(dataset_collection.get_dataset(Phase.Test))
@@ -274,36 +283,59 @@ class SpmdFedGNNSession:
     def _before_round(self, round_number: int) -> None:
         """Per-round changes to the masks (fed_aas's resample)."""
 
+    def _start(self) -> tuple[torch.Tensor, int]:
+        """The f32 master and the first round: the newest resumable round of
+        ``resume_dir`` (its record rows restored), else a fresh init."""
+        resume_dir = self.config.algorithm_kwargs.get("resume_dir")
+        if resume_dir:
+            params, stats, last = load_resume_state(resume_dir)
+            if params is not None:
+                self._stat = stats
+                self._max_acc = max((s.get("test_accuracy", 0.0) for s in stats.values()), default=0.0)
+                get_logger().info("resumed graph session from %s round %d", resume_dir, last)
+                return self._flat(from_jax(params)), last + 1
+            get_logger().warning("nothing resumable under %s; starting fresh", resume_dir)
+        return self._flat(self.engine.init_params(self.config.seed)), 1
+
+    def _flat(self, params: dict) -> torch.Tensor:
+        return self.engine.layout.flatten({k: v.to(self.device, torch.float32) for k, v in params.items()})
+
     def run(self) -> dict:
         config = self.config
         save_dir = os.path.join(config.save_dir, "server")
         model_dir = os.path.join(config.save_dir, "aggregated_model")
         os.makedirs(save_dir, exist_ok=True)
         os.makedirs(model_dir, exist_ok=True)
-        init = self.engine.init_params(config.seed)
-        global_vec = self.engine.layout.flatten({k: v.to(self.device, torch.float32) for k, v in init.items()})
+        global_vec, start_round = self._start()
+        leaves = jax_leaves(self.engine.layout.keys, self.engine.layout.shapes)
         mb = self._round_payload_bytes / 1e6
-        for round_number in range(1, config.round + 1):
-            start = time.monotonic()
-            self._before_round(round_number)
-            global_vec = self.run_round(global_vec, round_number)
-            params = to_jax(self.engine.layout.split(global_vec))
-            np.savez(os.path.join(model_dir, f"round_{round_number}.npz"), **params)
-            metric = self._evaluate(global_vec)
-            row = {f"test_{k}": v for k, v in metric.items()}
-            row.update({"received_mb": mb, "sent_mb": mb, "round_seconds": time.monotonic() - start})
-            self._stat[round_number] = row
-            get_logger().info(
-                "round: %d, test accuracy %.4f loss %.4f (torch gnn, %.3f MB exchanged)",
-                round_number, metric["accuracy"], metric["loss"], mb,
-            )
-            path = os.path.join(save_dir, "round_record.json")
-            with open(path + ".tmp", "w", encoding="utf8") as f:
-                json.dump(self._stat, f)
-            os.replace(path + ".tmp", path)
-            if metric["accuracy"] > self._max_acc:
-                self._max_acc = metric["accuracy"]
-                np.savez(os.path.join(save_dir, "best_global_model.npz"), **params)
+        with self._ckpt:  # drains the writes at exit, errors included
+            for round_number in range(start_round, config.round + 1):
+                start = time.monotonic()
+                self._before_round(round_number)
+                global_vec = self._watchdog.call(
+                    lambda g=global_vec, r=round_number: self.run_round(g, r), phase="round", round_number=round_number
+                )
+                # queued now, so the copy and the write overlap the evaluation
+                self._ckpt.save_rows(
+                    os.path.join(model_dir, f"round_{round_number}.npz"),
+                    [global_vec],
+                    lambda host: jax_views(host[0], leaves),
+                )
+                metric = self._watchdog.call(
+                    lambda g=global_vec: self._evaluate(g), phase="eval", round_number=round_number
+                )
+                row = {f"test_{k}": v for k, v in metric.items()}
+                row.update({"received_mb": mb, "sent_mb": mb, "round_seconds": time.monotonic() - start})
+                self._stat[round_number] = row
+                get_logger().info(
+                    "round: %d, test accuracy %.4f loss %.4f (torch gnn, %.3f MB exchanged)",
+                    round_number, metric["accuracy"], metric["loss"], mb,
+                )
+                atomic_json_dump(os.path.join(save_dir, "round_record.json"), self._stat)
+                if metric["accuracy"] > self._max_acc:
+                    self._max_acc = metric["accuracy"]
+                    self._ckpt.copy_last_to(os.path.join(save_dir, "best_global_model.npz"))
         return {"performance": self._stat}
 
 

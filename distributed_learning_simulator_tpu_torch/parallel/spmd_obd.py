@@ -30,8 +30,27 @@ same ``ObdRoundDriver`` the threaded server consults.
 ``round_horizon`` H > 1 (the JAX session's fused dispatch of H
 aggregates of one phase, clamped to the phase's budget) runs aggregate by
 aggregate, as the FedAvg session does: the H = 1 run, bit for bit, every
-phase switch on a horizon boundary.  With ``early_stop`` it warns, as the
-JAX session does when it falls back to per-round running.
+phase switch on a horizon boundary, and the checkpoints on the JAX
+session's boundaries.  With ``early_stop`` it warns and runs per round,
+as the JAX session falls back to per-round running.
+
+Each checkpointed aggregate writes the exact average to
+``aggregated_model/round_<key>.npz``.  ``opt_state.npz`` holds the
+per-slot optimizer states (``leaf_{i}``: the momentum trace of each JAX
+leaf as ``[n_slots, *shape]``, then the ``[n_slots]`` int32 step counts;
+``stat_key``: the aggregate's key), the JAX package's keys and shapes; it
+is written at the switch into phase 2, after every phase-2 aggregate and,
+when ``random_client_number`` leaves clients out, after every phase-1
+aggregate.  ``resume_dir`` restores the record, replays the phase driver
+over its phases (``method/fed_obd/driver.py::replay_resume``), drops a
+tail of a superseded schedule and reloads the last kept aggregate, and
+restores the optimizer states saved with it.  Unlike the JAX session,
+which trains the next aggregate from the restored exact average, the port
+codes the restored average again (the codec's draws are keyed by the
+aggregate), so the first resumed aggregate trains from the broadcast an
+uninterrupted run would have sent: a resume is the uninterrupted run, bit
+for bit.  Of the fault plan the session takes only the kill, fired where
+the JAX session fires it.
 """
 
 import math
@@ -41,12 +60,14 @@ import time
 import numpy as np
 import torch
 
-from ..method.fed_obd.driver import ObdRoundDriver
+from ..engine.hyper_parameter import SGDState
+from ..method.fed_obd.driver import ObdRoundDriver, replay_resume
 from ..method.fed_obd.obd_algorithm import get_module_blocks
-from ..models.convert import to_jax
 from ..models.dropout import dropout_generator
 from ..ops.pytree import flat_stack_weighted_sum
 from ..ops.quantization import nnadq_quantize_dequantize_leaves, qsgd_quantize_dequantize_leaves
+from ..util.checkpoint import jax_views, rows_from_jax
+from ..util.resume import load_resume_state, load_round_checkpoint
 from ..utils.logging import get_logger
 from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs_carry
 
@@ -228,44 +249,150 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         save_dir = os.path.join(config.save_dir, "server")
         os.makedirs(save_dir, exist_ok=True)
         driver = ObdRoundDriver.from_config(config)
-        if self.round_horizon > 1 and driver.early_stop:
+        fused = self.round_horizon > 1
+        if fused and driver.early_stop:
             get_logger().warning(
                 "round_horizon=%d with early_stop: the plateau decision needs each round's test"
                 " metric on host before the next round may run — running per-round (H=1)",
                 self.round_horizon,
             )
-        train_vec = self._init_global_params()
-        exact, key, tick = None, 0, 0
-        while not driver.finished:
-            spec = driver.phase
-            phase_two = not spec.block_dropout
-            if phase_two:
-                key = (max(self._stat) if self._stat else 0) + 1
-                weights = self._all_weights()
-            else:
-                tick += 1
-                key = tick
-                weights = self._base_weight_row(key)
-            round_start = time.monotonic()
-            exact, train_vec, upload_bits, bcast_bits = self.run_aggregate(train_vec, weights, key, phase_two)
-            metric = self._evaluate(exact)  # the exact average; reads the metrics: the aggregate's sync
-            self._record_obd(
-                key, metric, float(upload_bits), float(bcast_bits), save_dir, spec.name,
-                time.monotonic() - round_start,
-            )
-            improved = self._has_improvement() if driver.early_stop else True
-            decision = driver.after_aggregate(improved=improved, check_acc=spec.check_acc)
-            if decision.annotations:
-                get_logger().info("phase switch -> %s", driver.phase and driver.phase.name)
-            if decision.end_training:
-                break
-        # the exit state: the last exact average, in the JAX package's keys and layout
-        model_dir = os.path.join(config.save_dir, "aggregated_model")
-        os.makedirs(model_dir, exist_ok=True)
-        np.savez(os.path.join(model_dir, f"round_{key}.npz"), **to_jax(self.engine.layout.split(exact)))
+            fused = False
+        train_vec, tick = self._init_obd(driver)
+        with self._ckpt:  # flushes the record and drains the writes at exit, errors included
+            while not driver.finished:
+                spec = driver.phase
+                phase_two = not spec.block_dropout
+                # the JAX session's chunk of one phase, clamped to its budget
+                h = max(1, min(self.round_horizon, driver.remaining)) if fused else 1
+                if phase_two:
+                    base = max(self._stat) if self._stat else 0
+                    keys = [base + i + 1 for i in range(h)]
+                else:
+                    keys = [tick + i + 1 for i in range(h)]
+                    tick += h
+                label = "round-phase2" if phase_two else "round"
+                for key in keys:
+                    weights = self._all_weights() if phase_two else self._base_weight_row(key)
+                    round_start = time.monotonic()
+                    exact, train_vec, upload_bits, bcast_bits = self._watchdog.call(
+                        lambda g=train_vec, w=weights, k=key: self.run_aggregate(g, w, k, phase_two),
+                        phase=label,
+                        round_number=key,
+                    )
+                    # the exact average; reads the metrics: the aggregate's sync
+                    metric = self._watchdog.call(lambda e=exact: self._evaluate(e), phase="eval", round_number=key)
+                    self._record_obd(
+                        key, metric, float(upload_bits), float(bcast_bits), exact if key == keys[-1] else None,
+                        save_dir, spec.name, time.monotonic() - round_start,
+                    )
+                    improved = self._has_improvement() if driver.early_stop else True
+                    decision = driver.after_aggregate(improved=improved, check_acc=spec.check_acc)
+                if decision.annotations or phase_two or self._selection_active:
+                    self._save_opt_state(keys[-1])
+                if decision.annotations:
+                    get_logger().info("phase switch -> %s", driver.phase and driver.phase.name)
+                # after the chunk's records, checkpoint and optimizer states are queued
+                self._maybe_kill(keys[0], keys[-1])
+                if decision.end_training:
+                    break
         return {"performance": self._stat}
 
-    def _record_obd(self, key, metric, upload_bits, bcast_bits, save_dir, phase_name, round_seconds) -> None:
+    @property
+    def _selection_active(self) -> bool:
+        """Whether ``random_client_number`` leaves clients out of phase 1:
+        then a slot's phase-2 seed is the state of its last participation,
+        saved with every phase-1 aggregate."""
+        return self._selected_count < self.config.worker_number
+
+    def _init_obd(self, driver) -> tuple[torch.Tensor, int]:
+        """The broadcast the next aggregate trains from and the phase-1
+        rounds done: fresh, or the resume of ``resume_dir`` (the module
+        docstring)."""
+        resume_dir = self.config.algorithm_kwargs.get("resume_dir")
+        params = None
+        if resume_dir:
+            params, entries, _last = load_resume_state(resume_dir)
+            if params is None:
+                get_logger().warning("nothing resumable under %s; starting fresh", resume_dir)
+        if params is None:
+            return self._init_global_params(), 0
+        kept_keys, phase1_ticks = replay_resume(driver, entries)
+        self._stat = {k: entries[k] for k in kept_keys}
+        if 0 in entries:
+            self._stat[0] = entries[0]
+        if kept_keys and len(kept_keys) < len([k for k in entries if k > 0]):
+            # training continues from the last KEPT aggregate, not the superseded schedule's end
+            kept_params = load_round_checkpoint(resume_dir, kept_keys[-1])
+            if kept_params is not None:
+                params = kept_params
+        self._max_acc = max((s.get("test_accuracy", 0.0) for s in self._stat.values()), default=0.0)
+        exact = self._master_from_jax(params)
+        self._aggregates = len(kept_keys)
+        if kept_keys and driver.phase is not None and (not driver.phase.block_dropout or self._selection_active):
+            self._load_opt_state(resume_dir, kept_keys[-1])
+        get_logger().info(
+            "resumed fed_obd from %s: %d aggregates replayed, phase now %s",
+            resume_dir, len(kept_keys), driver.phase.name if driver.phase else "finished",
+        )
+        if not kept_keys:
+            return exact, phase1_ticks
+        bcast, _ = self._broadcast(exact, self._aggregates - 1)
+        return bcast, phase1_ticks
+
+    def _save_opt_state(self, stat_key: int) -> None:
+        """Queue ``opt_state.npz``: every slot's optimizer state (a slot
+        that never trained: the fresh state) in the JAX package's keys."""
+        path = os.path.join(self.config.save_dir, "aggregated_model", "opt_state.npz")
+        leaves = self._jax_leaves
+        counts = np.asarray([0 if st is None else st.count for st in self._opt_states], np.int32)
+        tail = {"stat_key": np.int64(stat_key)}
+        if not self.engine.optimizer.momentum:
+            self._ckpt.save_npz(path, {"leaf_0": counts, **tail})
+            return
+
+        def arrays(host: np.ndarray) -> dict:
+            views = jax_views(host, leaves)
+            out = {f"leaf_{i}": views[leaf.jax_key] for i, leaf in enumerate(leaves)}
+            return {**out, f"leaf_{len(leaves)}": counts, **tail}
+
+        self._ckpt.save_rows(path, [None if st is None else st.trace for st in self._opt_states], arrays)
+
+    def _load_opt_state(self, resume_dir: str, expect_key: int) -> None:
+        """The optimizer states of ``opt_state.npz`` when they belong to
+        aggregate ``expect_key`` and match the optimizer's keys and shapes;
+        else the slots keep fresh states (a warning where they mismatch)."""
+        path = os.path.join(resume_dir, "aggregated_model", "opt_state.npz")
+        if not os.path.isfile(path):
+            return
+        with np.load(path) as blob:
+            if int(blob["stat_key"]) != expect_key:
+                return
+            loaded = {k: blob[k] for k in blob.files if k != "stat_key"}
+        momentum = bool(self.engine.optimizer.momentum)
+        leaves = self._jax_leaves if momentum else []
+        if len(loaded) != len(leaves) + 1:
+            get_logger().warning("opt_state.npz does not match the optimizer")
+            return
+        counts = loaded[f"leaf_{len(leaves)}"]
+        if counts.shape != (self.n_slots,):
+            get_logger().warning("opt_state.npz leaf %d shape mismatch", len(leaves))
+            return
+        traces = None
+        if momentum:
+            traces = rows_from_jax([loaded[f"leaf_{i}"] for i in range(len(leaves))], leaves, self.n_slots)
+            if traces is None:
+                get_logger().warning("opt_state.npz leaf shapes mismatch the optimizer")
+                return
+            traces = traces.to(self.device, self.model_ctx.compute_dtype)
+        self._opt_states = [
+            SGDState(trace=None if traces is None else traces[slot].clone(), count=int(counts[slot]))
+            for slot in range(self.n_slots)
+        ]
+        get_logger().info("restored phase-2 optimizer states (aggregate %d)", expect_key)
+
+    def _record_obd(self, key, metric, upload_bits, bcast_bits, exact, save_dir, phase_name, round_seconds) -> None:
+        """The aggregate's row (its ``phase`` lets a resume replay the
+        driver) and, with ``exact`` (None mid-horizon), its checkpoint."""
         mb = 1 / 8e6
         extra = {
             "received_mb": upload_bits * mb,
@@ -273,7 +400,7 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
             "round_seconds": round_seconds,
             "phase": phase_name,
         }
-        self._note_round(key, metric, save_dir, extra)
+        self._record(key, metric, exact, save_dir, extra)
         if upload_bits:
             # wire bits over full-precision full-model bits per selected client
             get_logger().info(

@@ -30,13 +30,18 @@ FedAvg session, with the JAX round program's data flow:
 The round-0 test metric is ``_stat[0]`` (in ``round_record.json``, not in
 the returned ``performance``) and seeds the engine's ``last_round_metric``.
 After every round ``shapley_values.json`` and ``shapley_values_S.json`` are
-rewritten under ``save_dir`` through a temp file and ``os.replace``; at the
-end ``aggregated_model/round_N.npz`` holds the last global in JAX keys.
-The session counts the subsets it evaluates a round
-(:attr:`SpmdShapleySession.round_subsets`): K1 launches once a subset and
-once for the round's aggregate.  Resume (``resume_dir``) and round
-checkpoints are not ported (``resume_dir`` raises ``NotImplementedError``
-with every other key the session does not read).
+rewritten under ``save_dir`` through a temp file and ``os.replace``, and
+the round's global goes to ``aggregated_model/round_N.npz`` (JAX keys) on
+the FedAvg session's checkpoint cadence.  The session counts the subsets
+it evaluates a round (:attr:`SpmdShapleySession.round_subsets`): K1
+launches once a subset and once for the round's aggregate.
+
+``resume_dir`` resumes as the FedAvg session does; the SV records of the
+rounds before the resume are brought forward with both key levels as
+``int`` (a tail at or past the resume round is dropped), and the engine,
+built in the first resumed round, is seeded with the last recorded
+accuracy.  As in the JAX session, ``kill_after_rounds`` is ignored here:
+the session arms no kill.
 """
 
 import json
@@ -49,9 +54,9 @@ import torch
 from .. import shapley
 from ..engine.batching import make_epoch_batches
 from ..ml_type import MachineLearningPhase as Phase
-from ..models.convert import to_jax
 from ..models.dropout import dropout_generator
 from ..ops.pytree import flat_stack_weighted_sum
+from ..util.checkpoint import atomic_json_dump
 from ..utils.logging import get_logger
 from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs
 
@@ -158,64 +163,97 @@ class SpmdShapleySession(SpmdFedAvgSession):
         config = self.config
         save_dir = os.path.join(config.save_dir, "server")
         os.makedirs(save_dir, exist_ok=True)
-        global_vec = self._init_global_params()
-        # the engine's round-0 metric (the reference's need_init_performance)
-        self._stat[0] = {f"test_{k}": v for k, v in self._evaluate(global_vec).items()}
+        global_vec, start_round = self._start()
+        if start_round == 1:
+            # the engine's round-0 metric (the reference's need_init_performance)
+            self._stat[0] = {f"test_{k}": v for k, v in self._evaluate(global_vec).items()}
+        else:
+            self._restore_sv_records(start_round)
         choose_best = bool(config.algorithm_kwargs.get("choose_best_subset", False))
-        for round_number in range(1, config.round + 1):
-            start = time.monotonic()
-            weights = self._base_weight_row(round_number)
-            stack = self.train_stack(global_vec, round_number)
-            if self._sv_engine is None:
-                self._sv_engine = self._engine_cls(
-                    players=list(range(config.worker_number)),
-                    last_round_metric=self._stat[max(self._stat)]["test_accuracy"],
-                    **self._engine_kwargs(),
-                )
-            metric_many = self._metric_many(stack, weights, round_number)
-            self._sv_engine.set_metric_function(lambda subset, fn=metric_many: fn([subset])[0])
-            self._sv_engine.set_batch_metric_function(metric_many)
-            self.round_subsets[round_number] = 0
-            self._sv_engine.compute(round_number=round_number)
-            # worker ids as ints: the Monte-Carlo branches' subsets hold numpy
-            # integers, which json cannot take as keys (ROADMAP R11)
-            for record, source in (
-                (self.shapley_values, self._sv_engine.shapley_values),
-                (self.shapley_values_S, self._sv_engine.shapley_values_S),
-            ):
-                record[round_number] = {int(w): sv for w, sv in source[round_number].items()}
-            self._dump_sv()
-
-            agg_mask = np.zeros(self.n_slots, np.float32)
-            if choose_best and self.shapley_values_S[round_number]:
-                agg_mask[[int(w) for w in self.shapley_values_S[round_number]]] = 1.0
-                get_logger().info("use subset %s", sorted(self.shapley_values_S[round_number]))
-            else:
-                agg_mask[: config.worker_number] = 1.0
-            global_vec = self.round_aggregate(stack, agg_mask)
-            del stack
-            metric = self._evaluate(global_vec)
-            self._note_round(
-                round_number,
-                metric,
-                save_dir,
-                {
-                    "subsets": self.round_subsets[round_number],
-                    "subset_seconds": self.subset_seconds.get(round_number, 0.0),
-                    "round_seconds": time.monotonic() - start,
-                },
-            )
-        model_dir = os.path.join(config.save_dir, "aggregated_model")
-        os.makedirs(model_dir, exist_ok=True)
-        np.savez(
-            os.path.join(model_dir, f"round_{config.round}.npz"),
-            **to_jax(self.engine.layout.split(global_vec)),
-        )
+        with self._ckpt:  # flushes the record and drains the writes at exit, errors included
+            for round_number in range(start_round, config.round + 1):
+                global_vec = self._sv_round(global_vec, round_number, choose_best, save_dir)
         return {
             "performance": {k: v for k, v in self._stat.items() if k > 0},
             "sv": self.shapley_values,
             "sv_S": self.shapley_values_S,
         }
+
+    def _sv_round(self, global_vec: torch.Tensor, round_number: int, choose_best: bool, save_dir: str):
+        """One round: the stack, the engine's subset metrics, the SV
+        records, the aggregate and its record; returns the new global."""
+        config = self.config
+        start = time.monotonic()
+        weights = self._base_weight_row(round_number)
+        stack = self._watchdog.call(
+            lambda: self.train_stack(global_vec, round_number), phase="round", round_number=round_number
+        )
+        if self._sv_engine is None:
+            # fresh: the round-0 metric; resumed: the last recorded round's
+            self._sv_engine = self._engine_cls(
+                players=list(range(config.worker_number)),
+                last_round_metric=self._stat[max(self._stat)]["test_accuracy"],
+                **self._engine_kwargs(),
+            )
+        metric_many = self._metric_many(stack, weights, round_number)
+
+        def guarded_many(subsets):  # each batch of subset metrics under its own deadline
+            return self._watchdog.call(lambda: metric_many(subsets), phase="eval", round_number=round_number)
+
+        self._sv_engine.set_metric_function(lambda subset: guarded_many([subset])[0])
+        self._sv_engine.set_batch_metric_function(guarded_many)
+        self.round_subsets[round_number] = 0
+        self._sv_engine.compute(round_number=round_number)
+        # worker ids as ints: the Monte-Carlo branches' subsets hold numpy
+        # integers, which json cannot take as keys (ROADMAP R11)
+        for record, source in (
+            (self.shapley_values, self._sv_engine.shapley_values),
+            (self.shapley_values_S, self._sv_engine.shapley_values_S),
+        ):
+            record[round_number] = {int(w): sv for w, sv in source[round_number].items()}
+        self._dump_sv()  # every round: it survives a crash and feeds a resume
+
+        agg_mask = np.zeros(self.n_slots, np.float32)
+        if choose_best and self.shapley_values_S[round_number]:
+            agg_mask[[int(w) for w in self.shapley_values_S[round_number]]] = 1.0
+            get_logger().info("use subset %s", sorted(self.shapley_values_S[round_number]))
+        else:
+            agg_mask[: config.worker_number] = 1.0
+        global_vec = self.round_aggregate(stack, agg_mask)
+        del stack
+        metric = self._watchdog.call(lambda: self._evaluate(global_vec), phase="eval", round_number=round_number)
+        extra = {
+            "subsets": self.round_subsets[round_number],
+            "subset_seconds": self.subset_seconds.get(round_number, 0.0),
+            "round_seconds": time.monotonic() - start,
+        }
+        self._record(round_number, metric, global_vec, save_dir, extra)
+        return global_vec
+
+    def _restore_sv_records(self, start_round: int) -> None:
+        """The resumed session's SV records (written every round, so they
+        survive a crash), both key levels as ``int``; the rounds at or past
+        the resume round are dropped (a superseded tail).  An unreadable
+        file loses only its SV history."""
+        resume_dir = self.config.algorithm_kwargs.get("resume_dir")
+        for name, target in (
+            ("shapley_values.json", self.shapley_values),
+            ("shapley_values_S.json", self.shapley_values_S),
+        ):
+            path = os.path.join(resume_dir, name)
+            if not os.path.isfile(path):
+                continue
+            try:
+                with open(path, encoding="utf8") as f:
+                    target.update({int(k): {int(w): sv for w, sv in v.items()} for k, v in json.load(f).items()})
+            except (json.JSONDecodeError, ValueError, AttributeError, TypeError):
+                get_logger().warning("unreadable %s; resuming without its SV history", path)
+        for records in (self.shapley_values, self.shapley_values_S):
+            for k in [k for k in records if k >= start_round]:
+                del records[k]
+        get_logger().info(
+            "resumed shapley session at round %d (%d SV rounds restored)", start_round, len(self.shapley_values)
+        )
 
     def _dump_sv(self) -> None:
         """Both SV records, rewritten after every round through a temp file
@@ -224,7 +262,4 @@ class SpmdShapleySession(SpmdFedAvgSession):
             ("shapley_values.json", self.shapley_values),
             ("shapley_values_S.json", self.shapley_values_S),
         ):
-            path = os.path.join(self.config.save_dir, name)
-            with open(path + ".tmp", "w", encoding="utf8") as f:
-                json.dump({str(k): v for k, v in source.items()}, f)
-            os.replace(path + ".tmp", path)
+            atomic_json_dump(os.path.join(self.config.save_dir, name), {str(k): v for k, v in source.items()})

@@ -29,7 +29,11 @@ weights only under selection) plus ``round_seconds``;
 ``server/best_global_model.npz`` is rewritten whenever the test accuracy
 improves.  The initial parameters are ``engine.init_params(seed)``, as in
 JAX (which reads no ``global_model_path``).  ``round_horizon`` H > 1 runs
-its rounds one by one, a record each (the H = 1 run, bit for bit).
+its rounds one by one, a record each (the H = 1 run, bit for bit).  As in
+JAX, the session writes no round checkpoints and takes no ``resume_dir``: a
+scheduled kill (``kill_after_rounds``) fires right after its round's record
+lands, and ``train_with_recovery`` restarts the run from round 1.
+``watchdog_seconds`` guards each round and its evaluation.
 """
 
 import os
@@ -154,8 +158,11 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
         best_acc = -1.0
         for round_number in range(1, config.round + 1):
             start = time.monotonic()
-            epochs = self.run_round(params, self.round_weights(round_number), round_number)
-            metric = self._evaluate(params)
+            weights = self.round_weights(round_number)
+            epochs = self._watchdog.call(
+                lambda w=weights, r=round_number: self.run_round(params, w, r), phase="round", round_number=round_number
+            )
+            metric = self._watchdog.call(lambda: self._evaluate(params), phase="eval", round_number=round_number)
             sums = torch.stack(epochs).cpu().numpy()  # [epoch, 3] f32
             count = np.maximum(sums[:, 2], np.float32(1.0))
             extra = {
@@ -170,6 +177,9 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
                     os.path.join(save_dir, "best_global_model.npz"),
                     **to_jax(self.engine.layout.split(params)),
                 )
+            if self._fault_plan is not None:
+                self._flush_record()  # the killed run's rows land first
+                self._fault_plan.maybe_kill(round_number)
         get_logger().info(
             "sign_SGD: %d rounds of %d steps (torch)", config.round, config.epoch * self.n_batches
         )

@@ -26,6 +26,13 @@ client loop (its ``_upload`` hook builds a trained client's f32 row):
   The new global is ``sum_c w_c * (g + sent_c) / max(sum_c w_c, 1e-12)``
   through K1.
 
+SMAFD checkpoints its residuals with every round
+(``aggregated_model/err_state.npz``: each leaf's ``[n_slots, *shape]``
+rows in the JAX package's keys and layouts, tagged ``__round__``) and
+restores them on resume when the tag is the resumed round; a missing or
+mismatched file warns and restarts the residuals at zero, as in the JAX
+package.  FedDropoutAvg checkpoints and resumes as the FedAvg session.
+
 The keep masks and the leaf orders come from the codec's random source
 (``ops/quantization.py::CodecRandom``: ``dropout_uniform`` and
 ``leaf_permutation``, the ``random`` entry of ``endpoint_kwargs.worker``),
@@ -33,9 +40,13 @@ by (seed, round, slot, leaf).  Neither session fuses rounds
 (``round_horizon`` > 1 raises, as in the JAX package).
 """
 
+import os
+
 import numpy as np
 import torch
 
+from ..util.checkpoint import jax_views, rows_from_jax
+from ..utils.logging import get_logger
 from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession
 
 
@@ -123,6 +134,48 @@ class SpmdSMAFDSession(SpmdFedAvgSession):
         for i, leaf in enumerate(self._jax_leaves):
             leaf_of[leaf.start : leaf.stop] = i
         self._leaf_of = leaf_of.to(self.device)
+
+    def _err_path(self, base_dir: str) -> str:
+        return os.path.join(base_dir, "aggregated_model", "err_state.npz")
+
+    def _record(self, round_number, metric, global_vec, save_dir, extra) -> None:
+        super()._record(round_number, metric, global_vec, save_dir, extra)
+        leaves = self._jax_leaves
+
+        def arrays(host: np.ndarray) -> dict:
+            return {**jax_views(host, leaves), "__round__": np.int64(round_number)}
+
+        self._ckpt.save_rows(self._err_path(self.config.save_dir), self._err, arrays)
+
+    def _start(self):
+        global_vec, start_round = super()._start()
+        if start_round > 1:
+            restored = self._load_err(str(self.config.algorithm_kwargs.get("resume_dir")), start_round - 1)
+            if restored is not None:
+                self._err.copy_(restored)
+                get_logger().info("smafd resume: restored error-feedback residuals (round %d)", start_round - 1)
+            else:
+                get_logger().warning(
+                    "smafd resume: err_state.npz missing or from a different round — error-feedback"
+                    " residuals restart at zero"
+                )
+        return global_vec, start_round
+
+    def _load_err(self, resume_dir: str, round_number: int) -> torch.Tensor | None:
+        """The residuals of ``err_state.npz`` as ``[n_slots, D]`` in the
+        port's layout, or None when the file is absent, of another round
+        or of other keys or shapes."""
+        path = self._err_path(resume_dir)
+        if not os.path.isfile(path):
+            return None
+        with np.load(path) as blob:
+            if "__round__" not in blob.files or int(blob["__round__"]) != round_number:
+                return None
+            loaded = {k: blob[k] for k in blob.files if k != "__round__"}
+        if set(loaded) != {leaf.jax_key for leaf in self._jax_leaves}:
+            return None
+        err = rows_from_jax([loaded[leaf.jax_key] for leaf in self._jax_leaves], self._jax_leaves, self.n_slots)
+        return None if err is None else err.to(self.device)
 
     def _upload_cost_factor(self) -> float:
         if self._topk_ratio is not None:

@@ -23,14 +23,21 @@ It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
 and raises where no GPU is visible.  What the port does not run yet raises
 ``NotImplementedError`` naming the ROADMAP item.  ``fault_tolerance`` and
 ``aggregation_mode: buffered`` run on the SPMD FedAvg session (fed_avg,
-fed_paq); the other sessions refuse them (``parallel/spmd.py``), and the
-threaded executor refuses both.
+fed_paq); the other SPMD sessions take only the kill schedule and the
+supervisor's knobs (``parallel/spmd.py``), and the threaded executor
+refuses both, and ``watchdog_seconds``.
+
+:func:`train_with_recovery` is the supervisor: attempt ``k`` runs in
+``<save_dir>_retry<k>`` and resumes from the newest attempt directory that
+holds a resumable round (``util/resume.py``).  ``__main__`` runs a config
+with ``fault_tolerance.auto_resume`` under it.
 """
 
 import copy
 import dataclasses
 import math
 import threading
+import time
 from typing import Any
 
 import torch
@@ -52,6 +59,8 @@ from .parallel.spmd_sign_sgd import SpmdSignSGDSession
 from .parallel.spmd_sparse import SpmdFedDropoutAvgSession, SpmdSMAFDSession
 from .practitioner import create_practitioners
 from .topology.central_topology import CentralTopology
+from .util.faults import FaultPlan
+from .util.resume import resumable_round
 from .utils.device import resolve_device
 from .utils.logging import add_file_handler, get_logger
 
@@ -167,15 +176,21 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
                 " ROADMAP.md)"
             )
     layouts = [k for k in _LAYOUT_KWARGS if int(config.model_kwargs.get(k, 0) or 0) > 1]
+    spmd = resolve_executor(config) == "spmd"
     # the SPMD sessions gate fault_tolerance per class (parallel/spmd.py);
-    # the threaded executor and the graph sessions run none of it
-    faults_gated = resolve_executor(config) == "spmd" and algorithm not in _GRAPH_METHODS
+    # the graph sessions take (and, as the JAX ones, ignore) the kill
+    # schedule and the supervisor's knobs; the threaded executor none of it
+    plan = FaultPlan.from_config(config)
+    if spmd and algorithm in _GRAPH_METHODS:
+        faults_refused = plan is not None and not plan.only_recovery
+    else:
+        faults_refused = plan is not None and not spmd
     refused = {
         "model_kwargs": layouts,
-        "fault_tolerance": bool(config.fault_tolerance) and not faults_gated,
+        "fault_tolerance": faults_refused,
         "telemetry": bool(dict(config.telemetry).get("enabled")),
         "profile": config.profile,
-        "watchdog_seconds": bool(config.watchdog_seconds),
+        "watchdog_seconds": bool(config.watchdog_seconds) and not spmd,
         "parallel_number": bool(config.parallel_number),
     }
     named = [k for k, v in refused.items() if v]
@@ -356,3 +371,88 @@ def train(
     result = _remap_sv(session.run(), session.practitioners)
     get_logger().info("training done on %s (%d rounds)", session.device, len(result["performance"]))
     return result
+
+
+def train_with_recovery(
+    config: DistributedTrainingConfig,
+    practitioners=None,
+    max_restarts: int | None = None,
+    backoff_seconds: float | None = None,
+    sleep_fn=None,
+    device: str | None = None,
+) -> dict:
+    """:func:`train` under a bounded-retry supervisor (the JAX package's):
+    a crashed attempt (a simulated kill, a watchdog timeout, any
+    ``Exception``; not Ctrl-C) is relaunched after an exponential backoff
+    from the newest loadable checkpoint.
+
+    * attempt ``k`` runs in ``<save_dir>_retry<k>`` and resumes from the
+      newest attempt directory (or the caller's ``resume_dir``) whose
+      ``resumable_round`` is above 0: a torn newest checkpoint falls back
+      to the round before it;
+    * ``max_restarts`` and the backoff default from ``fault_tolerance``
+      (``max_restarts``, ``restart_backoff_seconds``); past the budget the
+      last error propagates unchanged;
+    * the result is the last attempt's, whose restored and fresh record
+      rows cover every round once, with a ``recovery`` summary (restarts,
+      attempt directories, the final ``save_dir``);
+    * a method without round checkpoints (sign_SGD) restarts from round 1.
+
+    ``sleep_fn`` replaces ``time.sleep`` for the backoff (tests)."""
+    config = copy.deepcopy(config)
+    if not config.save_dir:
+        config.load_config_and_process()
+    fault_conf = dict(config.fault_tolerance or {})
+    if max_restarts is None:
+        max_restarts = int(fault_conf.get("max_restarts", 2))
+    if backoff_seconds is None:
+        backoff_seconds = float(fault_conf.get("restart_backoff_seconds", 1.0))
+    sleep = sleep_fn if sleep_fn is not None else time.sleep
+    base_dir = config.save_dir
+    attempt_dirs = [base_dir]
+    current = config
+    restarts = 0
+    while True:
+        try:
+            result = train(current, practitioners=practitioners, device=device)
+        except Exception as exc:  # noqa: BLE001 -- the supervisor heals any crash
+            restarts += 1
+            if restarts > max_restarts:
+                get_logger().error(
+                    "train_with_recovery: giving up after %d restart(s); last error: %s", max_restarts, exc
+                )
+                raise
+            delay = backoff_seconds * (2 ** (restarts - 1))
+            get_logger().warning(
+                "train_with_recovery: attempt %d crashed (%s: %s); relaunching in %.1fs (%d/%d restarts)",
+                restarts, type(exc).__name__, exc, delay, restarts, max_restarts,
+            )
+            if delay > 0:
+                sleep(delay)
+            candidates = list(reversed(attempt_dirs))
+            caller_resume = dict(config.algorithm_kwargs or {}).get("resume_dir")
+            if caller_resume:
+                candidates.append(caller_resume)
+            resume_dir, resume_round = None, 0
+            for candidate in candidates:
+                resume_round = resumable_round(candidate)
+                if resume_round > 0:
+                    resume_dir = candidate
+                    break
+            current = dataclasses.replace(current, save_dir=f"{base_dir}_retry{restarts}")
+            current.algorithm_kwargs = dict(current.algorithm_kwargs)
+            if resume_dir is not None:
+                get_logger().info(
+                    "train_with_recovery: resuming attempt %d from %s (round %d)",
+                    restarts + 1, resume_dir, resume_round,
+                )
+                current.algorithm_kwargs["resume_dir"] = resume_dir
+            else:
+                get_logger().warning(
+                    "train_with_recovery: nothing resumable yet — attempt %d restarts from scratch", restarts + 1
+                )
+                current.algorithm_kwargs.pop("resume_dir", None)
+            attempt_dirs.append(current.save_dir)
+            continue
+        result["recovery"] = {"restarts": restarts, "attempt_dirs": list(attempt_dirs), "save_dir": current.save_dir}
+        return result

@@ -22,9 +22,9 @@ Queue rule: update ``(c, o)`` is scheduled to land at flush
 items, stale ones first (oldest origin, then worker id), then on-time ones
 by worker id; the overflow rolls to the next flush one round staler; a
 dropped client's update never lands; items landing past the run's last
-round are dropped.  The threaded executor's side (the JAX package's
-``threaded_uploaders``) and the resume floor on origins (``live_cohort``)
-are not ported.
+round are dropped.  A resumed run counts only the items trained after
+the resume (``live_cohort``).  The threaded executor's side (the JAX
+package's ``threaded_uploaders``) is not ported.
 """
 
 from __future__ import annotations
@@ -111,13 +111,21 @@ class ArrivalSchedule:
     def cohort(self, flush_round: int) -> tuple[FlushItem, ...]:
         return self.flushes.get(flush_round, ())
 
-    def stale_count(self, flush_round: int) -> int:
-        return sum(1 for item in self.cohort(flush_round) if item.staleness)
+    def live_cohort(self, flush_round: int, origin_floor: int = 1) -> tuple[FlushItem, ...]:
+        """The cohort items that can still arrive: a resumed run restarts at
+        the resume round, so items whose origin lies below ``origin_floor``
+        died with the killed process (a resume drains the buffer)."""
+        return tuple(item for item in self.cohort(flush_round) if item.origin >= origin_floor)
 
-    def buffer_depth_after(self, flush_round: int) -> int:
+    def stale_count(self, flush_round: int, origin_floor: int = 1) -> int:
+        return sum(1 for item in self.live_cohort(flush_round, origin_floor) if item.staleness)
+
+    def buffer_depth_after(self, flush_round: int, origin_floor: int = 1) -> int:
         """Updates still in flight after this flush: trained at or before
-        it, landing later."""
-        return sum(1 for (_w, origin), land in self.landing.items() if origin <= flush_round < land)
+        it (and at or after ``origin_floor``), landing later."""
+        return sum(
+            1 for (_w, origin), land in self.landing.items() if origin_floor <= origin <= flush_round < land
+        )
 
 
 def compute_arrival_schedule(

@@ -27,9 +27,18 @@ On the SPMD FedAvg session the plan folds into the host-built weight row
 (the update guard rejects it; without the guard it poisons the aggregate
 visibly), the host sleeps once for the slowest straggler, and a round
 whose survivors fall below the quorum raises :class:`QuorumLostError`.
-The keys the port parses but does not run (``kill_after_rounds``,
-``client_faults_nonfatal``, ``auto_resume`` and the supervisor's restart
-budget) are refused by ``training.py``.
+
+``kill_after_rounds`` schedules a simulated process kill
+(:class:`SimulatedPreemption`).  A session with round checkpoints arms it
+(:meth:`FaultPlan.arm_kill`) and fires it (:meth:`FaultPlan.fire_armed_kill`)
+only once a checkpoint at or past the killed round exists and the record
+rows are flushed, so a sparse ``checkpoint_every`` or a horizon defers the
+kill to the next durable boundary and a resumed run, which starts past the
+killed round, never meets it again; sign_SGD, which writes no round
+checkpoints, raises at once (:meth:`FaultPlan.maybe_kill`).  ``auto_resume``,
+``max_restarts`` and ``restart_backoff_seconds`` are the supervisor's
+(``training.py::train_with_recovery``).  ``client_faults_nonfatal`` belongs
+to the threaded executor, which runs no fault plan yet.
 """
 
 import dataclasses
@@ -219,6 +228,51 @@ class FaultPlan:
         straggling = self.straggling_clients(round_number, worker_number)
         if straggling:
             time.sleep(max(self.straggler_delay(round_number, w, worker_number) for w in straggling))
+
+
+    def should_kill_after(self, round_number: int) -> bool:
+        return round_number in self.kill_after_rounds
+
+    def maybe_kill(self, round_number: int) -> None:
+        """Raise :class:`SimulatedPreemption` when a kill is scheduled after
+        ``round_number``: the variant without deferral, for sessions with
+        no round checkpoints (sign_SGD)."""
+        if self.should_kill_after(round_number):
+            raise SimulatedPreemption(f"fault plan: simulated process kill after round {round_number}")
+
+    def arm_kill(self, first_round: int, last_round: int, armed: int | None) -> int | None:
+        """The armed kill's round after rounds ``first_round..last_round``
+        ran: the earliest scheduled kill among them beats a later armed
+        one."""
+        for r in range(first_round, last_round + 1):
+            if self.should_kill_after(r) and (armed is None or r < armed):
+                armed = r
+        return armed
+
+    def fire_armed_kill(self, armed: int | None, durable_round: int, record_durable: bool = True) -> None:
+        """Raise :class:`SimulatedPreemption` for an armed kill once the run
+        can resume past it: a checkpoint at round ``durable_round`` >= the
+        armed round exists and its record rows are flushed."""
+        if armed is not None and record_durable and durable_round >= armed:
+            raise SimulatedPreemption(
+                f"fault plan: simulated process kill after round {armed} (fired at durable round {durable_round})"
+            )
+
+    @property
+    def only_recovery(self) -> bool:
+        """Whether the plan holds nothing but the kill schedule and the
+        supervisor's knobs (the part every SPMD session takes)."""
+        return not (
+            self.dropout_rate
+            or self.dropout_schedule
+            or self.straggler_rate
+            or self.straggler_schedule
+            or self.straggler_delay_seconds
+            or self.corrupt_rate
+            or self.corrupt_schedule
+            or self.update_guard
+            or self.client_faults_nonfatal
+        )
 
 
 def apply_fault_plan(

@@ -424,7 +424,8 @@ def test_guard_is_refused_with_the_jax_error(tmp_path, algorithm):
         ("sign_SGD", {}, {"update_guard": True}, "auto"),
         ("fed_dropout_avg", {"dropout_rate": 0.3}, {"dropout_rate": 0.5}, "auto"),
         ("fed_avg", {}, {"client_faults_nonfatal": True}, "auto"),
-        ("fed_avg", {}, {"auto_resume": True}, "auto"),
+        # auto_resume runs on the SPMD sessions (tests/test_torch_recovery.py), not on the threaded executor
+        ("fed_avg", {}, {"auto_resume": True}, "sequential"),
         ("fed_avg", {}, {"dropout_rate": 0.5}, "sequential"),
         ("fed_gnn", {}, {"dropout_rate": 0.5}, "auto"),
     ],

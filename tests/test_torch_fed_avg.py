@@ -190,7 +190,8 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
         {"algorithm_kwargs": {"population_store": "streamed"}},
         {"extra_hyper_parameters": {"donate_buffers": True}},
         {"extra_hyper_parameters": {"remat_policy": "save_only_these_names"}},
-        {"fault_tolerance": {"kill_after_rounds": [1]}},
+        # the kill runs on the SPMD sessions (tests/test_torch_recovery.py), not on the threaded executor
+        {"executor": "sequential", "fault_tolerance": {"kill_after_rounds": [1]}},
         {
             "model_name": "TransformerClassificationModel",
             "dataset_name": "imdb",

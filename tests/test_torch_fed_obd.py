@@ -517,7 +517,9 @@ def test_obd_session_raises_without_cuda_unless_cpu_is_asked(tmp_path, monkeypat
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "round_horizon": 2,
                               "population_store": "streamed"}},
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "selection_gather": True}},
-        {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "resume_dir": "x"}},
+        # resume runs (tests/test_torch_resume.py); of the fault plan FedOBD takes only the kill
+        {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "resume_dir": "x"},
+         "fault_tolerance": {"dropout_rate": 0.5}},
         {"fault_tolerance": {"update_guard": True}},
     ],
     ids=["round_horizon", "selection_gather", "resume", "fault_tolerance"],

@@ -5,6 +5,7 @@ the dataset sizes cut (one training sample a worker), for one round (and
 one tuning epoch) on the CPU."""
 
 import dataclasses
+import shutil
 
 import numpy as np
 import pytest
@@ -55,6 +56,9 @@ def test_shipped_config_runs_one_round(tmp_path, monkeypatch, name):
         perf = torch_train(config, device="cpu")["performance"]
     finally:
         torch.set_num_threads(threads)
+    # every round and FedOBD's optimizer states are checkpointed (up to 4 GB
+    # at vit_base's 10 slots): free the disk now, not at the session's end
+    shutil.rmtree(config.save_dir)
     phases = [row.get("phase") for _, row in sorted(perf.items())]
     assert phases == (["block_dropout_rounds", "epoch_tune"] if obd else [None])
     for row in perf.values():

@@ -252,7 +252,8 @@ def test_slot_with_an_empty_batch_still_steps(tmp_path):
     [
         ({"client_chunk": 2}, NotImplementedError, "client_chunk"),
         ({"random_client_number": 2}, NotImplementedError, "Queue 1 item 7"),
-        ({"resume_dir": "somewhere"}, NotImplementedError, "resume_dir"),
+        # resume_dir runs (tests/test_torch_resume.py); a horizon is still refused
+        ({"round_horizon": 2}, NotImplementedError, "round_horizon"),
     ],
 )
 def test_refusals(tmp_path, kwargs, error, words):

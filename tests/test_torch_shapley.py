@@ -382,15 +382,20 @@ def test_subset_sums_first_and_the_aggregate_normalises_first(tmp_path):
 
 @pytest.mark.parametrize(
     "kwargs, error",
-    [({"resume_dir": "earlier"}, NotImplementedError), ({"selection_gather": True}, NotImplementedError),
+    [({"resume_dir": "earlier"}, None), ({"selection_gather": True}, NotImplementedError),
      ({"round_horizon": 2}, ValueError)],
     ids=["resume", "selection_gather", "round_horizon"],
 )
 def test_unported_keys_raise(tmp_path, kwargs, error):
-    """Resume of the SV records waits for the round machinery; a horizon
-    is refused as the JAX session refuses it (its own round program)."""
+    """``resume_dir`` is taken (the resume itself: tests/test_torch_resume.py);
+    a horizon is refused as the JAX session refuses it (its own round
+    program)."""
     config = tconfig.DistributedTrainingConfig(
         **_fields(tmp_path, "refused", "GTG_shapley_value", 3, algorithm_kwargs=kwargs)
     )
+    if error is None:
+        session = training.build_session(config, device="cpu")
+        assert session.config.algorithm_kwargs == kwargs
+        return
     with pytest.raises(error):
         training.build_session(config, device="cpu")
