@@ -4,6 +4,10 @@
     python3 chip_smoke.py --kernels          # phases 1-2 only, with the yardsticks
     python3 chip_smoke.py --checkpoint-cost  # phase 1, then bert_agnews.yaml's round
                                              # times with checkpoint_every 1 and 100
+    python3 chip_smoke.py --flop-cost        # phase 1, then FlopCounterMode's cost on
+                                             # a bert_agnews.yaml round
+    python3 chip_smoke.py --telemetry        # phase 1, then phases 4, 4c and 4i with
+                                             # their trace checks, and --flop-cost
 
 Phases (any failure raises and exits non-zero; nothing is caught):
 
@@ -2064,19 +2068,21 @@ class HostTimer:
         return ", ".join(f"{k} {v:.2f} s / {self.calls[k]} calls" for k, v in self.seconds.items())
 
 
-def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
+def run_obd_main_path(workdir: str, card: str) -> tuple[dict[str, int], dict]:
     """``build_task`` + ``run_task`` (what ``train()`` runs for
     ``executor: sequential``) on the fed_obd_sq configuration at full
-    width, with the launch counters set to 0 just before and read just
-    after; K2/K3 launches checked exactly against the protocol's count.
-    Returns the launches and the numbers for the record."""
+    width with telemetry on, with the launch counters set to 0 just before
+    and read just after; K2/K3 launches checked exactly against the
+    protocol's count; the server's trace checked (``check_trace``: the
+    threaded server samples no hbm, as the JAX one).  Returns the launches
+    and the numbers for the record."""
     import numpy as np
     import torch
 
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
     from distributed_learning_simulator_tpu_torch.training import build_task, run_task
 
-    config = obd_config(os.path.join(workdir, "obd_main"))
+    config = obd_config(os.path.join(workdir, "obd_main"), **{"telemetry.enabled": True})
     t0 = time.monotonic()
     ctx = build_task(config)
     setup = time.monotonic() - t0
@@ -2127,6 +2133,12 @@ def run_obd_main_path(workdir: str) -> tuple[dict[str, int], dict]:
     others = [kid for kid in ("K1", "K6", "K7", "K8", "K9", "K10", "K11") if launches[kid]]
     check(not others, f"kernels off this path launched: {others}")
     check(all(0.27 < r < 0.30 for r in ratios), f"compression ratios {min(ratios)}-{max(ratios)}, want about 9/32")
+    records = check_trace(os.path.join(ctx.server.save_dir, "trace.jsonl"), ctx.server.save_dir, "fed_obd_sq", hbm=False)
+    uploads = sum(r["kind"] == "upload" for r in records)
+    barriers = sum(r["kind"] == "round_barrier" for r in records)
+    print(f"  fed_obd_sq trace: {len(records)} records, {uploads} uploads, {barriers} round_barrier spans, round spans"
+          f" {[round(r['dur'], 3) for r in records if (r['ev'], r['kind']) == ('span', 'round')]} s ({card})")
+    check(barriers == len(perf) and uploads == barriers * config.worker_number, f"fed_obd_sq trace: {uploads}/{barriers}")
     record = {
         "run_s": wall, "setup_s": setup, "records": {k: row["round_seconds"] for k, row in perf.items()},
         "host": dict(timer.seconds),
@@ -3561,7 +3573,7 @@ def bert_recovery_probe(kill: int):
         training.train, SpmdFedAvgSession.run_round, SpmdFedAvgSession._start = train, run_round, start
 
 
-def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
+def run_bert_agnews(workdir: str, card: str) -> tuple[dict[str, int], dict]:
     """``train_with_recovery`` on ``large_scale/fed_avg/bert_agnews.yaml`` as
     shipped but for ``BERT_ROUNDS`` (1000 workers, 100 selected,
     ``bert_base``, ``use_amp``, ``client_chunk: auto``) and a kill after
@@ -3584,7 +3596,12 @@ def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
       round loop was blocked queueing it and the seconds the writer took.
 
     Round 2's training runs under ``torch.profiler`` (:func:`profiled_round`;
-    its record's time includes the profiler's cost)."""
+    its record's time includes the profiler's cost).  Telemetry is on
+    (no window of its own): both attempts append to the first attempt's
+    trace, which :func:`check_trace` holds (contiguous offsets across the
+    kill, a ``resume`` event, the last record's rows cross-linked) and
+    :func:`report_trace` prints; with :data:`BERT_PRICED` the round program
+    is priced in round 1 (attempt 1 finds it priced in the trace)."""
     import math
 
     import numpy as np
@@ -3595,7 +3612,8 @@ def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
     from distributed_learning_simulator_tpu_torch.models import convert
     from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
 
-    config = shipped_config(BERT_FILE, os.path.join(workdir, "bert_agnews"), round=BERT_ROUNDS)
+    config = shipped_config(BERT_FILE, os.path.join(workdir, "bert_agnews"), round=BERT_ROUNDS,
+                            **{"telemetry.enabled": True, "telemetry.capture_cost": BERT_PRICED})
     check(config.algorithm_kwargs.get("client_chunk") == "auto", f"{BERT_FILE}: client_chunk {config.algorithm_kwargs}")
     test = create_dataset_collection(config).get_dataset(MachineLearningPhase.Test)
     passes = 2 if config.use_slow_performance_metrics else 1
@@ -3649,6 +3667,11 @@ def run_bert_agnews(workdir: str) -> tuple[dict[str, int], dict]:
     check_short_routes(routes, launches["K4"], 0, BERT_FILE)
     others = [kid for kid, n in launches.items() if n and kid not in ("K1", "K4")]
     check(not others, f"{BERT_FILE}: kernels off this path launched: {others}")
+    records = check_trace(os.path.join(first, "server", "trace.jsonl"), os.path.join(last, "server"), BERT_FILE,
+                          metas=2)
+    check([r["round"] for r in records if r["kind"] == "resume"] == [BERT_KILL + 1], f"{BERT_FILE}: resume events")
+    check(sum(r["kind"] == "program_cost" for r in records) == int(BERT_PRICED), f"{BERT_FILE}: program_cost events")
+    report_trace(records, BERT_FILE, card)
     return launches, {"wall_s": wall, "peak_gib": peak, "records": perf, "setup_s": probe["setup_s"],
                       "checkpoints": timings}
 
@@ -3717,6 +3740,187 @@ def run_buffered_file(workdir: str) -> dict[str, int]:
     return launches
 
 
+# ------------------------------------------------------------------ telemetry
+#: phase 4's telemetry: the config's profiler window on round 2
+VIT_TELEMETRY = {"telemetry": {"enabled": True, "profile_rounds": [2, 2]}}
+#: whether 4i prices its round program (``capture_cost``) at its first
+#: dispatch: only while ``FlopCounterMode`` costs a bert_agnews.yaml round
+#: under 10 s.  It costs 24.7 s on an H100 (``--flop-cost``; PERF.md section 6), so
+#: phase 4 alone prices its program
+BERT_PRICED = False
+#: the rounds of ``--flop-cost``: priced 1, 3 and 5, plain 2 and 4
+FLOP_ROUNDS = 5
+
+
+def trace_records(path: str) -> list[dict]:
+    """Every line of the trace at ``path``, each of which must parse, with
+    its offset ``i`` equal to its line index."""
+    with open(path, encoding="utf8") as f:
+        lines = f.read().splitlines()
+    records = []
+    for n, line in enumerate(lines):
+        try:
+            records.append(json.loads(line))
+        except ValueError:
+            check(False, f"{path}: line {n} does not parse: {line[:80]!r}")
+    check([r["i"] for r in records] == list(range(len(lines))), f"{path}: offsets are not the line indices")
+    return records
+
+
+def check_trace(path: str, record_dir: str, label: str, metas: int = 1, hbm: bool = True,
+                window: tuple[int, int] | None = None) -> list[dict]:
+    """The trace checks of a telemetry run on the card: every line parses
+    and the offsets are contiguous (across ``metas`` sessions); each row of
+    ``record_dir``'s ``round_record.json`` cross-links its round span; with
+    ``hbm``, watermarks present with 0 < peak <= the card's memory; a
+    ``compile`` event for each kernel library the process loaded; with
+    ``window``, one profiler file and its start and stop events."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import build
+
+    records = trace_records(path)
+    check(sum(r["ev"] == "meta" for r in records) == metas, f"{label}: meta records, want {metas}")
+    with open(os.path.join(record_dir, "round_record.json"), encoding="utf8") as f:
+        rows = json.load(f)
+    for key, row in rows.items():
+        span = records[row["trace_offset"]]
+        check((span["ev"], span["kind"], span["round"]) == ("span", "round", int(key)),
+              f"{label}: row {key}'s trace_offset {row['trace_offset']} is {span}")
+    if hbm:
+        total = torch.cuda.get_device_properties(0).total_memory
+        marks = [r["peak_bytes_in_use"] for r in records if r["kind"] == "hbm"]
+        check(marks and all(0 < peak <= total for peak in marks), f"{label}: hbm peaks {marks} (card {total})")
+    loaded = {load["library"] for load in build.loads}
+    compiled = {r["program"] for r in records if r["kind"] == "compile"}
+    check(loaded and compiled == loaded, f"{label}: compile events {sorted(compiled)}, libraries {sorted(loaded)}")
+    if window is not None:
+        events = [r for r in records if r["kind"] == "profile"]
+        check([(r["action"], r["round"]) for r in events] == [("start", window[0]), ("stop", window[1])],
+              f"{label}: profile events {events}")
+        files = os.listdir(os.path.join(os.path.dirname(path), "profile_rounds"))
+        check(len(files) == 1 and events[1]["file"].endswith(files[0]), f"{label}: profiler files {files}")
+        print(f"  {label} profiler window {window}: {files[0]}, {os.path.getsize(events[1]['file']) / 2**20:.1f} MiB")
+    return records
+
+
+def report_trace(records: list[dict], label: str, card: str) -> dict:
+    """Prints ``tools/tracedump``'s summary of a trace and, for each priced
+    program, its flops and ``roofline`` over the median round span (bytes:
+    the priced call's arguments and result, each once), beside the card;
+    the round spans, the dispatch spans, the host's share of the rounds
+    outside ``dispatch_call`` and the hbm peak.  Returns those numbers."""
+    import statistics
+
+    from distributed_learning_simulator_tpu_torch.util.costwatch import chip_hbm_bandwidth, chip_peak_flops, roofline
+    from tools.tracedump import format_text, summarize
+
+    print(f"  {label} trace (tools/tracedump):")
+    print("\n".join("    " + line for line in format_text(summarize(records)).splitlines()))
+    rounds = [r["dur"] for r in records if (r["ev"], r["kind"]) == ("span", "round")]
+    calls = [(r["program"], r["dur"]) for r in records if (r["ev"], r["kind"]) == ("span", "dispatch_call")]
+    median = statistics.median(rounds)
+    outside = 1.0 - sum(d for _, d in calls) / sum(rounds)
+    peak = max((r["peak_bytes_in_use"] for r in records if r["kind"] == "hbm"), default=0)
+    out = {"round_s": rounds, "dispatch_call_s": calls, "host_share_outside_dispatch_call": outside,
+           "hbm_peak_bytes": peak, "programs": {}}
+    print(f"    round spans {[f'{d:.3f}' for d in rounds]} s (median {median:.3f}); dispatch_call spans"
+          f" {[(p, round(d, 3)) for p, d in calls]}; host share of the rounds outside dispatch_call {outside:.4f};"
+          f" hbm peak {peak / 2**30:.2f} GiB")
+    for cost in (r for r in records if r["kind"] == "program_cost"):
+        line = roofline(cost["flops"], cost["argument_bytes"] + cost["output_bytes"], seconds=median,
+                        peak_flops=chip_peak_flops(), hbm_bandwidth=chip_hbm_bandwidth())
+        out["programs"][cost["program"]] = {"flops": cost["flops"], **line}
+        print(f"    program_cost {cost['program']}: {cost['flops']:.6g} flops (FlopCounterMode; the ctypes kernels"
+              f" uncounted), arguments {cost['argument_bytes'] / 2**30:.3f} GiB, result"
+              f" {cost['output_bytes'] / 2**30:.3f} GiB; roofline over the median round: achieved MFU"
+              f" {line.get('achieved_mfu', 0.0):.6f}, roofline MFU {line['roofline_mfu']:.4f}, bound by"
+              f" {line['bound_by']} ({card})")
+    return out
+
+
+def run_vit_main_path(workdir: str, card: str) -> dict[str, int]:
+    """``train()`` on the dense-shape configuration with telemetry on and
+    its profiler window on round 2, the launch counters set to 0 just
+    before and read just after; the records, the launches and the trace
+    checked.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
+    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    config = dense_config(os.path.join(workdir, "main"), **VIT_TELEMETRY)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.monotonic()
+    perf = train(config)["performance"]
+    wall = time.monotonic() - t0
+    launches = {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches}
+    short_routes = dict(sa.route_launches)
+    last = perf[ROUNDS]
+    print(
+        f"main path: {ROUNDS} rounds in {wall:.2f} s (setup, round 1's pricing and round 2's profiler included);"
+        f" round {ROUNDS} {last['round_seconds']:.3f} s = {1 / last['round_seconds']:.3f} rounds/s;"
+        f" test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f};"
+        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches};"
+        f" K4/K5 by kernel {short_routes}"
+    )
+    for r, row in perf.items():
+        check(np.isfinite(row["test_loss"]), f"round {r} test loss {row['test_loss']}")
+        check(0.0 <= row["test_accuracy"] <= 1.0, f"round {r} accuracy {row['test_accuracy']}")
+        check(row["test_count"] == 256.0, f"round {r} evaluated {row['test_count']} samples")
+    check(launches["K1"] == ROUNDS * WORKERS // CHUNK, f"K1 launches {launches['K1']}")
+    check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
+    check_short_routes(short_routes, launches["K4"], launches["K5"], "ViT-small")
+    server = os.path.join(config.save_dir, "server")
+    window = tuple(VIT_TELEMETRY["telemetry"]["profile_rounds"])
+    records = check_trace(os.path.join(server, "trace.jsonl"), server, "ViT-small", window=window)
+    report_trace(records, "ViT-small", card)
+    return launches
+
+
+def measure_flop_cost(workdir: str, card: str) -> dict:
+    """``bert_agnews.yaml`` as shipped but for ``FLOP_ROUNDS`` rounds with
+    telemetry on, its round program priced under ``FlopCounterMode`` in
+    rounds 1, 3 and 5 and not in 2 and 4: the pricing's cost is the mean
+    ``dispatch_call`` span of rounds 3 and 5 less that of rounds 2 and 4
+    (round 1 also warms up)."""
+    from distributed_learning_simulator_tpu_torch.training import train
+    from distributed_learning_simulator_tpu_torch.util.telemetry import TraceRecorder
+
+    dispatch, calls = TraceRecorder.dispatch, []
+
+    def alternating(self, program, fn, args, cost_args=None):
+        if len(calls) % 2 == 0:
+            self._priced.discard(program)  # price this call again
+        calls.append(program)
+        return dispatch(self, program, fn, args, cost_args=cost_args)
+
+    TraceRecorder.dispatch = alternating
+    try:
+        with phase_dir(workdir) as save_dir:
+            config = shipped_config(BERT_FILE, save_dir, round=FLOP_ROUNDS, **{"telemetry.enabled": True})
+            train(config)
+            records = trace_records(os.path.join(save_dir, "server", "trace.jsonl"))
+    finally:
+        TraceRecorder.dispatch = dispatch
+    spans = [r["dur"] for r in records if (r["ev"], r["kind"]) == ("span", "dispatch_call")]
+    flops = [r["flops"] for r in records if r["kind"] == "program_cost"]
+    check(len(spans) == FLOP_ROUNDS and len(flops) == 3 and len(set(flops)) == 1, f"flop cost: {spans} {flops}")
+    from distributed_learning_simulator_tpu_torch.util.costwatch import chip_peak_flops
+
+    cost = (spans[2] + spans[4]) / 2 - (spans[1] + spans[3]) / 2
+    plain = (spans[1] + spans[3]) / 2
+    mfu = flops[0] / plain / chip_peak_flops()
+    print(f"FlopCounterMode on {BERT_FILE}'s round program: dispatch_call spans {[f'{d:.3f}' for d in spans]} s"
+          f" (priced: rounds 1, 3, 5); pricing costs {cost:.3f} s a round; {flops[0]:.6g} flops, achieved MFU"
+          f" {mfu:.5f} over the plain rounds' calls ({card})")
+    return {"file": BERT_FILE, "dispatch_call_s": spans, "priced_rounds": [1, 3, 5], "cost_s": cost,
+            "flops": flops[0], "achieved_mfu_plain": mfu}
+
+
 def print_phase_times(marks: list) -> None:
     print("phase wall times: " + "; ".join(
         f"{label} {t - before:.1f} s" for (_, before), (label, t) in zip(marks, marks[1:])
@@ -3726,8 +3930,10 @@ def print_phase_times(marks: list) -> None:
 def main(argv: list[str]) -> int:
     kernels_only = argv == ["--kernels"]
     checkpoint_cost = argv == ["--checkpoint-cost"]
-    if argv and not (kernels_only or checkpoint_cost):
-        print("usage: chip_smoke.py [--kernels | --checkpoint-cost]", file=sys.stderr)
+    flop_cost = argv == ["--flop-cost"]
+    telemetry_only = argv == ["--telemetry"]
+    if argv and not (kernels_only or checkpoint_cost or flop_cost or telemetry_only):
+        print("usage: chip_smoke.py [--kernels | --checkpoint-cost | --flop-cost | --telemetry]", file=sys.stderr)
         return 2
     if not os.path.isdir(os.path.join(ROOT, PACKAGE)):
         print(f"{PACKAGE}/ is not beside chip_smoke.py", file=sys.stderr)
@@ -3775,6 +3981,23 @@ def main(argv: list[str]) -> int:
             print(card)
             print(json.dumps({"checkpoint_cost": cost, "card": card}))
             return 0
+        if flop_cost:  # FlopCounterMode's cost on a bert_agnews.yaml round
+            cost = measure_flop_cost(workdir, card)
+            print(card)
+            print(json.dumps({"flop_cost": cost, "card": card}))
+            return 0
+        if telemetry_only:  # phases 4, 4c and 4i with their trace checks, and --flop-cost
+            for label, run in (("4 ViT", run_vit_main_path), ("4c threaded fed_obd_sq", run_obd_main_path),
+                               ("4i bert_agnews", run_bert_agnews)):
+                with phase_dir(workdir) as d:
+                    run(d, card)
+                mark(label)
+            cost = measure_flop_cost(workdir, card)
+            mark("flop cost")
+            print_phase_times(marks)
+            print(card)
+            print(json.dumps({"flop_cost": cost, "card": card}))
+            return 0
         return _phases(kernels_only, workdir, card, started, marks, mark)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3783,12 +4006,7 @@ def main(argv: list[str]) -> int:
 def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: list, mark) -> int:
     """Phases 2-5 of :func:`main` (the module docstring), ``workdir`` the
     parent of every phase's output directory."""
-    import numpy as np
     import torch
-
-    from distributed_learning_simulator_tpu_torch.ops import short_attention as sa
-    from distributed_learning_simulator_tpu_torch.ops import weighted_accum as wa
-    from distributed_learning_simulator_tpu_torch.training import train
 
     # 2. kernels against their plain versions (the yardsticks: --kernels)
     yardsticks = kernels_only
@@ -3849,31 +4067,9 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
         check_recovery_against_cpu(d)
     mark("3 recovery tasks")
 
-    # 4. the main path
+    # 4. the main path, with telemetry on (its trace checked)
     with phase_dir(workdir) as d:
-        config = dense_config(os.path.join(d, "main"))
-        torch.cuda.reset_peak_memory_stats()
-        _reset_launches()
-        t0 = time.monotonic()
-        perf = train(config)["performance"]
-        wall = time.monotonic() - t0
-    launches = {"K1": wa.launches, "K4": sa.fwd_launches, "K5": sa.bwd_launches}
-    short_routes = dict(sa.route_launches)
-    last = perf[ROUNDS]
-    print(
-        f"main path: {ROUNDS} rounds in {wall:.2f} s (setup included); round {ROUNDS}"
-        f" {last['round_seconds']:.3f} s = {1 / last['round_seconds']:.3f} rounds/s;"
-        f" test loss {last['test_loss']:.4f} accuracy {last['test_accuracy']:.4f};"
-        f" peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {launches};"
-        f" K4/K5 by kernel {short_routes}"
-    )
-    for r, row in perf.items():
-        check(np.isfinite(row["test_loss"]), f"round {r} test loss {row['test_loss']}")
-        check(0.0 <= row["test_accuracy"] <= 1.0, f"round {r} accuracy {row['test_accuracy']}")
-        check(row["test_count"] == 256.0, f"round {r} evaluated {row['test_count']} samples")
-    check(launches["K1"] == ROUNDS * WORKERS // CHUNK, f"K1 launches {launches['K1']}")
-    check(launches["K4"] > 0 and launches["K5"] > 0, f"attention launches {launches}")
-    check_short_routes(short_routes, launches["K4"], launches["K5"], "ViT-small")
+        launches = run_vit_main_path(d, card)
     mark("4 ViT")
 
     # 4b. the long-context main path (K6-K8, K1) and its profile
@@ -3889,9 +4085,9 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     print(f"small f32 task launches (card vs CPU): {stream_launches}")
     mark("4b long context")
 
-    # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5)
+    # 4c. the threaded fed_obd_sq main path (K2, K3, K4, K5), with telemetry on
     with phase_dir(workdir) as d:
-        obd_launches, _ = run_obd_main_path(d)
+        obd_launches, _ = run_obd_main_path(d, card)
     launches.update({kid: obd_launches[kid] for kid in ("K2", "K3")})
     launches["K4"] += obd_launches["K4"]
     launches["K5"] += obd_launches["K5"]
@@ -3945,10 +4141,10 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     mark("4h profile")
 
     # 4i. bert_agnews.yaml killed after round 1 and recovered (K1, K4 on
-    # wgmma; round 2 profiled); the buffered mnist_buffered.yaml (K1 once a
-    # chunk and bucket)
+    # wgmma; round 2 profiled; telemetry on across both attempts); the
+    # buffered mnist_buffered.yaml (K1 once a chunk and bucket)
     with phase_dir(workdir) as d:
-        bert_launches, _ = run_bert_agnews(d)
+        bert_launches, _ = run_bert_agnews(d, card)
     launches["K1"] += bert_launches["K1"]
     launches["K4"] += bert_launches["K4"]
     mark("4i bert_agnews (killed, recovered, round 2 profiled)")

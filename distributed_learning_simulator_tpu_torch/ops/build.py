@@ -8,9 +8,11 @@ every header in ``csrc/`` (``*.cuh``) and of the compiler flags, so an
 edited kernel or header is never served by a stale build.
 :func:`build` starts one ``nvcc`` per missing library, all at once, and
 waits for them together; :func:`load` builds one library if needed and
-returns it as a :class:`ctypes.CDLL`.  Each build's compiler output
-(``ptxas``' registers, shared memory and spills per kernel) is kept beside
-its library as ``lib<name>-<hash>.ptxas.txt``; :func:`report` reads it.
+returns it as a :class:`ctypes.CDLL`, noting the load in :data:`loads`
+(the telemetry's ``compile`` events read it).  Each build's compiler
+output (``ptxas``' registers, shared memory and spills per kernel) is kept
+beside its library as ``lib<name>-<hash>.ptxas.txt``; :func:`report`
+reads it.
 """
 
 import ctypes
@@ -19,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -38,6 +41,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+#: every library loaded in this process, in load order: its name, the
+#: seconds the build (if any) and the load took, and whether ``nvcc`` ran
+loads: list[dict] = []
 
 #: held around every launch counter's increment: the threaded executor
 #: launches kernels from several worker threads, and ``count += 1`` is a
@@ -124,7 +130,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
+            t0 = time.monotonic()
+            built = not os.path.isfile(library_path(name))
             build([name])
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
+            loads.append({"library": name, "seconds": time.monotonic() - t0, "built": built})
         return lib

@@ -78,6 +78,26 @@ once the killed round is durable (``util/faults.py``), and
 ``watchdog_seconds`` guards the round call and the evaluation
 (``parallel/watchdog.py``).
 
+Telemetry (``util/telemetry.py``, ``config.telemetry``) follows the JAX
+session's recorder and round loop.  The recorder's counters back
+``dispatch_count``, ``host_sync_count``, ``rounds_run`` and
+``reset_dispatch_stats()`` whether it is on or off.  With it on, the run
+appends to ``server/trace.jsonl``: per round the ``dispatch`` events of the
+JAX session's programs (``fold_rngs``, ``round``, ``eval``: the work the
+port does in their place), a ``dispatch_call`` span around the round call
+under the JAX program's name (``round[dense]``, ``round[gather]``,
+``round[buffered]``, ``round[buffered-gather]``; ``horizon[h=N]`` and
+``horizon[buffered,h=N]`` at H > 1; none for the sparse sessions, whose
+JAX programs are called outside the recorder), ``checkpoint``, an ``eval``
+span, ``host_sync``, ``hbm``, the buffered ``staleness`` and
+``buffer_flush`` events, ``fault`` and the ``round`` span, whose offset
+each ``round_record.json`` row carries as ``trace_offset``; ``resume``
+where a run resumes.  At H > 1 the port still runs round by round: each
+round makes the H = 1 dispatches and host sync (the JAX session: one of
+each a horizon), and a ``horizon`` span covers the chunk.  The recorder's
+``close`` is the checkpoint writer's ``roundtrace`` finalizer.  With
+telemetry off, nothing of this runs but the counters.
+
 The sparse-upload sessions (``parallel/spmd_sparse.py``) reuse the client
 loop through :meth:`SpmdFedAvgSession._upload` (a trained client's row),
 ``_row_width``, ``_upload_dtype`` and ``_finish`` (the new master).
@@ -104,6 +124,7 @@ from ..util.calibration import resolve_client_chunk
 from ..util.checkpoint import AsyncCheckpointWriter, atomic_json_dump, jax_views
 from ..util.faults import FaultPlan, QuorumLostError, apply_fault_plan
 from ..util.resume import load_resume_state
+from ..util.telemetry import TraceRecorder
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
 from .watchdog import DeadlineWatchdog
@@ -393,6 +414,78 @@ class SpmdFedAvgSession:
         self._ckpt = AsyncCheckpointWriter()
         self._ckpt.register_finalizer("round_record", self._flush_record)
         self._watchdog = DeadlineWatchdog.from_config(config, self.device)
+        # roundtrace: the counters always; records only with telemetry.enabled
+        self._trace = TraceRecorder.from_config(config, device=self.device)
+        # the trace's tail lands through the writer's exit hook, errors included
+        self._ckpt.register_finalizer("roundtrace", self._trace.close)
+
+    # ------------------------------------------------------------ telemetry
+    @property
+    def dispatch_count(self) -> int:
+        return self._trace.counters.get("dispatch", 0)
+
+    @property
+    def host_sync_count(self) -> int:
+        return self._trace.counters.get("host_sync", 0)
+
+    @property
+    def rounds_run(self) -> int:
+        return self._trace.counters.get("rounds", 0)
+
+    def reset_dispatch_stats(self) -> None:
+        self._trace.reset_counters("dispatch", "host_sync", "rounds")
+
+    def _jax_gathers(self) -> bool:
+        """Whether the JAX session trains the selected slots only (its
+        selection gather: ``random_client_number`` below ``worker_number``)."""
+        k = self.config.algorithm_kwargs.get("random_client_number")
+        return k is not None and int(k) < self.config.worker_number
+
+    def _round_program(self, horizon: int) -> str | None:
+        """The JAX session's name of the program a round call runs (a chunk
+        of ``horizon`` rounds); None where the JAX class calls its program
+        outside the recorder (the sparse sessions)."""
+        if type(self) is not SpmdFedAvgSession:
+            return None
+        if self.round_horizon > 1:
+            return f"horizon[buffered,h={horizon}]" if self._buffered_active else f"horizon[h={horizon}]"
+        gather = self._jax_gathers()
+        if self._buffered_active:
+            return "round[buffered-gather]" if gather else "round[buffered]"
+        return "round[gather]" if gather else "round[dense]"
+
+    def _dispatch_round(self, global_vec, weights, round_number, delays, horizon: int):
+        """:meth:`run_round` through the recorder's dispatch tail, priced
+        over the master, the weight row and the client data, as the JAX
+        program's arguments."""
+        program = self._round_program(horizon)
+        args = (global_vec, weights, round_number, delays)
+        if program is None:
+            return self.run_round(*args)
+        cost_args = (global_vec, weights, self._data, self._val_data or {})
+        return self._trace.dispatch(program, self.run_round, args, cost_args=cost_args)
+
+    def _trace_fault_event(self, round_number: int, rejected, selected=None) -> None:
+        """One ``fault`` event a round under the fault machinery: the
+        guard's reject count and how many SELECTED clients the plan dropped
+        (host state the loop already owns).  ``selected`` overrides the
+        round's cohort."""
+        plan = self._fault_plan
+        if not self._trace.enabled or plan is None:
+            return
+        if not (plan.injection_active or self._update_guard):
+            return
+        dropped = 0
+        if plan.injection_active:
+            if selected is None:
+                selected = select_workers(
+                    self.config.seed,
+                    round_number,
+                    self.config.worker_number,
+                    self.config.algorithm_kwargs.get("random_client_number"),
+                )
+            dropped = len(plan.dropped_clients(round_number, self.config.worker_number) & set(selected))
+        self._trace.event("fault", round=round_number, rejected_updates=int(rejected), dropped_clients=dropped)
 
     @classmethod
     def _class_update_guard_reason(cls) -> str | None:
@@ -520,13 +613,35 @@ class SpmdFedAvgSession:
             raise QuorumLostError(message)
 
     def _buffered_round_extras(self, round_number: int) -> dict:
-        """The flush's record columns, from the host schedule."""
+        """The flush's record columns, from the host schedule; with
+        telemetry, a ``staleness`` event for each late-merged update and a
+        ``buffer_flush`` event (the replay's flush is the round)."""
         schedule, floor = self._arrival_schedule, self._buffered_origin_floor
-        return {
-            "flush_cohort": len(schedule.live_cohort(round_number, floor)),
+        cohort = schedule.live_cohort(round_number, floor)
+        extras = {
+            "flush_cohort": len(cohort),
             "stale_updates": schedule.stale_count(round_number, floor),
             "buffer_depth": schedule.buffer_depth_after(round_number, floor),
         }
+        if self._trace.enabled:
+            for item in cohort:
+                if item.staleness:
+                    self._trace.event(
+                        "staleness",
+                        round=round_number,
+                        worker=item.worker,
+                        origin=item.origin,
+                        staleness=item.staleness,
+                        discount=round(item.discount, 6),
+                    )
+            self._trace.event(
+                "buffer_flush",
+                round=round_number,
+                cohort=extras["flush_cohort"],
+                stale_updates=extras["stale_updates"],
+                buffer_depth=extras["buffer_depth"],
+            )
+        return extras
 
     def _post_guard_quorum(self, round_number: int, participating: int, rejected: int) -> None:
         """Survivors after the guard (uploads that reached aggregation, NaN
@@ -561,6 +676,7 @@ class SpmdFedAvgSession:
                 self._best_ckpt_acc = self._max_acc
                 self._buffered_origin_floor = last + 1  # a resume drains the buffer
                 get_logger().info("resumed from %s round %d", resume_dir, last)
+                self._trace.event("resume", round=last + 1, source=str(resume_dir))
                 return self._master_from_jax(params), last + 1
             get_logger().warning("nothing resumable under %s; starting fresh", resume_dir)
         return self._init_global_params(), 1
@@ -732,29 +848,43 @@ class SpmdFedAvgSession:
                 torch.zeros(depth, global_vec.numel(), device=self.device),
                 torch.zeros(depth, device=self.device),
             )
+        trace = self._trace
         with self._ckpt:  # flushes the record and drains the writes at exit, errors included
             for round_number in range(start_round, config.round + 1):
                 start = time.monotonic()
                 # the JAX session's horizon chunk: [first, boundary]
                 first = round_number - (round_number - start_round) % self.round_horizon
                 boundary = min(first + self.round_horizon - 1, config.round)
+                if round_number == first:
+                    chunk_start = start
+                    trace.maybe_profile_start(first, boundary)
                 delays = None
                 if self._buffered_active:
                     weights, delays = self._buffered_select_weights(round_number)
                 else:
                     weights = self._select_weights(round_number)
+                trace.event("dispatch", program="fold_rngs", round=round_number)
                 global_vec = self._watchdog.call(
-                    lambda g=global_vec, w=weights, r=round_number, d=delays: self.run_round(g, w, r, d),
+                    lambda g=global_vec, w=weights, r=round_number, d=delays, h=boundary - first + 1: (
+                        self._dispatch_round(g, w, r, d, h)
+                    ),
                     phase="round",
                     round_number=round_number,
                 )
+                trace.event("dispatch", program="round", round=round_number)
                 # queued now, so the copy and the write overlap the evaluation
                 if round_number == boundary and self._should_checkpoint(round_number):
                     self._save_checkpoint(round_number, global_vec)
+                    trace.event("checkpoint", round=round_number)
                 # reads the metrics: the round's one sync
-                metric = self._watchdog.call(
-                    lambda g=global_vec: self._evaluate(g), phase="eval", round_number=round_number
-                )
+                with trace.span("eval", round=round_number):
+                    metric = self._watchdog.call(
+                        lambda g=global_vec: self._evaluate(g), phase="eval", round_number=round_number
+                    )
+                trace.event("dispatch", program="eval", round=round_number)
+                trace.event("host_sync", round=round_number)
+                trace.hbm_watermark(round_number)
+                trace.count("rounds")
                 selected = int((weights > 0).sum())
                 extra = {
                     "received_mb": selected * param_mb * self._upload_cost_factor(),
@@ -767,11 +897,21 @@ class SpmdFedAvgSession:
                     extra["rejected_updates"] = rejected
                 if self._buffered_active:
                     extra.update(self._buffered_round_extras(round_number))
+                self._trace_fault_event(round_number, rejected)
                 # mid-horizon rounds have no checkpoint, as in the JAX session's fused loop
                 self._record(round_number, metric, global_vec if round_number == boundary else None, save_dir, extra)
                 self._post_guard_quorum(round_number, int((weights != 0).sum()), rejected)
                 if round_number == boundary:
+                    if self.round_horizon > 1:
+                        trace.span_record(
+                            "horizon",
+                            time.monotonic() - chunk_start,
+                            first_round=first,
+                            last_round=boundary,
+                            rounds=boundary - first + 1,
+                        )
                     self._maybe_kill(first, boundary)
+                    trace.maybe_profile_stop(boundary)
         return {"performance": self._stat}
 
     def _should_checkpoint(self, round_number: int) -> bool:
@@ -822,6 +962,12 @@ class SpmdFedAvgSession:
         flush is the writer's finalizer)."""
         row = {f"test_{k}": v for k, v in metric.items()}
         row.update(extra)
+        if self._trace.enabled:
+            # one `round` span a recorded round, on every run path; the row
+            # cross-links the span's line offset
+            fields = {"round": round_number, "accuracy": metric.get("accuracy"), "loss": metric.get("loss")}
+            fields.update({k: extra[k] for k in ("received_mb", "sent_mb", "rejected_updates", "phase") if k in extra})
+            row["trace_offset"] = self._trace.span_record("round", extra.get("round_seconds", 0.0), **fields)
         self._stat[round_number] = row
         get_logger().info(
             "round: %d, test accuracy %.4f loss %.4f (torch)",
@@ -837,5 +983,8 @@ class SpmdFedAvgSession:
     def _flush_record(self) -> None:
         if not self._record_dirty or self._record_path is None:
             return
+        # the spans first: a durable row never cross-links a line that a
+        # resumed recorder would number again
+        self._trace.flush()
         atomic_json_dump(self._record_path, self._stat)
         self._record_dirty = False

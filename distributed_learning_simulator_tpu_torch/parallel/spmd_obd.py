@@ -51,6 +51,18 @@ aggregate), so the first resumed aggregate trains from the broadcast an
 uninterrupted run would have sent: a resume is the uninterrupted run, bit
 for bit.  Of the fault plan the session takes only the kill, fired where
 the JAX session fires it.
+
+Telemetry follows the JAX session's phase loop: per aggregate a
+``dispatch_call`` span under the JAX phase program's name (``phase1[dense]``,
+``phase1[gather]`` under ``random_client_number``, ``phase2[dense]``;
+``obd_horizon[phase1,h=N]`` and ``obd_horizon[phase2,h=N]`` at H > 1), the
+``dispatch`` event of the phase (``round`` / ``round-phase2``), an ``eval``
+span, ``eval``'s dispatch, ``host_sync``, ``hbm`` and the ``round`` span
+(its ``phase`` field the phase's name); a ``horizon`` span a chunk at H > 1
+(the port's aggregates still make the H = 1 dispatches and syncs), and a
+``phase_switch`` event at each switch.  The JAX session's ``writeback``
+spans belong to its streamed population store, which the port does not
+have.
 """
 
 import math
@@ -258,6 +270,7 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
             )
             fused = False
         train_vec, tick = self._init_obd(driver)
+        trace = self._trace
         with self._ckpt:  # flushes the record and drains the writes at exit, errors included
             while not driver.finished:
                 spec = driver.phase
@@ -271,31 +284,58 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                     keys = [tick + i + 1 for i in range(h)]
                     tick += h
                 label = "round-phase2" if phase_two else "round"
+                program = self._phase_program(phase_two, h)
+                trace.maybe_profile_start(keys[0], keys[-1])
+                chunk_start = time.monotonic()
                 for key in keys:
                     weights = self._all_weights() if phase_two else self._base_weight_row(key)
                     round_start = time.monotonic()
                     exact, train_vec, upload_bits, bcast_bits = self._watchdog.call(
-                        lambda g=train_vec, w=weights, k=key: self.run_aggregate(g, w, k, phase_two),
+                        lambda g=train_vec, w=weights, k=key: trace.dispatch(
+                            program, self.run_aggregate, (g, w, k, phase_two), cost_args=(g, w, self._data)
+                        ),
                         phase=label,
                         round_number=key,
                     )
+                    trace.event("dispatch", program=label, round=key)
                     # the exact average; reads the metrics: the aggregate's sync
-                    metric = self._watchdog.call(lambda e=exact: self._evaluate(e), phase="eval", round_number=key)
+                    with trace.span("eval", round=key):
+                        metric = self._watchdog.call(lambda e=exact: self._evaluate(e), phase="eval", round_number=key)
+                    trace.event("dispatch", program="eval", round=key)
+                    trace.event("host_sync", round=key)
+                    trace.hbm_watermark(key)
+                    trace.count("rounds")
+                    self._trace_fault_event(key, 0, selected=range(config.worker_number) if phase_two else None)
                     self._record_obd(
                         key, metric, float(upload_bits), float(bcast_bits), exact if key == keys[-1] else None,
                         save_dir, spec.name, time.monotonic() - round_start,
                     )
                     improved = self._has_improvement() if driver.early_stop else True
                     decision = driver.after_aggregate(improved=improved, check_acc=spec.check_acc)
+                if h > 1:
+                    trace.span_record(
+                        "horizon", time.monotonic() - chunk_start, first_round=keys[0], last_round=keys[-1],
+                        rounds=h, phase=spec.name,
+                    )
                 if decision.annotations or phase_two or self._selection_active:
                     self._save_opt_state(keys[-1])
                 if decision.annotations:
                     get_logger().info("phase switch -> %s", driver.phase and driver.phase.name)
+                    trace.event("phase_switch", round=keys[-1], phase=driver.phase.name if driver.phase else "end")
                 # after the chunk's records, checkpoint and optimizer states are queued
                 self._maybe_kill(keys[0], keys[-1])
+                trace.maybe_profile_stop(keys[-1])
                 if decision.end_training:
                     break
         return {"performance": self._stat}
+
+    def _phase_program(self, phase_two: bool, horizon: int) -> str:
+        """The JAX session's name of a phase program: its horizon program
+        for a chunk of ``horizon`` > 1 aggregates, else the phase's own."""
+        phase = "phase2" if phase_two else "phase1"
+        if horizon > 1:
+            return f"obd_horizon[{phase},h={horizon}]"
+        return f"{phase}[gather]" if self._jax_gathers() and not phase_two else f"{phase}[dense]"
 
     @property
     def _selection_active(self) -> bool:

@@ -41,7 +41,8 @@ rounds before the resume are brought forward with both key levels as
 ``int`` (a tail at or past the resume round is dropped), and the engine,
 built in the first resumed round, is seeded with the last recorded
 accuracy.  As in the JAX session, ``kill_after_rounds`` is ignored here:
-the session arms no kill.
+the session arms no kill.  Its telemetry is the JAX session's: a ``round``
+span a recorded round (not round 0) and the ``resume`` event.
 """
 
 import json

@@ -34,6 +34,15 @@ JAX, the session writes no round checkpoints and takes no ``resume_dir``: a
 scheduled kill (``kill_after_rounds``) fires right after its round's record
 lands, and ``train_with_recovery`` restarts the run from round 1.
 ``watchdog_seconds`` guards each round and its evaluation.
+
+Telemetry follows the JAX session's recorder and loop: a ``dispatch_call``
+span around each round under the JAX program's name (``run[dense]``, or
+``run[gather]`` under ``random_client_number``; ``horizon[h=N]`` at
+H > 1), the ``run`` and ``eval`` dispatch events, an ``eval`` span,
+``host_sync``, ``hbm`` and the ``round`` span, and a ``horizon`` span a
+chunk at H > 1 (whose rounds still make the H = 1 dispatches and syncs);
+the trace is flushed every round (the session has no checkpoint writer
+whose exit would flush it) and closed at the end.
 """
 
 import os
@@ -156,13 +165,35 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
             {k: v.to(self.device, torch.float32) for k, v in self.engine.init_params(config.seed).items()}
         )
         best_acc = -1.0
+        trace = self._trace
+        horizon = self.round_horizon
         for round_number in range(1, config.round + 1):
             start = time.monotonic()
+            # the JAX session's horizon chunk: [first, boundary]
+            first = round_number - (round_number - 1) % horizon
+            boundary = min(first + horizon - 1, config.round)
+            if horizon > 1:
+                program = f"horizon[h={boundary - first + 1}]"
+            else:
+                program = "run[gather]" if self._jax_gathers() else "run[dense]"
+            if round_number == first:
+                chunk_start = start
+                trace.maybe_profile_start(first, boundary)
             weights = self.round_weights(round_number)
             epochs = self._watchdog.call(
-                lambda w=weights, r=round_number: self.run_round(params, w, r), phase="round", round_number=round_number
+                lambda w=weights, r=round_number: trace.dispatch(
+                    program, self.run_round, (params, w, r), cost_args=(params, w, self._data)
+                ),
+                phase="round",
+                round_number=round_number,
             )
-            metric = self._watchdog.call(lambda: self._evaluate(params), phase="eval", round_number=round_number)
+            trace.event("dispatch", program="run", round=round_number)
+            with trace.span("eval", round=round_number):
+                metric = self._watchdog.call(lambda: self._evaluate(params), phase="eval", round_number=round_number)
+            trace.event("dispatch", program="eval", round=round_number)
+            trace.event("host_sync", round=round_number)
+            trace.hbm_watermark(round_number)
+            trace.count("rounds")
             sums = torch.stack(epochs).cpu().numpy()  # [epoch, 3] f32
             count = np.maximum(sums[:, 2], np.float32(1.0))
             extra = {
@@ -170,7 +201,16 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
                 "train_accuracy_per_epoch": (sums[:, 1] / count).tolist(),
                 "round_seconds": time.monotonic() - start,
             }
+            self._trace_fault_event(round_number, 0)
             self._note_round(round_number, metric, save_dir, extra)
+            if round_number == boundary and horizon > 1:
+                trace.span_record(
+                    "horizon", time.monotonic() - chunk_start, first_round=first, last_round=boundary,
+                    rounds=boundary - first + 1,
+                )
+            trace.flush()
+            if round_number == boundary:
+                trace.maybe_profile_stop(boundary)
             if metric["accuracy"] > best_acc:
                 best_acc = metric["accuracy"]
                 np.savez(
@@ -180,6 +220,7 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
             if self._fault_plan is not None:
                 self._flush_record()  # the killed run's rows land first
                 self._fault_plan.maybe_kill(round_number)
+        trace.close()
         get_logger().info(
             "sign_SGD: %d rounds of %d steps (torch)", config.round, config.epoch * self.n_batches
         )

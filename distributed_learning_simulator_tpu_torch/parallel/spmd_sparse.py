@@ -37,7 +37,9 @@ The keep masks and the leaf orders come from the codec's random source
 (``ops/quantization.py::CodecRandom``: ``dropout_uniform`` and
 ``leaf_permutation``, the ``random`` entry of ``endpoint_kwargs.worker``),
 by (seed, round, slot, leaf).  Neither session fuses rounds
-(``round_horizon`` > 1 raises, as in the JAX package).
+(``round_horizon`` > 1 raises, as in the JAX package).  Their telemetry is
+the FedAvg session's records, without the ``dispatch_call`` span: the JAX
+classes call their round programs outside the recorder.
 """
 
 import os

@@ -4,9 +4,17 @@ only): send the initial model, gather every worker's message each round,
 aggregate, evaluate the aggregate on the test split, append a row to
 ``server/round_record.json`` and save ``aggregated_model/round_N.npz`` in
 the JAX package's keys and layouts.  Buffered aggregation, resume, the
-population store and the fault plan are refused (``training.py``)."""
+population store and the fault plan are refused (``training.py``).
 
-import json
+Telemetry (``util/telemetry.py``) speaks the SPMD sessions' schema, as the
+JAX server does: an ``upload`` event a worker message, a ``round_barrier``
+span (first upload to the last worker in), and a ``round`` span a record
+row (its offset the row's ``trace_offset``), all on the server thread
+from host state it owns.  The ``profile_rounds`` window opens at the first
+upload of its first round and closes after its last round's record.  The
+server loop closes the recorder only on its clean path, so each record is
+flushed as it is made unless ``telemetry.flush_every`` says otherwise."""
+
 import os
 import time
 from typing import Any
@@ -16,7 +24,9 @@ import numpy as np
 from ..algorithm.aggregation_algorithm import AggregationAlgorithm
 from ..message import Message, ParameterMessage, ParameterMessageBase, Params
 from ..models.convert import from_jax, to_jax
+from ..util.checkpoint import atomic_json_dump
 from ..util.model_cache import ModelCache
+from ..util.telemetry import TraceRecorder
 from ..utils.logging import get_logger
 from .server import Server
 
@@ -38,6 +48,14 @@ class AggregationServer(Server):
         self.__early_stop = self.config.algorithm_kwargs.get("early_stop", False)
         self.__round_start = time.monotonic()
         self.__round_start_bytes = (0, 0)
+        device = getattr(getattr(self._task_context, "model_ctx", None), "device", None)
+        self._trace = TraceRecorder.from_config(self.config, default_dir=self.save_dir, device=device)
+        if not (self.config.telemetry or {}).get("flush_every"):
+            # no try/finally wraps the server loop: flush every record, as
+            # the record itself is written every round (an explicit 0 means
+            # "auto" and gets the same eager default)
+            self._trace.flush_every = 1
+        self._upload_window_start: float | None = None
 
     @property
     def early_stop(self) -> bool:
@@ -76,9 +94,16 @@ class AggregationServer(Server):
 
     def _server_exit(self) -> None:
         self.__algorithm.exit()
+        self._trace.close()
 
     def _process_worker_data(self, worker_id: int, data: Message | None) -> None:
         assert 0 <= worker_id < self.worker_number
+        self._trace.maybe_profile_start(self._round_number)
+        if self._trace.enabled:
+            if not self._worker_flag:
+                # the barrier opens at the round's first upload
+                self._upload_window_start = time.monotonic()
+            self._trace.event("upload", worker=worker_id, round=self._round_number, dropped=data is None)
         self.__algorithm.process_worker_data(
             worker_id=worker_id,
             worker_data=data,
@@ -86,6 +111,14 @@ class AggregationServer(Server):
         )
         self._worker_flag.add(worker_id)
         if len(self._worker_flag) == self.worker_number:
+            if self._trace.enabled and self._upload_window_start is not None:
+                self._trace.span_record(
+                    "round_barrier",
+                    time.monotonic() - self._upload_window_start,
+                    round=self._round_number,
+                    workers=self.worker_number,
+                )
+                self._upload_window_start = None
             result = self._aggregate_worker_data()
             self._send_result(result)
             self._worker_flag.clear()
@@ -120,6 +153,7 @@ class AggregationServer(Server):
 
     def _after_send_result(self, result: Message) -> None:
         if isinstance(result, ParameterMessageBase) and not result.in_round:
+            self._trace.maybe_profile_stop(self._round_number)
             self._round_number += 1
         self.__algorithm.clear_worker_data()
 
@@ -145,11 +179,20 @@ class AggregationServer(Server):
         self._annotate_stat(round_stat)
         key = self._get_stat_key()
         assert key not in self.__stat
+        if self._trace.enabled:
+            fields = {
+                "round": key,
+                "accuracy": metric.get("accuracy"),
+                "loss": metric.get("loss"),
+                "received_mb": round_stat["received_mb"],
+                "sent_mb": round_stat["sent_mb"],
+            }
+            round_stat["trace_offset"] = self._trace.span_record("round", round_stat["round_seconds"], **fields)
         self.__stat[key] = round_stat
-        path = os.path.join(self.save_dir, "round_record.json")
-        with open(path + ".tmp", "w", encoding="utf8") as f:
-            json.dump(self.__stat, f)
-        os.replace(path + ".tmp", path)
+        # the spans first, so a durable row never cross-links a line a
+        # resumed recorder would number again
+        self._trace.flush()
+        atomic_json_dump(os.path.join(self.save_dir, "round_record.json"), self.__stat)
         max_acc = max(t["test_accuracy"] for t in self.__stat.values())
         if max_acc > self.__best_acc:
             self.__best_acc = max_acc

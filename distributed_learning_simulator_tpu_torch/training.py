@@ -31,11 +31,19 @@ refuses both, and ``watchdog_seconds``.
 ``<save_dir>_retry<k>`` and resumes from the newest attempt directory that
 holds a resumable round (``util/resume.py``).  ``__main__`` runs a config
 with ``fault_tolerance.auto_resume`` under it.
+
+``telemetry`` (``util/telemetry.py``) runs on every executor but the graph
+sessions, which, as the JAX ones, never read it.  ``profile: true`` runs
+the whole run (not the task's construction) under ``torch.profiler`` and
+writes its Chrome trace under ``<save_dir>/profile``, as the JAX package
+wraps the run in ``jax.profiler``.
 """
 
+import contextlib
 import copy
 import dataclasses
 import math
+import os
 import threading
 import time
 from typing import Any
@@ -188,8 +196,6 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
     refused = {
         "model_kwargs": layouts,
         "fault_tolerance": faults_refused,
-        "telemetry": bool(dict(config.telemetry).get("enabled")),
-        "profile": config.profile,
         "watchdog_seconds": bool(config.watchdog_seconds) and not spmd,
         "parallel_number": bool(config.parallel_number),
     }
@@ -361,14 +367,35 @@ def _remap_sv(result: dict, practitioners) -> dict:
     return result
 
 
+@contextlib.contextmanager
+def _profiled(config: DistributedTrainingConfig, device):
+    """With ``config.profile``, the block under ``torch.profiler`` (CPU
+    activity, and CUDA's on a CUDA device), its Chrome trace written to
+    ``<save_dir>/profile/run.<pid>.pt.trace.json`` when the block ends."""
+    if not config.profile:
+        yield
+        return
+    trace_dir = os.path.join(config.save_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as profile:
+        yield
+    profile.export_chrome_trace(os.path.join(trace_dir, f"run.{os.getpid()}.pt.trace.json"))
+
+
 def train(
     config: DistributedTrainingConfig, practitioners=None, device: str | None = None
 ) -> dict:
     """Run one task; returns ``{"performance": {round: row}}``."""
     if resolve_executor(config) == "sequential":
-        return run_task(build_task(config, practitioners, device))
+        ctx = build_task(config, practitioners, device)
+        with _profiled(ctx.config, ctx.model_ctx.device):
+            return run_task(ctx)
     session = build_session(config, practitioners, device)
-    result = _remap_sv(session.run(), session.practitioners)
+    with _profiled(session.config, session.device):
+        result = _remap_sv(session.run(), session.practitioners)
     get_logger().info("training done on %s (%d rounds)", session.device, len(result["performance"]))
     return result
 
@@ -396,12 +423,23 @@ def train_with_recovery(
     * the result is the last attempt's, whose restored and fresh record
       rows cover every round once, with a ``recovery`` summary (restarts,
       attempt directories, the final ``save_dir``);
-    * a method without round checkpoints (sign_SGD) restarts from round 1.
+    * a method without round checkpoints (sign_SGD) restarts from round 1;
+    * with ``telemetry`` on, every attempt appends to the first attempt's
+      trace (a relative ``telemetry.path`` is resolved once, against the
+      first ``save_dir``): its offsets continue across the kills, so every
+      row of the final record cross-links a line of one file.  The JAX
+      supervisor starts a trace in each attempt's directory.
 
     ``sleep_fn`` replaces ``time.sleep`` for the backoff (tests)."""
     config = copy.deepcopy(config)
     if not config.save_dir:
         config.load_config_and_process()
+    telemetry = dict(config.telemetry or {})
+    if telemetry.get("enabled") and not os.path.isabs(telemetry.get("path") or ""):
+        telemetry["path"] = os.path.abspath(
+            os.path.join(config.save_dir, "server", telemetry.get("path") or "trace.jsonl")
+        )
+        config.telemetry = telemetry
     fault_conf = dict(config.fault_tolerance or {})
     if max_restarts is None:
         max_restarts = int(fault_conf.get("max_restarts", 2))
