@@ -91,7 +91,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    first tuning epoch for fed_obd, so its resume restores
    ``opt_state.npz`` onto the card) and recovered by
    ``train_with_recovery``, against the uninterrupted run on the CPU round
-   by round, K1 exact over both attempts;
+   by round, K1 exact over both attempts; then the threaded executor's
+   methods (``check_threaded_tasks_against_cpu``): DenseNet-40 fed_obd
+   (NNADQ, ``second_phase_epoch`` 1), fed_dropout_avg and sign_SGD card
+   against CPU, and fed_paq threaded against the SPMD session on the card;
+   and a keyed threaded fed_obd_sq task (``vit_small``, ``second_phase_epoch``
+   1, ``flat_payload: false``) whose K2/K3 launches must be the protocol's
+   0 and 0 (``check_keyed_obd_sq_launches``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -158,7 +164,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    on wgmma (one a layer per test batch per evaluation pass), no K5, and
    round 2's training profiled; and ``fed_avg/mnist_buffered.yaml`` as shipped
    but for 10 of its 20 rounds, each record's flush columns printed and K1 exactly
-   ``n_chunks x (depth + 1)`` every round;
+   ``n_chunks x (depth + 1)`` every round; then (4j) the shipped
+   ``conf/{fed_paq,fed_obd,fed_dropout_avg,smafd,sign_sgd}/imdb.yaml``
+   under ``executor: sequential`` at full width (``THREADED_FILES``: 1
+   round of 1 local epoch, fed_obd's 1 tuning epoch), each record's phase,
+   time, test loss and wire MB printed, no kernel launched;
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -2007,10 +2017,15 @@ def expected_qsgd_launches(ctx) -> tuple[int, int]:
     * phase 2 (``second_phase_epoch`` aggregates): every worker uploads
       the whole model each epoch and receives every aggregate;
     * a broadcast is encoded once for all its receivers, and the initial
-      model travels unencoded."""
+      model travels unencoded;
+    * with ``second_phase_epoch`` 1 every upload and every broadcast is
+      keyed with the session's draws, and a keyed encode never takes K2:
+      no launch at all."""
     from distributed_learning_simulator_tpu_torch.ops.quantization import KERNEL_MIN_ELEMENTS
 
     config = ctx.config
+    if int(config.algorithm_kwargs["second_phase_epoch"]) == 1:
+        return 0, 0
     sizes = {name: t.numel() for name, t in ctx.model_ctx.module.state_dict().items()}
     big = sum(n >= KERNEL_MIN_ELEMENTS for n in sizes.values())
     workers = config.worker_number
@@ -2819,12 +2834,14 @@ SHAPLEY_FILES = (
 
 def _cut_task(name: str, workers: int, test_size: int, **overrides):
     """``conf/<name>`` cut to ``workers`` clients x 16 samples and a test
-    set of ``test_size``, 1 round, its other settings as shipped."""
+    set of ``test_size``, 1 round, its other settings as shipped; the
+    config maker takes ``algorithm_kwargs`` entries too."""
 
-    def make_config(save_dir: str):
+    def make_config(save_dir: str, **algorithm_kwargs):
         sizes = {"train_size": 16 * workers, "val_size": 16, "test_size": test_size}
         fields = {"round": 1, "worker_number": workers, **overrides}
         fields.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
+        fields.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
         return shipped_config(name, save_dir, **fields)
 
     return make_config
@@ -2918,6 +2935,271 @@ def check_sign_sgd_task_against_cpu(workdir: str) -> None:
     check(ratio <= FLIP_TAU, f"small task (DenseNet-40 sign_SGD): a vote differs off the flip rule ({ratio})")
     check(update_err <= 1e-6, f"small task (DenseNet-40 sign_SGD): card and CPU updates disagree ({update_err})")
     check(rel <= 1e-2, f"small task (DenseNet-40 sign_SGD): card and CPU records disagree ({rel})")
+
+
+# ------------------------------- the threaded executor's other methods
+#: phase 4j: the shipped imdb files under ``executor: sequential`` at full
+#: width (the classifier: d_model 100, 2 layers, max_len 300, 10 workers),
+#: as shipped but for ``THREADED_ROUNDS`` round of ``THREADED_EPOCHS``
+#: local epoch (sign_SGD: ``THREADED_EPOCHS`` of its 100) and, for fed_obd,
+#: ``second_phase_epoch`` 1
+THREADED_FILES = ("fed_paq/imdb.yaml", "fed_obd/imdb.yaml", "fed_dropout_avg/imdb.yaml", "smafd/imdb.yaml",
+                  "sign_sgd/imdb.yaml")
+THREADED_ROUNDS, THREADED_EPOCHS = 1, 1
+#: a threaded FedOBD record past its first aggregate, card against CPU:
+#: the bound JAX's ``tests/test_executor_matrix.py`` holds its own two
+#: executors to (the codecs round both runs' last-bit differences)
+OBD_DRIFT = 5e-3
+#: the share of a threaded NNADQ task's first aggregate that level flips
+#: may move past 1e-3, card against CPU (3 elements were apart in a run);
+#: each by no more than the level steps of its leaf's encodes that round
+OBD_FLIPS = 1e-4
+
+
+@contextlib.contextmanager
+def nnadq_steps():
+    """Records each ``NNADQ.quant`` call made inside the block, in call
+    order: the level step ``span / (2^bits - 1)`` of each leaf, by key
+    (read on the host after the block)."""
+    from distributed_learning_simulator_tpu_torch.ops.quantization import NNADQ
+
+    quant, calls = NNADQ.quant, []
+
+    def recording(self, tree, flat=False):
+        blob = quant(self, tree, flat=flat)
+        calls.append({k: (e["span"], e["bits"]) for k, e in zip(blob["keys"], blob["leaves"])})
+        return blob
+
+    NNADQ.quant = recording
+    steps = []
+    try:
+        yield steps
+    finally:
+        NNADQ.quant = quant
+        steps.extend({k: float(span) / ((1 << bits) - 1) for k, (span, bits) in call.items()} for call in calls)
+
+
+def check_nnadq_encode_on_card(tree: dict, weight: float) -> None:
+    """``NNADQ.quant`` of one upload (numpy leaves) on the card and on the
+    CPU: every leaf's ``bits``, ``lo``, ``span`` and ``packed`` bit-equal,
+    and the decoded values too."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops.quantization import NNADQ
+
+    blobs = {d: NNADQ(weight).quant({k: torch.from_numpy(v).to(d) for k, v in tree.items()}) for d in ("cuda", "cpu")}
+    same = lambda a, b: a.cpu().numpy().tobytes() == b.numpy().tobytes()
+    for key, g, c in zip(blobs["cpu"]["keys"], blobs["cuda"]["leaves"], blobs["cpu"]["leaves"]):
+        check(g["bits"] == c["bits"] and same(g["lo"], c["lo"]) and same(g["span"], c["span"])
+              and same(g["packed"], c["packed"]), f"NNADQ encode of {key}: card and CPU blobs differ")
+    decoded = {d: NNADQ(weight).dequant(blob) for d, blob in blobs.items()}
+    check(all(same(decoded["cuda"][k], decoded["cpu"][k]) for k in tree), "NNADQ decode: card and CPU differ")
+    print(f"NNADQ encode and decode of one upload ({len(tree)} leaves, bits"
+          f" {sorted({e['bits'] for e in blobs['cpu']['leaves']})}): card and CPU bit-equal")
+
+
+def _port_init(workdir: str, label: str, make_config) -> str:
+    """The port's init of a task (seed 0), as a JAX-keyed npz."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.training import build_task
+
+    path = os.path.join(workdir, f"{label}_init.npz")
+    ctx = build_task(make_config(os.path.join(workdir, f"{label}_init")), device="cpu")
+    np.savez(path, **convert.to_jax(ctx.engine.init_params(0)))
+    return path
+
+
+def _params_apart(a: dict, b: dict, atol: float = 1e-5) -> tuple[float, int]:
+    """Max |difference| of two parameter dicts and the elements beyond ``atol``."""
+    import numpy as np
+
+    return (max(float(np.abs(a[k] - b[k]).max()) for k in b),
+            sum(int((np.abs(a[k] - b[k]) > atol).sum()) for k in b))
+
+
+def check_threaded_tasks_against_cpu(workdir: str) -> None:
+    """The threaded executor's new methods on small f32 DenseNet-40 tasks,
+    card against CPU, each run by ``train()`` from one init:
+
+    * fed_obd (NNADQ) at ``second_phase_epoch`` 1 (``conf/fed_obd/cifar10.yaml``
+      cut to 2 clients x 16 samples, 1 round of 2 epochs and the tuning
+      epoch): the codec itself bit-equal on the card and the CPU
+      (:func:`check_nnadq_encode_on_card` on the CPU run's first upload
+      delta); the first aggregate's test loss within the phase's 1e-3 and
+      its parameters within 1e-3 but for ``OBD_FLIPS`` of them at most,
+      each of those by no more than 1e-3 and the sum of its leaf's level
+      steps over the round's encodes (ROADMAP R10: NNADQ's deterministic
+      rounding takes an element whose level sits on a rounding boundary
+      to either level, and a 2-bit delta's level is a third of its span);
+      the second's test loss within ``OBD_DRIFT``, the elements apart
+      counted;
+    * fed_dropout_avg (``check_small_task_against_cpu``, the keep masks
+      drawn on the host);
+    * sign_SGD (``conf/sign_sgd/cifar10.yaml`` cut to 2 clients, 1 epoch
+      of batch 8): the record's test loss within 1e-2 (relative), the
+      bound of phase 3's SPMD sign_SGD task through vote flips;
+    * fed_paq on the card, the threaded run against the port's own SPMD
+      session (``conf/fed_paq/cifar10.yaml`` cut to 2 clients, 2 rounds):
+      both draw the same values for a (round, slot), so every round's test
+      loss and the final parameters agree within the phase's 1e-3."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    check_small_task_against_cpu(
+        workdir, "DenseNet-40 threaded fed_dropout_avg",
+        lambda d, **kw: _with(sparse_small_task("fed_dropout_avg/cifar10.yaml")(d, **kw), executor="sequential"),
+    )
+    make = _cut_task("fed_obd/cifar10.yaml", 2, 32, epoch=2, batch_size=16, executor="sequential", **{
+        "algorithm_kwargs.second_phase_epoch": 1, "algorithm_kwargs.random_client_number": 2})
+    init = _port_init(workdir, "obd", make)
+    runs, steps = {}, {}
+    for device in ("cuda", "cpu"):
+        config = make(os.path.join(workdir, f"threaded_obd_{device}"), global_model_path=init)
+        with nnadq_steps() as steps[device]:
+            perf = train(config, device=device)["performance"]
+        runs[device] = (perf, [_round_params(config.save_dir, k) for k in (1, 2)])
+    (gpu, gpu_params), (cpu, cpu_params) = runs["cuda"], runs["cpu"]
+    with np.load(init) as blob:
+        start = {k: blob[k] for k in blob.files}
+    check_nnadq_encode_on_card({k: cpu_params[0][k] - start[k] for k in start},
+                               config.endpoint_kwargs["worker"]["weight"])
+    check([gpu[k]["phase"] for k in sorted(gpu)] == ["block_dropout_rounds", "epoch_tune"], f"threaded fed_obd {gpu}")
+    apart = [_params_apart(g, c) for g, c in zip(gpu_params, cpu_params)]
+    loss = [abs(gpu[k]["test_loss"] - cpu[k]["test_loss"]) for k in (1, 2)]
+    print(
+        f"small task (DenseNet-40 threaded fed_obd, NNADQ, second_phase_epoch 1) card vs CPU: test loss"
+        f" {[round(gpu[k]['test_loss'], 6) for k in (1, 2)]} vs {[round(cpu[k]['test_loss'], 6) for k in (1, 2)]};"
+        f" aggregates max |diff| {[f'{a:.3g}' for a, _ in apart]}, elements beyond 1e-5 {[n for _, n in apart]};"
+        f" wire MB {[round(gpu[k]['received_mb'], 4) for k in (1, 2)]} vs {[round(cpu[k]['received_mb'], 4) for k in (1, 2)]}"
+    )
+    flips = _params_apart(gpu_params[0], cpu_params[0], atol=1e-3)[1]
+    size = sum(v.size for v in cpu_params[0].values())
+    # round 1's encodes: the 2 uploads, then the broadcast (its uploads come after it)
+    check(all(len(calls) == 6 for calls in steps.values()), f"NNADQ encodes {[len(c) for c in steps.values()]}")
+    cap = {k: max(sum(call.get(k, 0.0) for call in calls[:3]) for calls in steps.values()) for k in cpu_params[0]}
+    over = {k: float(np.abs(gpu_params[0][k] - v).max()) for k, v in cpu_params[0].items()
+            if np.abs(gpu_params[0][k] - v).max() > 1e-3 + cap[k]}
+    print(f"  aggregate 1: {flips} of {size} elements beyond 1e-3 (level flips); beyond their leaves' level steps:"
+          f" {over}")
+    check(loss[0] <= 1e-3 * abs(cpu[1]["test_loss"]), "threaded fed_obd: aggregate 1's test loss disagrees")
+    check(flips <= OBD_FLIPS * size, f"threaded fed_obd: aggregate 1 has {flips} elements beyond 1e-3")
+    check(not over, f"threaded fed_obd: aggregate 1 apart by more than a level flip in {over}")
+    check(loss[1] <= OBD_DRIFT, f"threaded fed_obd: aggregate 2's test loss {loss[1]} apart")
+
+    make = _cut_task(SIGN_SGD_FILES[0], 2, 32, epoch=1, batch_size=8, executor="sequential")
+    perf = {device: train(make(os.path.join(workdir, f"threaded_sign_{device}")), device=device)["performance"][1]
+            for device in ("cuda", "cpu")}
+    rel = abs(perf["cuda"]["test_loss"] - perf["cpu"]["test_loss"]) / abs(perf["cpu"]["test_loss"])
+    print(f"small task (DenseNet-40 threaded sign_SGD, 2 clients) card vs CPU: test loss"
+          f" {perf['cuda']['test_loss']:.6f} vs {perf['cpu']['test_loss']:.6f} (rel {rel:.2g})")
+    check(rel <= 1e-2, f"threaded sign_SGD: card and CPU records disagree ({rel})")
+
+    make = _cut_task("fed_paq/cifar10.yaml", 2, 32, round=2, epoch=2, batch_size=16,
+                     **{"algorithm_kwargs.random_client_number": 2})
+    init = _port_init(workdir, "paq", make)
+    runs = {}
+    for executor in ("spmd", "sequential"):
+        config = _with(make(os.path.join(workdir, f"paq_{executor}"), global_model_path=init), executor=executor)
+        runs[executor] = (train(config, device="cuda")["performance"], _round_params(config.save_dir, 2))
+    (spmd, spmd_params), (threaded, threaded_params) = runs["spmd"], runs["sequential"]
+    worst, beyond = _params_apart(threaded_params, spmd_params)
+    rel = max(abs(threaded[k]["test_loss"] - spmd[k]["test_loss"]) / abs(spmd[k]["test_loss"]) for k in spmd)
+    print(f"small task (DenseNet-40 fed_paq, 2 clients, 2 rounds) on the card, threaded vs SPMD: test loss"
+          f" {[round(threaded[k]['test_loss'], 6) for k in sorted(threaded)]} vs"
+          f" {[round(spmd[k]['test_loss'], 6) for k in sorted(spmd)]} (rel {rel:.2g}); round 2's parameters max |diff|"
+          f" {worst:.3g}, {beyond} elements beyond 1e-5")
+    check(sorted(threaded) == sorted(spmd) == [1, 2], f"fed_paq records {sorted(threaded)}")
+    check(rel <= 1e-3 and worst <= 1e-3, "fed_paq on the card: the threaded run and the SPMD session disagree")
+
+
+def _with(config, **fields):
+    """``config`` with ``fields`` set."""
+    for key, value in fields.items():
+        setattr(config, key, value)
+    return config
+
+
+def check_keyed_obd_sq_launches(workdir: str) -> None:
+    """``expected_qsgd_launches`` on a threaded fed_obd_sq task at
+    ``second_phase_epoch`` 1 with ``flat_payload: false`` (``obd_config``
+    cut to ``vit_small``, 2 workers x 16 samples, 1 round and the tuning
+    epoch), whose leaves of at least 65,536 values an unkeyed encode would
+    send through K2: every upload and broadcast is keyed, so the protocol
+    gives 0 and 0, checked exactly with the counters set to 0 just before
+    the run and read just after."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.ops.quantization import KERNEL_MIN_ELEMENTS
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    config = obd_config(os.path.join(workdir, "keyed_obd_sq"), **{
+        "model_name": "vit_small", "worker_number": 2, "algorithm_kwargs.random_client_number": 2,
+        "algorithm_kwargs.second_phase_epoch": 1, "dataset_kwargs.train_size": 32, "dataset_kwargs.val_size": 16,
+        "dataset_kwargs.test_size": 64, "batch_size": 16,
+    })
+    ctx = build_task(config)
+    big = sum(t.numel() >= KERNEL_MIN_ELEMENTS for t in ctx.model_ctx.module.state_dict().values())
+    _reset_launches()
+    perf = run_task(ctx)["performance"]
+    launches = _read_launches()
+    want = expected_qsgd_launches(ctx)
+    print(f"threaded fed_obd_sq (vit_small, second_phase_epoch 1, flat_payload false, {big} leaves of >= 65,536"
+          f" values): K2/K3 launches {launches['K2']}/{launches['K3']}, from the protocol {want[0]}/{want[1]};"
+          f" test loss {[round(row['test_loss'], 4) for _, row in sorted(perf.items())]}")
+    check(big > 0 and want == (0, 0), f"keyed fed_obd_sq: {big} large leaves, protocol {want}")
+    check((launches["K2"], launches["K3"]) == want, f"keyed fed_obd_sq K2/K3 {launches['K2']}/{launches['K3']}")
+    check(all(np.isfinite(row["test_loss"]) for row in perf.values()), f"keyed fed_obd_sq records {perf}")
+
+
+def run_threaded_files(workdir: str, card: str) -> dict:
+    """``build_task`` + ``run_task`` (what ``train()`` runs for
+    ``executor: sequential``) on each of ``THREADED_FILES`` at full width,
+    the launch counters set to 0 just before each run and read just after:
+    each record's phase, time, test loss and wire MB, the run's wall time;
+    no kernel of the port on these paths (the classifier takes no K4/K5,
+    the threaded aggregation no K1, the keyed and NNADQ codecs no K2/K3).
+    Returns each file's numbers."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    records = {}
+    for name in THREADED_FILES:
+        overrides = {"executor": "sequential", "round": THREADED_ROUNDS, "epoch": THREADED_EPOCHS}
+        if name.startswith("fed_obd"):
+            overrides["algorithm_kwargs.second_phase_epoch"] = 1
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), **overrides)
+        t0 = time.monotonic()
+        ctx = build_task(config)
+        setup = time.monotonic() - t0
+        _reset_launches()
+        t0 = time.monotonic()
+        out = run_task(ctx)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        perf = out["performance"]
+        print(f"main path {name} threaded ({config.distributed_algorithm}, {config.model_name}, {config.worker_number}"
+              f" workers): setup {setup:.2f} s, run {wall:.2f} s ({card}); launches {launches}")
+        for key, row in sorted(perf.items()):
+            seconds = f"{row['round_seconds']:.3f} s, " if "round_seconds" in row else ""
+            wire = f", received {row['received_mb']:.3f} MB, sent {row['sent_mb']:.3f} MB" if "received_mb" in row else ""
+            print(f"  record {key} {row.get('phase', '')}: {seconds}test loss {row['test_loss']:.4f}"
+                  f" accuracy {row['test_accuracy']:.4f}{wire}")
+            check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+        want = ["block_dropout_rounds", "epoch_tune"] if name.startswith("fed_obd") else [None]
+        check([row.get("phase") for _, row in sorted(perf.items())] == want, f"{name} records {perf}")
+        others = [kid for kid, n in launches.items() if n]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        records[name] = {"setup_s": setup, "run_s": wall,
+                         "records": {k: row.get("round_seconds") for k, row in perf.items()}}
+        del ctx, out
+        torch.cuda.empty_cache()
+    return records
 
 
 def check_shapley_task_against_cpu(workdir: str) -> None:
@@ -4066,6 +4348,10 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     with phase_dir(workdir) as d:
         check_recovery_against_cpu(d)
     mark("3 recovery tasks")
+    with phase_dir(workdir) as d:
+        check_threaded_tasks_against_cpu(d)
+        check_keyed_obd_sq_launches(d)
+    mark("3 threaded tasks")
 
     # 4. the main path, with telemetry on (its trace checked)
     with phase_dir(workdir) as d:
@@ -4151,6 +4437,12 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     with phase_dir(workdir) as d:
         launches["K1"] += run_buffered_file(d)["K1"]
     mark("4i mnist_buffered")
+
+    # 4j. the shipped imdb files of the threaded executor's methods (no
+    # kernel of the port on these paths)
+    with phase_dir(workdir) as d:
+        run_threaded_files(d, card)
+    mark("4j threaded imdb files")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

@@ -1,13 +1,16 @@
 """FedAvg's dataset-size-weighted average (the port's copy of the JAX
-package's ``algorithm/fed_avg_algorithm.py``, streaming path only).
+package's ``algorithm/fed_avg_algorithm.py``).
 
 Each upload is flattened in layout order and added into ONE f32
 accumulator, ``acc += w · vec``, as it arrives, and its tensors are
-released at once; the aggregate is one divide by the total weight, one
-finite check and one split back to the parameter dict.  Uploads are taken
-in arrival order.  ``algorithm_kwargs.float64_parity`` (the JAX
-package's host float64 accumulator) and ``flat_aggregation`` are refused
-(``training.py``).
+released at once; the aggregate is :meth:`_apply_total_weight` of the sum
+(one divide by the total weight), one finite check and one split back to
+the parameter dict.  Uploads are taken in arrival order.  The weight
+:meth:`_get_weight` gives is one scalar an upload, or one weight an
+element of its flat vector (FedDropoutAvg): the sums are elementwise, so
+both are the JAX package's per-tensor arithmetic element for element.
+``algorithm_kwargs.float64_parity`` (the JAX package's host float64
+accumulator) and ``flat_aggregation`` are refused (``training.py``).
 """
 
 from typing import Any
@@ -24,27 +27,34 @@ class FedAVGAlgorithm(AggregationAlgorithm):
         super().__init__(server=server)
         self._vec_acc: torch.Tensor | None = None
         self._vec_layout: ParamVecLayout | None = None
-        self._vec_total_weight = 0.0
+        self._vec_total_weight: Any = 0.0
         self._end_training = False
         self._other_data: dict = {}
 
-    def _get_weight(self, dataset_size: int) -> float:
+    def _get_weight(self, dataset_size: int, vec: torch.Tensor) -> Any:
+        """An upload's weight: a scalar, or a tensor shaped like its flat
+        f32 vector ``vec``."""
         assert dataset_size != 0
         return float(dataset_size)
+
+    def _apply_total_weight(self, vec: torch.Tensor, total_weight: Any) -> torch.Tensor:
+        return vec / total_weight
 
     def process_worker_data(self, worker_id, worker_data, **kwargs: Any) -> None:
         super().process_worker_data(worker_id, worker_data, **kwargs)
         data = self._all_worker_data.get(worker_id)
         if not isinstance(data, ParameterMessage):
             return
-        weight = self._get_weight(data.dataset_size)
         if self._vec_acc is None:
             self._vec_layout = ParamVecLayout.of(data.parameter)
-            self._vec_acc = self._vec_layout.flatten(data.parameter) * weight
+        assert self._vec_layout is not None
+        vec = self._vec_layout.flatten(data.parameter)
+        weight = self._get_weight(data.dataset_size, vec)
+        if self._vec_acc is None:
+            self._vec_acc = vec * weight
         else:
-            assert self._vec_layout is not None
-            self._vec_acc += self._vec_layout.flatten(data.parameter) * weight
-        self._vec_total_weight += weight
+            self._vec_acc += vec * weight
+        self._vec_total_weight = self._vec_total_weight + weight
         self._end_training |= data.end_training
         self._merge_other_data(data.other_data)
         data.parameter = {}  # release the upload's tensors now
@@ -57,7 +67,7 @@ class FedAVGAlgorithm(AggregationAlgorithm):
 
     def aggregate_worker_data(self) -> Message:
         assert self._vec_acc is not None and self._vec_layout is not None, "no uploads to aggregate"
-        vec = self._vec_acc / self._vec_total_weight
+        vec = self._apply_total_weight(self._vec_acc, self._vec_total_weight)
         check_finite(vec, self._vec_layout)
         parameter = self._vec_layout.split(vec)
         self._vec_acc = None

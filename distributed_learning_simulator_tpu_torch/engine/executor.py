@@ -9,7 +9,20 @@ built on the host per epoch (``engine/batching.py``), shuffled by
 ``np.random.default_rng(seed * 100003 + epoch_counter)`` as in the JAX
 package, and staged on the device.  A trainer armed with
 :meth:`Trainer.set_round_stream` trains one round in sampler order with
-the SPMD session's dropout generator for ``(seed, round, worker)``.
+the SPMD session's dropout generator for ``(seed, round, worker)`` and
+reserves that round's :class:`~..ops.quantization.SessionKey` for the
+worker's upload transform.
+
+A hook at ``BEFORE_BATCH``, ``AFTER_BATCH`` or ``OPTIMIZER_STEP`` runs
+the epoch a batch at a time (the JAX package's per-step program): each
+fires once a batch with the JAX keyword arguments (``batch``,
+``batch_index``; ``step_rng`` at ``OPTIMIZER_STEP``, the epoch's dropout
+generator, which the JAX package splits a key a step from; ``batch_size``
+at ``AFTER_BATCH``).  An ``OPTIMIZER_STEP`` hook owns the parameter
+update, and the batch's metrics are then taken at the updated parameters
+in eval mode, as in JAX.  Without such a hook the per-step epoch takes the
+engine's steps in ``train_epoch``'s order, and an epoch without any of
+these hooks is ``train_epoch`` itself.
 """
 
 import time
@@ -24,6 +37,7 @@ from ..message import Params
 from ..ml_type import ExecutorHookPoint, MachineLearningPhase, StopExecutingException
 from ..models.dropout import dropout_generator
 from ..models.registry import ModelContext
+from ..ops.quantization import SessionKey
 from ..parallel.spmd import loss_counts
 from ..utils.logging import get_logger
 from .batching import make_epoch_batches, stage_batches
@@ -32,6 +46,11 @@ from .hyper_parameter import HyperParameter
 
 #: dropout-generator tag of the unaligned per-epoch stream
 _EPOCH_STREAM = 0x5EED
+_PER_STEP_POINTS = (
+    ExecutorHookPoint.BEFORE_BATCH,
+    ExecutorHookPoint.AFTER_BATCH,
+    ExecutorHookPoint.OPTIMIZER_STEP,
+)
 
 
 class PerformanceMetric:
@@ -128,12 +147,16 @@ class Trainer(ExecutorBase):
         self._opt_state = None
         self._epoch_counter = 0  # epochs across rounds
         self._round_stream: tuple[int, int, int] | None = None
+        #: the key the aligned stream reserved this round (None unarmed)
+        self.reserved_quant_key: SessionKey | None = None
         self.batch_loss_log_enabled = True
 
     def set_round_stream(self, stream: tuple[int, int, int]) -> None:
         """Arm the next :meth:`train` call with the SPMD session's stream
-        for ``(seed, round, worker)``: sampler-order batches every epoch and
-        the session's dropout generator.  One-shot."""
+        for ``(seed, round, worker)``: sampler-order batches every epoch,
+        the session's dropout generator, and the session's draws of that
+        client's upload in aggregate ``round - 1`` as
+        :attr:`reserved_quant_key`.  One-shot."""
         self._round_stream = stream
 
     # --- hooks
@@ -167,15 +190,15 @@ class Trainer(ExecutorBase):
 
     # --- the round's local training
     def train(self) -> None:
-        per_step = [p for p in (ExecutorHookPoint.BEFORE_BATCH, ExecutorHookPoint.AFTER_BATCH,
-                                ExecutorHookPoint.OPTIMIZER_STEP) if self.has_hook(p)]
-        if per_step:
-            raise NotImplementedError(f"per-step hooks {per_step} are not ported yet")
         self._fire(ExecutorHookPoint.BEFORE_EXECUTE)
+        per_step = any(self.has_hook(p) for p in _PER_STEP_POINTS)
         aligned, self._round_stream = self._round_stream, None
         round_generator = None
+        self.reserved_quant_key = None
         if aligned is not None:
             round_generator = dropout_generator(*aligned, self.device)
+            seed, round_number, worker = aligned
+            self.reserved_quant_key = SessionKey(seed, round_number - 1, worker)
         try:
             for epoch in range(1, self.hyper_parameter.epoch + 1):
                 start = time.monotonic()
@@ -186,7 +209,10 @@ class Trainer(ExecutorBase):
                 generator = round_generator
                 if generator is None:
                     generator = dropout_generator(self._seed, self._epoch_counter, _EPOCH_STREAM, self.device)
-                summed = self.engine.train_epoch(self.vec, self.opt_state, batches, counts, generator)
+                if per_step:
+                    summed = self._train_epoch_per_step(batches, counts, epoch, generator)
+                else:
+                    summed = self.engine.train_epoch(self.vec, self.opt_state, batches, counts, generator)
                 metrics = summarize_metrics(summed)
                 metrics["duration"] = time.monotonic() - start
                 self.performance_metric.record(self._epoch_counter, metrics)
@@ -203,6 +229,29 @@ class Trainer(ExecutorBase):
             self._fire(ExecutorHookPoint.AFTER_EXECUTE)
         except StopExecutingException:
             get_logger().debug("%s stopped by hook", self.name)
+
+    def _train_epoch_per_step(self, batches: dict, counts, epoch: int, generator) -> dict:
+        """One epoch a batch at a time with the per-step hooks; the summed
+        metrics stay on the device."""
+        summed = {k: torch.zeros((), device=self.device) for k in ("loss_sum", "correct", "count")}
+        for i, count in enumerate(counts):
+            batch = {k: v[i] for k, v in batches.items()}
+            self._fire(ExecutorHookPoint.BEFORE_BATCH, epoch=epoch, batch_index=i, batch=batch)
+            if self.has_hook(ExecutorHookPoint.OPTIMIZER_STEP):
+                self._fire(ExecutorHookPoint.OPTIMIZER_STEP, epoch=epoch, batch_index=i, batch=batch,
+                           step_rng=generator)
+                result = self.engine.evaluate(self.params, {k: v[i : i + 1] for k, v in batches.items()})
+                for key in summed:
+                    summed[key] += result[key]
+            else:
+                metrics = self.engine.train_step(self.vec, self.opt_state, batch, count, generator)
+                if metrics is not None:
+                    summed["loss_sum"] += metrics["loss"] * metrics["count"]
+                    summed["correct"] += metrics["correct"]
+                    summed["count"] += metrics["count"]
+            self._fire(ExecutorHookPoint.AFTER_BATCH, epoch=epoch, batch_index=i, batch=batch,
+                       batch_size=float(count))
+        return summed
 
 
 class Inferencer(ExecutorBase):

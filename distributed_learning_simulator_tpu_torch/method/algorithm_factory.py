@@ -2,7 +2,9 @@
 JAX package's ``method/algorithm_factory.py``): ``register_algorithm``
 names a method's client, server, endpoint classes and aggregation
 algorithm; ``create_client`` / ``create_server`` build the endpoint and
-then the role.  Registered here: ``fed_avg`` and ``fed_obd_sq``."""
+then the role.  Registered by ``method/``: ``fed_avg``, ``fed_paq``,
+``fed_obd``, ``fed_obd_sq``, ``fed_dropout_avg``, ``single_model_afd`` and
+``sign_SGD``."""
 
 import dataclasses
 from typing import Any

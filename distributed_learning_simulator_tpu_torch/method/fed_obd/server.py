@@ -3,13 +3,18 @@
 (``driver.py``).  Phase 1 selects random clients and records a row a
 round; phase 2 aggregates every worker's epoch (``in_round`` uploads)
 and records the rows whose uploads carry ``check_acc``.  Global-model
-broadcasts ride the same QSGD codec as uploads (``quant_broadcast``):
-each is encoded once for all its receivers."""
+broadcasts ride the same codec as uploads (``quant_broadcast``: QSGD for
+fed_obd_sq, NNADQ for fed_obd): each is encoded once for all its
+receivers.  With ``second_phase_epoch == 1`` the ``k``-th aggregate's QSGD
+broadcast draws the FedOBD session's broadcast draws of aggregate ``k -
+1``, each leaf by its position (``set_quant_key``)."""
 
 from typing import Any
 
 from ...algorithm.fed_avg_algorithm import FedAVGAlgorithm
-from ...message import ParameterMessageBase
+from ...message import ParameterMessage, ParameterMessageBase
+from ...models.convert import jax_positions
+from ...ops.quantization import SessionKey
 from ...server.aggregation_server import AggregationServer
 from ...topology.quantized_endpoint import QuantServerEndpoint
 from ...utils.logging import get_logger
@@ -22,6 +27,7 @@ class FedOBDServer(AggregationServer):
         super().__init__(**kwargs)
         self._driver = ObdRoundDriver.from_config(self.config)
         self._last_phase_name = ""  # phase that produced the pending row
+        self._bcast_count = 0  # aggregates broadcast so far: the keyed broadcasts' stream
         assert isinstance(self._endpoint, QuantServerEndpoint)
         self._endpoint.quant_broadcast = True
 
@@ -64,6 +70,21 @@ class FedOBDServer(AggregationServer):
             result.end_training = True
             self._driver.stop_now()
         return result
+
+    def _before_send_result(self, result) -> None:
+        super()._before_send_result(result)
+        if (
+            isinstance(result, ParameterMessage)
+            and not result.is_initial
+            and hasattr(self._endpoint, "set_quant_key")
+            and int(self.config.algorithm_kwargs.get("second_phase_epoch", 0)) == 1
+        ):
+            layout = self._task_context.engine.layout
+            self._bcast_count += 1
+            self._endpoint.set_quant_key(
+                SessionKey(self.config.seed, self._bcast_count - 1, None),
+                fold_indices=jax_positions(layout.keys, layout.shapes),
+            )
 
     def _stopped(self) -> bool:
         return self._driver.finished

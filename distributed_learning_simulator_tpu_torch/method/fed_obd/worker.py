@@ -12,15 +12,25 @@ only in phase 2.  The JAX worker stops as soon as the counter passes
 (``random_client_number < worker_number``) has stopped before the server
 broadcasts the switch into phase 2 to every worker, and the server waits
 for its uploads forever.  Here such a worker waits for that broadcast and
-joins phase 2; every other message flow is the JAX package's.  The
-aligned-stream replay of ``second_phase_epoch == 1`` is refused
-(``training.py``).
+joins phase 2; every other message flow is the JAX package's.
+
+With ``second_phase_epoch == 1`` the worker's round counter counts
+aggregates in both phases, and each round trains the FedOBD session's
+stream for ``(seed, aggregate, worker)`` (``parallel/spmd_obd.py``: its
+dropout generator and sampler-order batches) and keys its QSGD upload
+with that aggregate's session draws, each kept leaf folded by its position
+in the whole parameter dict.  The JAX package replays its session's
+threefry chain, whose split prefixes depend on the session's padded slot
+count; the port's draws are keyed by the integers alone, so nothing of
+that carries over.  A longer phase 2 keeps the trainer's own stream, as
+in JAX.
 """
 
 from typing import Any
 
 from ...message import DeltaParameterMessage, Message, ParameterMessage
 from ...ml_type import ExecutorHookPoint
+from ...models.convert import jax_positions
 from ...topology.quantized_endpoint import QuantClientEndpoint
 from ...utils.logging import get_logger
 from ...worker.aggregation_worker import AggregationWorker
@@ -40,6 +50,8 @@ class FedOBDWorker(AggregationWorker):
         assert isinstance(self._endpoint, QuantClientEndpoint)
         self._endpoint.dequant_server_data = True
         self._apply_spec(self._spec)
+        layout = self.trainer.engine.layout
+        self._fold_indices = jax_positions(layout.keys, layout.shapes)
 
     @property
     def block_selector(self) -> OpportunisticBlockDropoutAlgorithm:
@@ -60,6 +72,12 @@ class FedOBDWorker(AggregationWorker):
         # one more round of the worker loop runs the whole tuning phase
         self.config.round = self._round_num + 1
         self._register_aggregation()
+
+    def _aligned_stream(self) -> bool:
+        return int(self.config.algorithm_kwargs.get("second_phase_epoch", 0)) == 1
+
+    def _quant_fold_indices(self) -> dict[str, int]:
+        return self._fold_indices
 
     def _load_result_from_server(self, result: Message) -> None:
         if PHASE_TWO_KEY in result.other_data:

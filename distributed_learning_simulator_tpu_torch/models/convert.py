@@ -149,3 +149,10 @@ def jax_leaves(keys, shapes) -> list[JaxLeaf]:
         leaves.append(JaxLeaf(key, jax_key, start, size, tuple(shape), perm))
         start += size
     return sorted(leaves, key=lambda leaf: leaf.jax_key)
+
+
+def jax_positions(keys, shapes) -> dict[str, int]:
+    """Each JAX key of a layout's leaves -> its position in the JAX
+    package's parameter dict (sorted JAX keys): the index a codec folds a
+    leaf's draws by."""
+    return {leaf.jax_key: i for i, leaf in enumerate(jax_leaves(keys, shapes))}

@@ -56,9 +56,11 @@ class ModelContext:
     def init(self, seed: int) -> dict[str, torch.Tensor]:
         """Fresh f32 parameters from ``seed`` (drawn on the CPU with a
         ``torch.Generator``, so a seed gives the same weights on any
-        device)."""
-        self.module.init_weights(torch.Generator().manual_seed(seed))
-        return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
+        device).  Under :meth:`apply`'s lock: the draw writes the module's
+        tensors in place, which a forward on another thread has bound."""
+        with self._forward_lock:
+            self.module.init_weights(torch.Generator().manual_seed(seed))
+            return {k: v.detach().clone() for k, v in self.module.state_dict().items()}
 
     def exclusive(self):
         """The lock :meth:`apply` takes (reentrant), for work that uses

@@ -7,7 +7,10 @@ stochastic part of the JAX package's ``ops/quantization.py``).
 * **flat** (``flat=True``, no key): the whole dict as ONE ParamVec leaf,
   with per-tensor abs-max scales (a segment max, ``scatter_reduce``);
 * **keyed per-leaf** (a ``key``): each leaf rounded with draws from the
-  key, split by leaf index or folded by ``fold_indices`` position;
+  key, split by leaf index or folded by ``fold_indices`` position; a
+  :class:`SessionKey` names the SPMD sessions' draws for one upload or
+  broadcast (``CodecRandom.session_uniform``), so a threaded encode with
+  it distorts a message exactly as the session does;
 * **unkeyed per-leaf**: leaves of at least ``16*32*128 = 65,536`` values
   go through kernel K2 (``ops/qsgd.py``) with the seed
   ``(seed * 100003 + i) % 0x7FFFFFFF``, the rest through the consecutive
@@ -25,6 +28,7 @@ tensors of the same bits from the card's kernels; wire sizes count them
 as 4-byte words either way.
 """
 
+import dataclasses
 import functools
 import math
 from collections.abc import Mapping
@@ -92,6 +96,23 @@ class CodecRandom:
         state = np.random.SeedSequence([seed, 6, aggregate, slot, count]).generate_state(1, np.uint64)
         gen = torch.Generator().manual_seed(int(state[0]) & (2**63 - 1))
         return torch.randperm(count, generator=gen).numpy()
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionKey:
+    """The key a threaded role reserves for one round's upload (``slot``
+    the worker) or broadcast (``slot`` None): the SPMD sessions' draws of
+    the ``aggregate``-th aggregate (from 0) of a run seeded ``seed``.  A
+    keyed encode draws leaf ``i`` of ``count`` (or its ``fold_indices``
+    position of the whole parameter dict) through
+    ``CodecRandom.session_uniform``; FedDropoutAvg and SMAFD read the same
+    triple for ``dropout_uniform`` and ``leaf_permutation``.  The JAX
+    package reserves a threefry key from its aligned stream instead; the
+    port's draws are keyed by these integers, so no chain is replayed."""
+
+    seed: int
+    aggregate: int
+    slot: int | None
 
 
 # ---------------------------------------------------------------- bit packing
@@ -225,9 +246,10 @@ def _decode_consecutive(packed, signs, scale, level: int, bits: int, n: int) -> 
 
 
 def _wire_bytes(enc: dict) -> int:
-    """Bytes a leaf puts on the wire: u32 words and f32 scales."""
-    scales = enc["scales"] if "scales" in enc else enc["scale"]
-    return 4 * (enc["packed"].numel() + enc["signs"].numel() + scales.numel())
+    """Bytes a leaf puts on the wire: its tensors, u32 words and f32
+    scalars (QSGD's words, signs and scales; NNADQ's words, ``lo`` and
+    ``span``), 4 bytes a value."""
+    return 4 * sum(v.numel() for v in enc.values() if isinstance(v, torch.Tensor))
 
 
 def stochastic_quantization(quantization_level: int = 255, random: CodecRandom | None = None):
@@ -278,6 +300,11 @@ def stochastic_quantization(quantization_level: int = 255, random: CodecRandom |
             else:
                 if key is None:
                     rnd = source.leaf_uniform(seed, i, count, flat_leaf.shape, flat_leaf.device)
+                elif isinstance(key, SessionKey):
+                    index, total = (i, count) if fold_indices is None else (fold_indices[name], len(fold_indices))
+                    rnd = source.session_uniform(
+                        key.seed, key.aggregate, key.slot, index, total, flat_leaf.shape, flat_leaf.device
+                    )
                 else:
                     fold = None if fold_indices is None else fold_indices[name]
                     rnd = source.keyed_uniform(key, i, count, flat_leaf.shape, flat_leaf.device, fold)
@@ -320,6 +347,96 @@ def stochastic_quantization(quantization_level: int = 255, random: CodecRandom |
     return quant, dequant
 
 
+def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` of f32 tensors rounded once to f32, as a fused
+    multiply-add rounds it.  The product is exact in f64; the f64 sum is
+    rounded to odd (its error found exactly by Knuth's TwoSum, and an
+    inexact even result moved one step toward the exact value), and
+    rounding a value rounded to odd with 29 more bits to f32 rounds the
+    exact value once (Boldo and Melquiond)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).to(torch.float32)
+
+
+class NNADQ:
+    """NNADQ's packed codec over parameter dicts (the threaded FedOBD's
+    transport; the JAX package's ``NNADQ``): per leaf, a bit width from
+    its population std, ``clip(round(log2(max(32 ln2 std / weight, 1) +
+    1)), 2, 16)`` (2 for a std of 0), taken in f64 on the host from the f32
+    std as the JAX codec takes it; deterministic rounding of
+    ``(x - lo) / span`` to ``2^bits - 1`` levels over the leaf's ``[lo,
+    hi]`` (``span = max(hi - lo, 1e-12)``); the levels packed ``32 //
+    bits`` to a u32 word.  A leaf's blob holds ``packed``, ``lo``,
+    ``span``, ``bits``, ``shape`` and ``dtype``; the wire counts its words
+    and its two f32 scalars.
+
+    A message's stds are read in one device-to-host transfer.  Decode is
+    the JAX codec's ``q / levels * span + lo`` as XLA compiles it on the
+    CPU: ``fma(q, span * fl(1/levels), lo)``, rounded once
+    (:func:`_fma_f32`).  (XLA compiles a leaf of one value otherwise, but
+    such a leaf always codes level 0 and decodes to ``lo`` either way.)
+    (The SPMD session's closed form,
+    :func:`nnadq_quantize_dequantize_leaves`, follows its own compiled
+    program, which does not reassociate.)  ``flat=True`` codes a
+    dict of more than one leaf as one vector in layout order: one width
+    for the whole model."""
+
+    def __init__(self, weight: float = 0.01) -> None:
+        self.weight = float(weight)
+
+    def _choose_bits(self, std: float) -> int:
+        if std <= 0:
+            return 2
+        b = math.log2(max(32.0 * math.log(2.0) * std / self.weight, 1.0) + 1.0)
+        return int(min(16, max(2, round(b))))
+
+    @staticmethod
+    def _encode_leaf(flat: torch.Tensor, bits: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        lo, hi = torch.aminmax(flat)
+        span = torch.clamp(hi - lo, min=1e-12)
+        q = torch.round((flat - lo) / span * float((1 << bits) - 1))
+        return _pack_uint(q, bits), lo, span
+
+    @staticmethod
+    def _decode_leaf(packed, lo, span, bits: int, n: int) -> torch.Tensor:
+        q = _unpack_uint(packed, bits, n).to(torch.float32)
+        step = span * _constant(np.float32(1.0) / np.float32((1 << bits) - 1), span.device)
+        return _fma_f32(q, step, lo)
+
+    def quant(self, tree: Mapping[str, torch.Tensor], flat: bool = False) -> dict:
+        if flat and len(tree) > 1:
+            layout = ParamVecLayout.of(tree)
+            blob = self.quant({"__param_vec__": layout.flatten(tree)})
+            blob["flat_layout"] = layout
+            return blob
+        names = sorted(tree)
+        leaves = [tree[name].detach().reshape(-1).to(torch.float32) for name in names]
+        stds = torch.stack([leaf.std(correction=0) for leaf in leaves]).tolist()  # the message's one sync
+        encoded = []
+        for name, leaf, std in zip(names, leaves, stds):
+            bits = self._choose_bits(std)
+            packed, lo, span = self._encode_leaf(leaf, bits)
+            encoded.append({"packed": packed, "lo": lo, "span": span, "bits": bits,
+                            "shape": tuple(tree[name].shape), "dtype": tree[name].dtype})
+        return {"keys": names, "leaves": encoded}
+
+    def dequant(self, blob: dict) -> dict[str, torch.Tensor]:
+        decoded = {}
+        for name, enc in zip(blob["keys"], blob["leaves"]):
+            n = int(np.prod(enc["shape"])) if enc["shape"] else 1
+            flat = self._decode_leaf(enc["packed"], enc["lo"], enc["span"], enc["bits"], n)
+            decoded[name] = flat.reshape(enc["shape"]).to(enc["dtype"])
+        if "flat_layout" in blob:
+            return dict(blob["flat_layout"].split(decoded["__param_vec__"]))
+        return decoded
+
+
 def blob_nbytes(blob: dict) -> int:
     """Wire bytes of an encoded blob: every leaf's words and scales (the
     JAX package's ``param_nbytes`` over the blob's arrays)."""
@@ -327,11 +444,12 @@ def blob_nbytes(blob: dict) -> int:
 
 
 def check_compression_ratio(original: Mapping[str, torch.Tensor], encoded: dict) -> float:
-    """Compressed bytes / original bytes; a per-leaf scale counts 8 bytes,
-    a flat blob's per-tensor scales 4 bytes each, as in the JAX package."""
+    """Compressed bytes / original bytes; a per-leaf scale (NNADQ: ``lo``
+    and ``span``) counts 8 bytes, a flat blob's per-tensor scales 4 bytes
+    each, as in the JAX package."""
     original_bytes = max(1, sum(t.numel() * t.element_size() for t in original.values()))
     encoded_bytes = 0
     for enc in encoded["leaves"]:
-        encoded_bytes += 4 * (enc["packed"].numel() + enc["signs"].numel())
+        encoded_bytes += 4 * sum(enc[k].numel() for k in ("packed", "signs") if k in enc)
         encoded_bytes += 4 * enc["scales"].numel() if "scales" in enc else 8
     return encoded_bytes / original_bytes

@@ -71,7 +71,7 @@ class Server(Executor):
             worker_set: set[int] = set()
             while not self._stopped():
                 if not worker_set:
-                    worker_set = set(range(self._endpoint.worker_num))
+                    worker_set = self._active_workers()
                 progressed = False
                 for worker_id in sorted(worker_set):
                     if self._endpoint.has_data(worker_id):
@@ -89,6 +89,11 @@ class Server(Executor):
 
     def _before_start(self) -> None:
         pass
+
+    def _active_workers(self) -> set[int]:
+        """The workers the loop still expects messages from (the gradient
+        server drops each one that has ended)."""
+        return set(range(self._endpoint.worker_num))
 
     def _server_exit(self) -> None:
         pass

@@ -4,7 +4,10 @@
 An endpoint is a pair of thread-safe queues: messages are handed over by
 reference, and parameter payloads stay on the device.  The server endpoint
 counts the payload bytes it sends and receives; quantized subclasses encode
-before and decode after the count, so it sees wire sizes.
+before and decode after the count, so it sees wire sizes.  Each endpoint
+holds the link's random source (``random`` in ``endpoint_kwargs``,
+``ops/quantization.py::CodecRandom``): the codecs draw from it, and so do
+the upload transforms of FedDropoutAvg and SMAFD.
 """
 
 import queue
@@ -12,6 +15,7 @@ import threading
 from typing import Any
 
 from ..message import Message, get_message_size
+from ..ops.quantization import CodecRandom
 
 
 class _Channel:
@@ -47,9 +51,10 @@ class CentralTopology:
 class ClientEndpoint:
     """A worker's end of its link."""
 
-    def __init__(self, topology: CentralTopology, worker_id: int) -> None:
+    def __init__(self, topology: CentralTopology, worker_id: int, random: CodecRandom | None = None) -> None:
         self._topology = topology
         self.worker_id = worker_id
+        self.random = random if random is not None else CodecRandom()
 
     def send(self, data: Any) -> None:
         self._topology._to_server[self.worker_id].put(data)
@@ -67,8 +72,9 @@ class ClientEndpoint:
 class ServerEndpoint:
     """The server's end of every link, with the byte counters."""
 
-    def __init__(self, topology: CentralTopology) -> None:
+    def __init__(self, topology: CentralTopology, random: CodecRandom | None = None) -> None:
         self._topology = topology
+        self.random = random if random is not None else CodecRandom()
         self.received_bytes = 0
         self.sent_bytes = 0
 

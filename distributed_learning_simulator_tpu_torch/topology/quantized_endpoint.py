@@ -6,7 +6,10 @@ parameter payload of a message on ``send``/``broadcast`` and decode it on
 The codec (``ops/quantization.py``) sees the payload in the JAX package's
 keys and layouts (``models/convert.py::to_jax_tensors``), so each leaf's
 values meet their random draws in the JAX package's order; decode returns
-the port's keys and layouts.  NNADQ endpoints are not ported yet.
+the port's keys and layouts.  QSGD's endpoints take a one-shot aligned key
+(``set_quant_key``: a :class:`~..ops.quantization.SessionKey` from a
+threaded role) for their next encode; NNADQ is deterministic and takes
+none.
 """
 
 import dataclasses
@@ -14,7 +17,7 @@ from typing import Any
 
 from ..message import DeltaParameterMessage, Message, ParameterMessage
 from ..models.convert import from_jax_tensors, to_jax_tensors
-from ..ops.quantization import blob_nbytes, check_compression_ratio, stochastic_quantization
+from ..ops.quantization import NNADQ, blob_nbytes, check_compression_ratio, stochastic_quantization
 from ..utils.logging import get_logger
 from .central_topology import ClientEndpoint, ServerEndpoint
 
@@ -89,8 +92,8 @@ class QuantClientEndpoint(_QuantCodecMixin, ClientEndpoint):
     ``quant_broadcast``)."""
 
     def __init__(self, topology, worker_id, dequant_server_data: bool = True,
-                 flat_payload: bool = False) -> None:
-        ClientEndpoint.__init__(self, topology, worker_id)
+                 flat_payload: bool = False, random=None) -> None:
+        ClientEndpoint.__init__(self, topology, worker_id, random=random)
         self._init_codec(type(self).__name__, flat_payload=flat_payload)
         self.dequant_server_data = dequant_server_data
 
@@ -111,8 +114,8 @@ class QuantServerEndpoint(_QuantCodecMixin, ServerEndpoint):
     broadcast is encoded once and the same encoded message goes to every
     receiver."""
 
-    def __init__(self, topology, quant_broadcast: bool = False, flat_payload: bool = False) -> None:
-        ServerEndpoint.__init__(self, topology)
+    def __init__(self, topology, quant_broadcast: bool = False, flat_payload: bool = False, random=None) -> None:
+        ServerEndpoint.__init__(self, topology, random=random)
         self._init_codec(type(self).__name__, flat_payload=flat_payload)
         self.quant_broadcast = quant_broadcast
 
@@ -157,10 +160,10 @@ class StochasticQuantClientEndpoint(_AlignedKeyMixin, QuantClientEndpoint):
     ParamVec payload unless ``flat_payload: false``.  ``random`` is the
     codec's random source (``ops/quantization.py::CodecRandom``)."""
 
-    def __init__(self, topology, worker_id, quantization_level: int = 255, random=None, **kwargs):
+    def __init__(self, topology, worker_id, quantization_level: int = 255, **kwargs):
         kwargs.setdefault("flat_payload", True)
         super().__init__(topology, worker_id, **kwargs)
-        self._q, self._dq = stochastic_quantization(quantization_level, random=random)
+        self._q, self._dq = stochastic_quantization(quantization_level, random=self.random)
 
     def _quant(self, tree):
         key, fold = self._take_key()
@@ -174,10 +177,10 @@ class StochasticQuantClientEndpoint(_AlignedKeyMixin, QuantClientEndpoint):
 
 
 class StochasticQuantServerEndpoint(_AlignedKeyMixin, QuantServerEndpoint):
-    def __init__(self, topology, quantization_level: int = 255, random=None, **kwargs):
+    def __init__(self, topology, quantization_level: int = 255, **kwargs):
         kwargs.setdefault("flat_payload", True)
         super().__init__(topology, **kwargs)
-        self._q, self._dq = stochastic_quantization(quantization_level, random=random)
+        self._q, self._dq = stochastic_quantization(quantization_level, random=self.random)
 
     def _quant(self, tree):
         key, fold = self._take_key()
@@ -188,3 +191,31 @@ class StochasticQuantServerEndpoint(_AlignedKeyMixin, QuantServerEndpoint):
 
     def _dequant(self, blob):
         return self._dq(blob)
+
+
+class NNADQClientEndpoint(QuantClientEndpoint):
+    """NNADQ with the trade-off ``weight`` of ``endpoint_kwargs``: per leaf
+    unless ``flat_payload``, which trades the per-leaf widths for one
+    encode of the whole model."""
+
+    def __init__(self, topology, worker_id, weight: float = 0.01, **kwargs):
+        super().__init__(topology, worker_id, **kwargs)
+        self._codec = NNADQ(weight=weight)
+
+    def _quant(self, tree):
+        return self._codec.quant(tree, flat=self.flat_payload)
+
+    def _dequant(self, blob):
+        return self._codec.dequant(blob)
+
+
+class NNADQServerEndpoint(QuantServerEndpoint):
+    def __init__(self, topology, weight: float = 0.01, **kwargs):
+        super().__init__(topology, **kwargs)
+        self._codec = NNADQ(weight=weight)
+
+    def _quant(self, tree):
+        return self._codec.quant(tree, flat=self.flat_payload)
+
+    def _dequant(self, blob):
+        return self._codec.dequant(blob)

@@ -15,17 +15,23 @@ executors:
   (``share_feature`` forced on) and fed_aas (``parallel/spmd_gnn.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
-  endpoints (``fed_avg`` and ``fed_obd_sq``).  A failure on any thread
-  sets the task's abort event, every blocking loop unwinds, and ``train``
-  re-raises the first error after joining the threads.
+  endpoints: ``fed_avg``, ``fed_paq``, ``fed_obd`` (NNADQ), ``fed_obd_sq``,
+  ``fed_dropout_avg``, ``single_model_afd`` and ``sign_SGD`` (the methods
+  ``method/`` registers).  fed_avg, fed_paq, fed_dropout_avg,
+  single_model_afd, and the FedOBD pair at ``second_phase_epoch: 1``, draw
+  what their SPMD sessions draw.  A failure on any thread sets the task's
+  abort event, every blocking loop unwinds, and ``train`` re-raises the
+  first error after joining the threads.
 
 It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
 and raises where no GPU is visible.  What the port does not run yet raises
 ``NotImplementedError`` naming the ROADMAP item.  ``fault_tolerance`` and
 ``aggregation_mode: buffered`` run on the SPMD FedAvg session (fed_avg,
 fed_paq); the other SPMD sessions take only the kill schedule and the
-supervisor's knobs (``parallel/spmd.py``), and the threaded executor
-refuses both, and ``watchdog_seconds``.
+supervisor's knobs (``parallel/spmd.py``).  The threaded executor refuses
+the Shapley values, graph FL, the fault plan, buffered aggregation,
+resume and ``watchdog_seconds`` (ROADMAP.md Queue 1 item 5, part 2), and
+``float64_parity`` and the population store (item 7).
 
 :func:`train_with_recovery` is the supervisor: attempt ``k`` runs in
 ``<save_dir>_retry<k>`` and resumes from the newest attempt directory that
@@ -78,8 +84,12 @@ _EXECUTORS = ("auto", "spmd", "sequential")
 _GRAPH_METHODS = ("fed_gnn", "fed_gcn", "fed_aas")
 #: algorithm_kwargs the threaded executor's roles read; any other raises
 THREADED_ALGORITHM_KWARGS = frozenset(
-    {"global_model_path", "random_client_number", "early_stop", "second_phase_epoch", "dropout_rate"}
+    {"global_model_path", "random_client_number", "early_stop", "second_phase_epoch", "dropout_rate", "topk_ratio"}
 )
+#: the ROADMAP item of each algorithm_kwarg the threaded executor refuses
+#: (any other: item 5, part 2)
+_THREADED_KWARG_ITEMS = {"float64_parity": "item 7", "population_store": "item 7"}
+_PART_2 = "ROADMAP.md Queue 1 item 5, part 2"
 
 
 def _session_fed_avg(config, args):
@@ -157,31 +167,17 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
                 f"method {algorithm!r} under the SPMD executor is not ported yet (ROADMAP.md);"
                 f" the port's SPMD sessions run {sorted(SPMD_SESSION_BUILDERS)}"
             )
-    elif algorithm == "fed_obd":
-        raise NotImplementedError("fed_obd (NNADQ transport) is not ported yet (ROADMAP.md)")
-    elif algorithm == "fed_paq":
+    elif not CentralizedAlgorithmFactory.has_algorithm(algorithm):
         raise NotImplementedError(
-            "fed_paq on the threaded executor is not ported yet: its worker hands the codec"
-            " JAX threefry keys (ROADMAP.md)"
-        )
-    elif algorithm not in ("fed_avg", "fed_obd_sq"):
-        raise NotImplementedError(
-            f"method {algorithm!r} is not ported yet (ROADMAP.md); the threaded executor runs"
-            " fed_avg and fed_obd_sq"
+            f"method {algorithm!r} on the threaded executor is not ported yet ({_PART_2}: the Shapley"
+            f" values and graph FL); it runs {sorted(CentralizedAlgorithmFactory.config)}"
         )
     else:
-        kwargs = config.algorithm_kwargs
-        if algorithm == "fed_obd_sq" and int(kwargs.get("second_phase_epoch", 0)) == 1:
-            raise NotImplementedError(
-                "fed_obd_sq with second_phase_epoch 1 (the aligned-stream replay of the SPMD"
-                " session's keys) is not ported yet (ROADMAP.md)"
-            )
-        unsupported = sorted(set(kwargs) - THREADED_ALGORITHM_KWARGS)
+        unsupported = sorted(set(config.algorithm_kwargs) - THREADED_ALGORITHM_KWARGS)
         if unsupported:
+            items = [f"{k}: {_THREADED_KWARG_ITEMS.get(k, 'item 5, part 2')}" for k in unsupported]
             raise NotImplementedError(
-                f"algorithm_kwargs {unsupported} are not ported yet on the threaded executor"
-                " (buffered aggregation, resume, the population store, float64_parity:"
-                " ROADMAP.md)"
+                f"algorithm_kwargs are not ported yet on the threaded executor (ROADMAP.md Queue 1, {items})"
             )
     layouts = [k for k in _LAYOUT_KWARGS if int(config.model_kwargs.get(k, 0) or 0) > 1]
     spmd = resolve_executor(config) == "spmd"
@@ -194,14 +190,14 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
     else:
         faults_refused = plan is not None and not spmd
     refused = {
-        "model_kwargs": layouts,
-        "fault_tolerance": faults_refused,
-        "watchdog_seconds": bool(config.watchdog_seconds) and not spmd,
-        "parallel_number": bool(config.parallel_number),
+        "model_kwargs": (layouts, "ROADMAP.md Queue 1 item 8"),
+        "fault_tolerance": (faults_refused, _PART_2),
+        "watchdog_seconds": (bool(config.watchdog_seconds) and not spmd, _PART_2),
+        "parallel_number": (bool(config.parallel_number), _PART_2),
     }
-    named = [k for k, v in refused.items() if v]
+    named = [f"{k} ({item})" for k, (v, item) in refused.items() if v]
     if named:
-        raise NotImplementedError(f"{named} are not ported yet (ROADMAP.md)")
+        raise NotImplementedError(f"{named} are not ported yet")
 
 
 @dataclasses.dataclass

@@ -3,8 +3,13 @@
 point (the end of local training by default), uploads a parameter delta
 (or the parameters, or the best validation epoch's), waits for the
 aggregate, answers an unselected round's ``None`` with ``None``, and
-mirrors the global model in a :class:`ModelCache`.  The fault plan stays
-refused (``training.py``)."""
+mirrors the global model in a :class:`ModelCache`.  A round trains the
+SPMD session's stream unless the role says otherwise
+(:meth:`AggregationWorker._aligned_stream`), and the upload of a round
+armed so hands its reserved
+:class:`~..ops.quantization.SessionKey` to an endpoint that takes one
+(``set_quant_key``): the two executors then draw the same codec values.
+The fault plan stays refused (``training.py``)."""
 
 import os
 from typing import Any
@@ -64,12 +69,21 @@ class AggregationWorker(Client):
                 return
         self._register_aggregation()
 
+    def _aligned_stream(self) -> bool:
+        """Whether this round trains the SPMD session's stream for (seed,
+        round, worker), which pins the two executors to one trajectory
+        and reserves the round's codec key; a role that keeps the
+        trainer's own per-epoch stream returns False."""
+        return True
+
+    def _quant_fold_indices(self) -> dict[str, int] | None:
+        """Each coded leaf's position in the whole parameter dict, for a
+        worker that codes a subset of the leaves (None: every leaf)."""
+        return None
+
     def _before_round(self) -> None:
-        """fed_avg trains the SPMD session's stream for (seed, round,
-        worker), which pins the two executors to one trajectory; other
-        methods keep the trainer's own per-epoch stream."""
         super()._before_round()
-        if self.config.distributed_algorithm == "fed_avg":
+        if self._aligned_stream():
             self.trainer.set_round_stream((self.config.seed, self._round_num, self.worker_id))
 
     def _register_aggregation(self) -> None:
@@ -81,6 +95,9 @@ class AggregationWorker(Client):
         self.trainer.append_named_hook(self._aggregation_time, "aggregation", aggregation_impl)
 
     def _aggregation(self, sent_data: Message, **kwargs: Any) -> None:
+        key = self.trainer.reserved_quant_key
+        if key is not None and hasattr(self._endpoint, "set_quant_key"):
+            self._endpoint.set_quant_key(key, fold_indices=self._quant_fold_indices())
         self.send_data_to_server(sent_data)
         self._offload_from_device()
         self._get_result_from_server()

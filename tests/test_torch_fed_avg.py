@@ -176,14 +176,8 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     base = _fields(tmp_path, "refused")
     obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
     for change in (
-        {"distributed_algorithm": "sign_SGD", "executor": "sequential"},
         {"distributed_algorithm": "GTG_shapley_value", "executor": "sequential"},
-        {"distributed_algorithm": "fed_dropout_avg", "executor": "sequential", "algorithm_kwargs": {"dropout_rate": 0.3}},
-        {"distributed_algorithm": "single_model_afd", "executor": "sequential", "algorithm_kwargs": {"dropout_rate": 0.3}},
         {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2, "population_store": "streamed"}},
-        {"distributed_algorithm": "fed_paq", "executor": "sequential"},
-        {"distributed_algorithm": "fed_obd", "executor": "sequential", "algorithm_kwargs": obd},
-        {"distributed_algorithm": "fed_obd_sq", "executor": "sequential", "algorithm_kwargs": obd},
         {"executor": "sequential", "algorithm_kwargs": {"aggregation_mode": "buffered"}},
         {"executor": "sequential", "algorithm_kwargs": {"float64_parity": True}},
         {"algorithm_kwargs": {"round_horizon": 2, "selection_gather": True}},
