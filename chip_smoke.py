@@ -97,7 +97,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against CPU, and fed_paq threaded against the SPMD session on the card;
    and a keyed threaded fed_obd_sq task (``vit_small``, ``second_phase_epoch``
    1, ``flat_payload: false``) whose K2/K3 launches must be the protocol's
-   0 and 0 (``check_keyed_obd_sq_launches``);
+   0 and 0 (``check_keyed_obd_sq_launches``); then the threaded Shapley
+   values and graph FL: a threaded GTG task (``conf/gtg_sv/mnist.yaml``
+   cut to 3 clients x 64 samples, 1 round: the uploads within ``ROW_TOL``,
+   every subset's ``correct`` equal and its test loss within 1e-5 in
+   lockstep on the CPU's stack, the SV dicts equal where the subsets
+   match, K1 exactly once a subset and once a round,
+   ``check_threaded_shapley_task_against_cpu``) and a threaded fed_gnn task
+   (``conf/fed_gnn/cs.yaml`` cut to 4 workers and a 512-node graph, 2
+   rounds, ``batch_number`` 2, ``num_neighbor`` 4, the models' dropout 0:
+   records and every round's npz within ``GNN_TOL``,
+   ``graph_worker_stat.json`` equal field for field, no kernel,
+   ``check_threaded_gnn_task_against_cpu``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -168,7 +179,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``conf/{fed_paq,fed_obd,fed_dropout_avg,smafd,sign_sgd}/imdb.yaml``
    under ``executor: sequential`` at full width (``THREADED_FILES``: 1
    round of 1 local epoch, fed_obd's 1 tuning epoch), each record's phase,
-   time, test loss and wire MB printed, no kernel launched;
+   time, test loss and wire MB printed, no kernel launched; then (4k) the
+   shipped ``conf/gtg_sv/mnist.yaml``, ``hierarchical_sv/mnist.yaml`` and
+   ``multiround_sv/cifar10.yaml`` (``THREADED_SV_FILES``) and
+   ``conf/fed_gnn/cs.yaml``, ``fed_gcn/cs.yaml`` and ``fed_aas/cora.yaml``
+   (``THREADED_GNN_FILES``) under ``executor: sequential`` at full width,
+   1 round of 1 local epoch each: the round's seconds, the Shapley files'
+   subsets and their seconds (K1 exactly ``subsets + 1``, the SV dict over
+   every worker, ``shapley_values.json``), the graph files' exchanges and
+   communicated MB (``batch_number`` exchanges a worker on fed_gnn and
+   fed_gcn, none on fed_aas; no K1), no other kernel; and a profiled
+   threaded ``fed_gnn/cs.yaml`` run (50 worker threads, an exchange barrier
+   a batch);
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -3501,6 +3523,264 @@ def profile_gnn_round(workdir: str, records: dict) -> None:
               host_ops=10)
 
 
+# ------------------------------- the threaded Shapley values and graph FL
+#: phase 4k: the shipped files under ``executor: sequential`` at full
+#: width, as shipped but for 1 round of ``THREADED_EPOCHS`` local epoch
+THREADED_SV_FILES = ("gtg_sv/mnist.yaml", "hierarchical_sv/mnist.yaml", "multiround_sv/cifar10.yaml")
+THREADED_GNN_FILES = ("fed_gnn/cs.yaml", "fed_gcn/cs.yaml", "fed_aas/cora.yaml")
+
+
+@contextlib.contextmanager
+def captured_sv_stacks():
+    """Each round's stack of uploads (a clone) and dataset sizes as the
+    threaded Shapley server holds them at its aggregate."""
+    from distributed_learning_simulator_tpu_torch.method.shapley_value import shapley_value_algorithm as sva
+
+    stacks = []
+    aggregate = sva.ShapleyValueAlgorithm.aggregate_worker_data
+
+    def recorded(self):
+        stacks.append((self.stack.clone(), self.stack_sizes.copy()))
+        return aggregate(self)
+
+    sva.ShapleyValueAlgorithm.aggregate_worker_data = recorded
+    try:
+        yield stacks
+    finally:
+        sva.ShapleyValueAlgorithm.aggregate_worker_data = aggregate
+
+
+@contextlib.contextmanager
+def graph_dropout_off():
+    """TwoGCN's and ThreeGCN's dropout at 0 (a card's generator draws
+    other bits than the CPU's)."""
+    from distributed_learning_simulator_tpu_torch.models import graph
+
+    saved = {name: getattr(graph, name) for name in ("TwoGCN", "ThreeGCN")}
+    for name, cls in saved.items():
+        def init(self, *args, _base=cls, **kwargs):
+            _base.__init__(self, *args, **kwargs)
+            self.dropout_rate = 0.0
+
+        setattr(graph, name, type(name, (cls,), {"__init__": init}))
+    try:
+        yield
+    finally:
+        for name, cls in saved.items():
+            setattr(graph, name, cls)
+
+
+def check_threaded_shapley_task_against_cpu(workdir: str) -> None:
+    """``conf/gtg_sv/mnist.yaml`` (LeNet5, f32, GTG) under ``executor:
+    sequential`` cut to 3 clients x 64 samples and a test set of 64 at the
+    CPU tests' batch 16 and learning rate 0.05 (so that the first round
+    moves the accuracy and GTG does not truncate), 1 round, from the port's
+    init, by ``build_task`` + ``run_task`` on the CPU and on the card (the
+    launch counters set to 0 just before the card's run and read just
+    after):
+
+    * every upload (the server's stack) within ``ROW_TOL`` of its row's
+      largest value;
+    * in lockstep, every subset the CPU evaluated evaluated again on the
+      card on the CPU's stack: equal ``correct`` counts and test losses
+      within 1e-5 (relative);
+    * where the card run's subsets all match the CPU's counts, the same
+      subsets were visited and the SV dicts are equal;
+    * K1 exactly once a subset and once for the aggregate; no other kernel."""
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    def make(save_dir: str, **algorithm_kwargs):
+        fields = {"executor": "sequential", "round": 1, "worker_number": 3, "batch_size": 16, "learning_rate": 0.05,
+                  "dataset_kwargs.train_size": 192, "dataset_kwargs.val_size": 32, "dataset_kwargs.test_size": 64}
+        fields.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+        return shipped_config(THREADED_SV_FILES[0], save_dir, **fields)
+
+    init = _port_init(workdir, "tgtg", make)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        ctx = build_task(make(os.path.join(workdir, f"tgtg_{device}"), global_model_path=init), device=device)
+        with captured_sv_stacks() as stacks:
+            _reset_launches()
+            result = run_task(ctx)
+            launches = _read_launches()
+        runs[device] = (ctx.server.algorithm, stacks[0], result, launches)
+    (cpu, (cpu_stack, sizes), cpu_result, _), (card, (card_stack, _), card_result, launches) = runs["cpu"], runs["cuda"]
+    row_rel = max(float((card_stack[c].cpu() - cpu_stack[c]).abs().max() / cpu_stack[c].abs().max())
+                  for c in range(cpu_stack.shape[0]))
+    want, got = cpu.subsets.results[1], card.subsets.results[1]
+    matched = sum(k in got and got[k][1:] == want[k][1:] for k in want)
+    same = matched == len(want) == len(got)
+    subsets = sorted(want)
+    card.subsets.metric_many(cpu_stack.cuda(), sizes, 0)(subsets)  # key 0: no round 0 evaluates subsets
+    again = card.subsets.results[0]
+    lockstep = sum(again[k][1:] == want[k][1:] for k in subsets)
+    loss_rel = max(abs(again[k][0] - want[k][0]) / abs(want[k][0]) for k in subsets)
+    print(
+        f"small task (LeNet5 threaded GTG, 3 clients x 64 samples, 1 round) card vs CPU: uploads rel {row_rel:.3g} (ROW_TOL"
+        f" {ROW_TOL}); in lockstep (the CPU's stack) {lockstep} of {len(subsets)} subsets with equal correct"
+        f" counts, test loss rel {loss_rel:.3g}; by run_task(): {len(got)} vs {len(want)} subsets evaluated,"
+        f" {matched} with equal counts; sv {card_result['sv'][1]} vs {cpu_result['sv'][1]}; launches {launches}"
+    )
+    check(launches["K1"] == card.subsets.round_subsets[1] + 1,
+          f"threaded GTG task: K1 {launches['K1']}, want {card.subsets.round_subsets[1] + 1}")
+    check(not [kid for kid, n in launches.items() if n and kid != "K1"], f"threaded GTG task launches {launches}")
+    check(row_rel <= ROW_TOL, f"threaded GTG task: uploads {row_rel} apart")
+    check(lockstep == len(subsets) and loss_rel <= 1e-5, "threaded GTG task: subset metrics disagree")
+    check(not same or (card_result["sv"] == cpu_result["sv"] and card_result["sv_S"] == cpu_result["sv_S"]),
+          "threaded GTG task: equal subset counts but other Shapley values")
+    del runs, cpu, card
+    torch.cuda.empty_cache()
+
+
+def _graph_worker_stats(save_dir: str) -> dict:
+    """Every worker's ``graph_worker_stat.json`` of a run, by worker."""
+    stats = {}
+    for name in sorted(os.listdir(save_dir)):
+        path = os.path.join(save_dir, name, "graph_worker_stat.json")
+        if name.startswith("worker_") and os.path.isfile(path):
+            with open(path, encoding="utf8") as f:
+                stats[name] = json.load(f)
+    return stats
+
+
+def check_threaded_gnn_task_against_cpu(workdir: str) -> None:
+    """``conf/fed_gnn/cs.yaml`` under ``executor: sequential`` cut to 4
+    workers and a 512-node graph, 2 rounds, ``share_feature`` with
+    ``batch_number`` 2 and ``num_neighbor`` 4 (the data loader's numpy
+    draws, the same on both), the models' dropout 0, from the port's init,
+    by ``train()`` on the card and on the CPU: every round's test loss and
+    ``aggregated_model/round_N.npz`` within ``GNN_TOL`` (relative), the
+    wire MB equal, every ``graph_worker_stat.json`` equal field for field,
+    and no kernel launched on the card."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.training import train
+
+    def make(save_dir: str, **algorithm_kwargs):
+        fields = {"executor": "sequential", "round": 2, "worker_number": 4, "dataset_kwargs.num_nodes_": 512,
+                  "algorithm_kwargs.batch_number": 2, "algorithm_kwargs.num_neighbor": 4}
+        fields.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+        return shipped_config(THREADED_GNN_FILES[0], save_dir, **fields)
+
+    results = {}
+    with graph_dropout_off():
+        init = _port_init(workdir, "tgnn", make)
+        for device in ("cuda", "cpu"):
+            config = make(os.path.join(workdir, f"tgnn_{device}"), global_model_path=init)
+            _reset_launches()
+            perf = train(config, device=device)["performance"]
+            launches = _read_launches()
+            results[device] = (perf, {r: _round_params(config.save_dir, r) for r in perf},
+                               _graph_worker_stats(config.save_dir), launches)
+    (gpu_perf, gpu_params, gpu_stats, launches), (cpu_perf, cpu_params, cpu_stats, _) = results["cuda"], results["cpu"]
+    check(sorted(gpu_perf) == sorted(cpu_perf) == [1, 2], f"threaded fed_gnn task records {sorted(gpu_perf)}")
+    params = max(
+        float(np.abs(gpu_params[r][k] - want).max() / np.abs(want).max())
+        for r in cpu_params for k, want in cpu_params[r].items()
+    )
+    loss = max(abs(gpu_perf[r]["test_loss"] - cpu_perf[r]["test_loss"]) / abs(cpu_perf[r]["test_loss"])
+               for r in cpu_perf)
+    wire = [((gpu_perf[r]["received_mb"], gpu_perf[r]["sent_mb"]), (cpu_perf[r]["received_mb"], cpu_perf[r]["sent_mb"]))
+            for r in cpu_perf]
+    print(
+        f"small task (threaded fed_gnn Coauthor_CS, 4 workers, 512 nodes, 2 batches, fan-in 4) card vs CPU: test"
+        f" loss {[round(gpu_perf[r]['test_loss'], 6) for r in (1, 2)]} vs"
+        f" {[round(cpu_perf[r]['test_loss'], 6) for r in (1, 2)]} (rel {loss:.3g}), parameters {params:.3g} apart"
+        f" (relative, every round), wire MB {wire}; worker stats equal {gpu_stats == cpu_stats}"
+        f" ({sum(s['exchange_count'] for s in gpu_stats.values())} exchanges); launches {launches}"
+    )
+    check(all(a == b for a, b in wire), f"threaded fed_gnn task wire MB {wire}")
+    check(len(gpu_stats) == 4 and gpu_stats == cpu_stats, f"threaded fed_gnn task stats {gpu_stats} vs {cpu_stats}")
+    check(all(s["exchange_count"] == 2 * 2 for s in gpu_stats.values()), f"threaded fed_gnn exchanges {gpu_stats}")
+    check(params <= GNN_TOL and loss <= GNN_TOL, "threaded fed_gnn task: card and CPU disagree")
+    check(not any(launches.values()), f"threaded fed_gnn task launched {launches}")
+
+
+def run_threaded_sv_gnn_files(workdir: str, card: str) -> tuple[dict[str, int], dict]:
+    """``build_task`` + ``run_task`` on each of ``THREADED_SV_FILES`` and
+    ``THREADED_GNN_FILES`` at full width, as shipped but for 1 round of
+    ``THREADED_EPOCHS`` local epoch, the launch counters set to 0 just
+    before each run and read just after: the round's seconds and, for the
+    Shapley files, its subsets and their seconds (K1 exactly ``subsets +
+    1``, the SV dict over every worker, ``shapley_values.json`` written),
+    for the graph files the exchanges and the MB each worker communicated
+    (``graph_worker_stat.json``; fed_gnn and fed_gcn ``batch_number``
+    exchanges a worker, fed_aas none; K1 none).  No other kernel.  Returns
+    the launches of all runs and each file's numbers."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    total, records = {}, {}
+    for name in THREADED_SV_FILES + THREADED_GNN_FILES:
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), executor="sequential",
+                                round=1, epoch=THREADED_EPOCHS)
+        t0 = time.monotonic()
+        ctx = build_task(config)
+        setup = time.monotonic() - t0
+        _reset_launches()
+        t0 = time.monotonic()
+        out = run_task(ctx)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = _read_launches()
+        for kid, n in launches.items():
+            total[kid] = total.get(kid, 0) + n
+        row = out["performance"][1]
+        print(f"main path {name} threaded ({config.distributed_algorithm}, {config.model_name},"
+              f" {config.worker_number} workers): setup {setup:.2f} s, run {wall:.2f} s ({card}); launches {launches}")
+        check(np.isfinite(row["test_loss"]) and 0.0 <= row["test_accuracy"] <= 1.0, f"{name} record {row}")
+        check(os.path.isfile(os.path.join(config.save_dir, "server", "round_record.json")), f"{name}: no record")
+        numbers = {"setup_s": setup, "run_s": wall, "round_s": row["round_seconds"]}
+        if name in THREADED_SV_FILES:
+            sv = out["sv"][1]
+            print(f"  round 1: {row['round_seconds']:.3f} s, {row['subsets']} subsets evaluated in"
+                  f" {row['subset_seconds']:.3f} s; test loss {row['test_loss']:.4f} accuracy"
+                  f" {row['test_accuracy']:.4f}; round 0 accuracy {out['performance'][0]['test_accuracy']:.4f};"
+                  f" sv {({w: round(v, 5) for w, v in sv.items()})}")
+            check(sorted(out["performance"]) == [0, 1], f"{name} records {sorted(out['performance'])}")
+            check(sorted(sv) == list(range(config.worker_number)), f"{name} sv {sv}")
+            check(launches["K1"] == row["subsets"] + 1, f"{name} K1 launches {launches['K1']}, want {row['subsets'] + 1}")
+            check(os.path.isfile(os.path.join(config.save_dir, "shapley_values.json")), f"{name}: no shapley_values.json")
+            numbers.update(subsets=row["subsets"], subset_s=row["subset_seconds"])
+        else:
+            stats = _graph_worker_stats(config.save_dir)
+            exchanges = sum(s["exchange_count"] for s in stats.values())
+            mb = sum(s["communicated_bytes"] for s in stats.values()) / 1e6
+            want = 0 if config.distributed_algorithm == "fed_aas" else int(config.algorithm_kwargs["batch_number"])
+            print(f"  round 1: {row['round_seconds']:.3f} s; {exchanges} exchanges ({want} a worker),"
+                  f" {mb:.3f} MB communicated by the workers; received {row['received_mb']:.3f} MB, sent"
+                  f" {row['sent_mb']:.3f} MB; test loss {row['test_loss']:.4f} accuracy {row['test_accuracy']:.4f}")
+            check(sorted(out["performance"]) == [1], f"{name} records {sorted(out['performance'])}")
+            check(len(stats) == config.worker_number and all(s["exchange_count"] == want for s in stats.values()),
+                  f"{name} exchanges {stats}")
+            check(launches["K1"] == 0, f"{name} K1 launches {launches['K1']}, want 0")
+            numbers.update(exchanges=exchanges, communicated_mb=mb)
+        others = [kid for kid, n in launches.items() if n and kid != "K1"]
+        check(not others, f"{name}: kernels off this path launched: {others}")
+        records[name] = numbers
+        del ctx, out
+        torch.cuda.empty_cache()
+    return total, records
+
+
+def profile_threaded_gnn_round(workdir: str, records: dict) -> None:
+    """Where a threaded ``fed_gnn/cs.yaml`` round's time goes (50 worker
+    threads, 10 batches, an exchange barrier of all 50 a batch), under
+    ``torch.profiler``: ``run_task`` of a fresh task, its setup outside."""
+    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
+
+    name = THREADED_GNN_FILES[0]
+    ctx = build_task(shipped_config(name, os.path.join(workdir, "tgnn_profile"), executor="sequential", round=1,
+                                    epoch=THREADED_EPOCHS))
+    _profiled(lambda: run_task(ctx), " (threaded fed_gnn Coauthor_CS: 50 workers x 10 batches, an exchange each)",
+              f"4k's run took {records[name]['run_s']:.3f} s", "one run_task (init, index exchange, round, eval)",
+              host_ops=10)
+
+
 # ------------------------------------------------- BERT and the round machinery
 BERT_FILE = "large_scale/fed_avg/bert_agnews.yaml"
 BERT_ROUNDS = 2
@@ -4352,6 +4632,10 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
         check_threaded_tasks_against_cpu(d)
         check_keyed_obd_sq_launches(d)
     mark("3 threaded tasks")
+    with phase_dir(workdir) as d:
+        check_threaded_shapley_task_against_cpu(d)
+        check_threaded_gnn_task_against_cpu(d)
+    mark("3 threaded GTG, fed_gnn")
 
     # 4. the main path, with telemetry on (its trace checked)
     with phase_dir(workdir) as d:
@@ -4443,6 +4727,16 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     with phase_dir(workdir) as d:
         run_threaded_files(d, card)
     mark("4j threaded imdb files")
+
+    # 4k. the shipped Shapley and graph files on the threaded executor (K1:
+    # a subset's average and a round's aggregate; none on the graph files)
+    # and a profiled fed_gnn run
+    with phase_dir(workdir) as d:
+        threaded_launches, threaded_records = run_threaded_sv_gnn_files(d, card)
+        launches["K1"] += threaded_launches["K1"]
+        mark("4k threaded Shapley, graph files")
+        profile_threaded_gnn_round(d, threaded_records)
+    mark("4k profile")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

@@ -38,6 +38,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 
 from ..models.registry import ModelContext
 from ..ops.pytree import ParamVecLayout
+from .batching import select_batch
 from .hyper_parameter import HyperParameter, SGDState
 
 #: ``jax.checkpoint_policies``' names: the vocabulary of ``remat_policy``
@@ -239,9 +240,7 @@ class ComputeEngine:
         device = flat_params.device
         summed = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         for i, count in enumerate(counts):
-            metrics = self.train_step(
-                flat_params, opt_state, {k: v[i] for k, v in batches.items()}, count, generator
-            )
+            metrics = self.train_step(flat_params, opt_state, select_batch(batches, i), count, generator)
             if metrics is not None:
                 summed["loss_sum"] += metrics["loss"] * metrics["count"]
                 summed["correct"] += metrics["correct"]
@@ -254,7 +253,7 @@ class ComputeEngine:
         device = batches["mask"].device
         summed = {k: torch.zeros((), device=device) for k in ("loss_sum", "correct", "count")}
         for i in range(batches["mask"].shape[0]):
-            _, aux = self.model_ctx.loss(params, {k: v[i] for k, v in batches.items()})
+            _, aux = self.model_ctx.loss(params, select_batch(batches, i))
             summed["loss_sum"] += aux["loss_sum"].sum()
             summed["correct"] += aux["correct"]
             summed["count"] += aux["count"]

@@ -40,7 +40,14 @@ from ..models.registry import ModelContext
 from ..ops.quantization import SessionKey
 from ..parallel.spmd import loss_counts
 from ..utils.logging import get_logger
-from .batching import make_epoch_batches, stage_batches
+from .batching import (
+    make_epoch_batches,
+    make_graph_batch,
+    make_graph_minibatches,
+    select_batch,
+    stage_batches,
+    stage_graph_batches,
+)
 from .engine import ComputeEngine, maybe_slow_metrics, summarize_metrics
 from .hyper_parameter import HyperParameter
 
@@ -89,6 +96,13 @@ class ExecutorBase:
         self._vec: torch.Tensor | None = None
         self.performance_metric = PerformanceMetric()
         self.visualizer_prefix = ""
+        self._dataloader_kwargs: dict[str, Any] = {}
+
+    def update_dataloader_kwargs(self, **kwargs: Any) -> None:
+        """What the data loader of a graph dataset reads: ``batch_number``
+        (node minibatches an epoch) and ``num_neighbor`` (a fan-in cap
+        each)."""
+        self._dataloader_kwargs.update(kwargs)
 
     @property
     def device(self) -> torch.device:
@@ -132,9 +146,26 @@ class ExecutorBase:
         self.visualizer_prefix = prefix
 
     def epoch_batches(self, phase: MachineLearningPhase, shuffle_seed: int | None):
-        """``(staged batches, host loss counts)`` of one epoch of ``phase``."""
+        """``(staged batches, host loss counts)`` of one epoch of ``phase``.
+        A graph's epoch is the whole graph as one batch, or, shuffled, the
+        data loader's ``batch_number`` node minibatches (fan-in capped under
+        ``num_neighbor``), as in the JAX package."""
         dataset = self.dataset_collection.get_dataset(phase)
         rng = None if shuffle_seed is None else np.random.default_rng(shuffle_seed)
+        if isinstance(dataset.inputs, dict):
+            batch = make_graph_batch(dataset)
+            batch_number = int(self._dataloader_kwargs.get("batch_number") or 1)
+            num_neighbor = self._dataloader_kwargs.get("num_neighbor")
+            if rng is not None and (batch_number > 1 or num_neighbor is not None):
+                host = make_graph_minibatches(batch, batch_number, num_neighbor, rng)
+            else:
+                host = {
+                    "input": {k: np.asarray(v)[None] for k, v in batch["input"].items()},
+                    "target": np.asarray(batch["target"])[None],
+                    "mask": batch["mask"][None],
+                }
+            staged = stage_graph_batches(host, self.model_ctx.compute_dtype, self.device)
+            return staged, loss_counts(self.model_ctx, host)
         host = make_epoch_batches(dataset, self.hyper_parameter.batch_size, rng)
         staged = stage_batches(host, self.model_ctx.compute_dtype, self.device)
         return staged, loss_counts(self.model_ctx, host)
@@ -235,12 +266,12 @@ class Trainer(ExecutorBase):
         metrics stay on the device."""
         summed = {k: torch.zeros((), device=self.device) for k in ("loss_sum", "correct", "count")}
         for i, count in enumerate(counts):
-            batch = {k: v[i] for k, v in batches.items()}
+            batch = select_batch(batches, i)
             self._fire(ExecutorHookPoint.BEFORE_BATCH, epoch=epoch, batch_index=i, batch=batch)
             if self.has_hook(ExecutorHookPoint.OPTIMIZER_STEP):
                 self._fire(ExecutorHookPoint.OPTIMIZER_STEP, epoch=epoch, batch_index=i, batch=batch,
                            step_rng=generator)
-                result = self.engine.evaluate(self.params, {k: v[i : i + 1] for k, v in batches.items()})
+                result = self.engine.evaluate(self.params, select_batch(batches, slice(i, i + 1)))
                 for key in summed:
                     summed[key] += result[key]
             else:

@@ -4,12 +4,14 @@ copy of the JAX package's ``message.py``).
 A message carries control fields and a parameter payload: a
 ``dict[str, Tensor]`` handed over by reference inside one process, or an
 encoded payload on a quantized link, which reports its wire size through
-``nbytes``.
+``nbytes``.  ``other_data`` may carry arrays too (graph FL's boundary
+embeddings on the device, their node ids in numpy), and they count.
 """
 
 import dataclasses
 from typing import Any
 
+import numpy as np
 import torch
 
 Params = dict[str, torch.Tensor]
@@ -64,14 +66,29 @@ def param_nbytes(params: Params) -> int:
     return sum(t.numel() * t.element_size() for t in params.values())
 
 
+def payload_nbytes(value: Any) -> int:
+    """Bytes of the arrays in ``value``, tensors and numpy arrays at any
+    depth of its dicts, lists and tuples (the JAX package's ``param_nbytes``
+    over a pytree's leaves); any other leaf counts 0."""
+    if isinstance(value, torch.Tensor):
+        return value.numel() * value.element_size()
+    if isinstance(value, (np.ndarray, np.generic)):
+        return int(value.nbytes)
+    if isinstance(value, dict):
+        return sum(payload_nbytes(v) for v in value.values())
+    if isinstance(value, (list, tuple)):
+        return sum(payload_nbytes(v) for v in value)
+    return 0
+
+
 def get_message_size(message: Message) -> int:
-    """Payload bytes of a message: a parameter dict's tensors, or an
+    """Payload bytes of a message: the arrays of its dict fields, or an
     encoded payload's wire size."""
     total = 0
     for field in dataclasses.fields(message):
         value = getattr(message, field.name)
         if isinstance(value, dict):
-            total += param_nbytes({k: v for k, v in value.items() if isinstance(v, torch.Tensor)})
+            total += payload_nbytes(value)
         elif hasattr(value, "nbytes"):
             total += int(value.nbytes)
     return total

@@ -3,8 +3,9 @@ JAX package's ``method/algorithm_factory.py``): ``register_algorithm``
 names a method's client, server, endpoint classes and aggregation
 algorithm; ``create_client`` / ``create_server`` build the endpoint and
 then the role.  Registered by ``method/``: ``fed_avg``, ``fed_paq``,
-``fed_obd``, ``fed_obd_sq``, ``fed_dropout_avg``, ``single_model_afd`` and
-``sign_SGD``."""
+``fed_obd``, ``fed_obd_sq``, ``fed_dropout_avg``, ``single_model_afd``,
+``sign_SGD``, ``GTG_shapley_value``, ``multiround_shapley_value``,
+``Hierarchical_shapley_value``, ``fed_gnn``, ``fed_gcn`` and ``fed_aas``."""
 
 import dataclasses
 from typing import Any

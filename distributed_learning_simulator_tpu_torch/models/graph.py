@@ -23,9 +23,9 @@ JAX session's ``vmap`` does.
 Dropout (TwoGCN, ThreeGCN: 0.5, before every stage after the first) takes
 its uniforms from ``draw(stage, shape)`` (the graph session's
 ``GraphRandom``); keep where the uniform is below ``1 - rate``, as flax's
-``Dropout``.  The bits are not flax's.  The ``generator`` that
-:meth:`~.registry.ModelContext.apply` passes is not read: only the
-session trains these models.
+``Dropout``.  The bits are not flax's.  Called without ``draw`` (the
+threaded executor's trainer, through :meth:`~.registry.ModelContext.apply`),
+the uniforms come from the ``generator`` passed in.
 
 Submodules carry flax's names (``conv1``, ``conv2``, ``conv3``, ``out``;
 each ``GCNLayer`` a bias-free ``Dense_0`` and its own ``bias``), so the
@@ -42,6 +42,15 @@ from .registry import ModelContext, register_model
 
 #: ``draw(stage, shape)`` -> uniforms in [0, 1) of ``shape``
 Draw = Callable[[int, tuple[int, ...]], torch.Tensor]
+
+
+def generator_draw(generator: torch.Generator) -> Draw:
+    """``draw`` from a ``torch.Generator``: uniforms on its device."""
+
+    def draw(stage: int, shape: tuple[int, ...]) -> torch.Tensor:
+        return torch.rand(shape, generator=generator, device=generator.device)
+
+    return draw
 
 
 def gcn_conv(x, edge_index, edge_mask, weight, num_nodes: int) -> torch.Tensor:
@@ -107,6 +116,8 @@ class _StagedGCN(FlaxInit):
                     module.bias.zero_()
 
     def forward(self, inputs: dict, generator=None, stage: int | None = None, h=None, draw: Draw | None = None):
+        if draw is None and generator is not None:
+            draw = generator_draw(generator)
         if stage is not None:
             return self.mp_stage(stage, h, inputs, draw)
         h = self.mp_stage(0, None, inputs, draw)

@@ -21,7 +21,9 @@ FedAvg session, with the JAX round program's data flow:
    depend on the batch, while a forward at the training batch is bound by
    the host's launches (the JAX program evaluates at the training batch;
    the losses part by summation order).  Only the real subsets are
-   evaluated (the JAX program pads a chunk of 16 with dummy masks);
+   evaluated (the JAX program pads a chunk of 16 with dummy masks).  The
+   evaluator is :class:`SubsetMetrics`, which the threaded Shapley
+   servers (``method/shapley_value/``) run too;
 3. the new global is K1 over the stack with ``agg_mask * dataset_sizes /
    max(sum, 1e-12)``, normalised first, as the JAX aggregate: ``agg_mask``
    is every worker, or under ``choose_best_subset`` the round's best
@@ -71,6 +73,56 @@ ENGINE_FOR = {
 }
 
 
+def subset_params(stack: torch.Tensor, mask: np.ndarray, weights: np.ndarray) -> torch.Tensor:
+    """A subset's parameters: ``sum_c w_c * stack[c] / max(sum(w), 1e-12)``
+    with ``w = mask * weights``, summed first (K1), divided second."""
+    w = (mask * weights).astype(np.float32)
+    total = max(float(np.sum(w, dtype=np.float32)), 1e-12)
+    return flat_stack_weighted_sum(stack, torch.from_numpy(w).to(stack.device)) / total
+
+
+class SubsetMetrics:
+    """The engines' batch metric over a stack of the round's parameters,
+    for both executors: each subset's parameters (:func:`subset_params`,
+    one K1 launch) and its test accuracy (f32 ``correct / max(count, 1)``),
+    ``SUBSET_EVAL_BATCH`` test samples a forward, read from the device once
+    a call.  Keeps what each round evaluated."""
+
+    def __init__(self, engine, test_dataset, stage) -> None:
+        self.engine = engine
+        self.batches = stage(make_epoch_batches(test_dataset, min(SUBSET_EVAL_BATCH, len(test_dataset))))
+        #: round -> subsets evaluated, and the seconds they took
+        self.round_subsets: dict[int, int] = {}
+        self.subset_seconds: dict[int, float] = {}
+        #: round -> {subset (sorted tuple): (loss_sum, correct, count)}
+        self.results: dict[int, dict[tuple, tuple[float, float, float]]] = {}
+
+    def metric_many(self, stack: torch.Tensor, weights: np.ndarray, round_number: int):
+        """The batch metric of round ``round_number`` over ``stack``, whose
+        rows weigh ``weights`` (a subset's mask zeroes the others')."""
+        results = self.results.setdefault(round_number, {})
+
+        def metric_many(subsets: list) -> list[float]:
+            t0 = time.monotonic()
+            sums = []
+            for subset in subsets:
+                mask = np.zeros(stack.shape[0], np.float32)
+                mask[[int(w) for w in subset]] = 1.0
+                params = self.engine.layout.split(subset_params(stack, mask, weights))
+                summed = self.engine.evaluate(params, self.batches)
+                sums.append(torch.stack([summed["loss_sum"], summed["correct"], summed["count"]]))
+            host = torch.stack(sums).cpu().numpy() if sums else np.zeros((0, 3), np.float32)
+            out = []
+            for subset, (loss_sum, correct, count) in zip(subsets, host):
+                results[tuple(sorted(int(w) for w in subset))] = (float(loss_sum), float(correct), float(count))
+                out.append(float(correct / np.maximum(count, np.float32(1.0))))
+            self.round_subsets[round_number] = self.round_subsets.get(round_number, 0) + len(subsets)
+            self.subset_seconds[round_number] = self.subset_seconds.get(round_number, 0.0) + time.monotonic() - t0
+            return out
+
+        return metric_many
+
+
 class SpmdShapleySession(SpmdFedAvgSession):
     """Per-round Shapley values of the workers from subset metrics on the
     device-resident stack of their trained parameters."""
@@ -84,17 +136,16 @@ class SpmdShapleySession(SpmdFedAvgSession):
 
     def __init__(self, config, dataset_collection, *args, **kwargs) -> None:
         super().__init__(config, dataset_collection, *args, **kwargs)
-        test = dataset_collection.get_dataset(Phase.Test)
-        self._subset_batches = self._to_device(make_epoch_batches(test, min(SUBSET_EVAL_BATCH, len(test))))
+        self._subsets = SubsetMetrics(self.engine, dataset_collection.get_dataset(Phase.Test), self._to_device)
         self._engine_cls = getattr(shapley, ENGINE_FOR[self.config.distributed_algorithm])
         self._sv_engine = None
         self.shapley_values: dict[int, dict] = {}
         self.shapley_values_S: dict[int, dict] = {}
-        #: round -> subsets evaluated, the seconds they took, the round's seconds
-        self.round_subsets: dict[int, int] = {}
-        self.subset_seconds: dict[int, float] = {}
-        #: round -> {subset (sorted tuple): (loss_sum, correct, count)}
-        self.subset_results: dict[int, dict[tuple, tuple[float, float, float]]] = {}
+        #: round -> subsets evaluated, the seconds they took, and
+        #: {subset (sorted tuple): (loss_sum, correct, count)}
+        self.round_subsets = self._subsets.round_subsets
+        self.subset_seconds = self._subsets.subset_seconds
+        self.subset_results = self._subsets.results
 
     def train_stack(self, global_vec: torch.Tensor, round_number: int) -> torch.Tensor:
         """Every slot's parameters after its local epochs from ``global_vec``,
@@ -117,11 +168,7 @@ class SpmdShapleySession(SpmdFedAvgSession):
         return stack
 
     def subset_params(self, stack: torch.Tensor, mask: np.ndarray, weights: np.ndarray) -> torch.Tensor:
-        """A subset's parameters: ``sum_c w_c * stack[c] / max(sum(w), 1e-12)``
-        with ``w = mask * weights``, summed first (K1), divided second."""
-        w = (mask * weights).astype(np.float32)
-        total = max(float(np.sum(w, dtype=np.float32)), 1e-12)
-        return flat_stack_weighted_sum(stack, torch.from_numpy(w).to(self.device)) / total
+        return subset_params(stack, mask, weights)
 
     def round_aggregate(self, stack: torch.Tensor, agg_mask: np.ndarray) -> torch.Tensor:
         """The new global: K1 over the stack with the dataset sizes under
@@ -131,29 +178,8 @@ class SpmdShapleySession(SpmdFedAvgSession):
         return flat_stack_weighted_sum(stack, torch.from_numpy(w).to(self.device))
 
     def _metric_many(self, stack: torch.Tensor, weights: np.ndarray, round_number: int):
-        """The engine's batch metric: each subset's test accuracy (f32
-        ``correct / max(count, 1)``), read from the device once a call."""
-        results = self.subset_results.setdefault(round_number, {})
-
-        def metric_many(subsets: list) -> list[float]:
-            t0 = time.monotonic()
-            sums = []
-            for subset in subsets:
-                mask = np.zeros(self.n_slots, np.float32)
-                mask[[int(w) for w in subset]] = 1.0
-                params = self.engine.layout.split(self.subset_params(stack, mask, weights))
-                summed = self.engine.evaluate(params, self._subset_batches)
-                sums.append(torch.stack([summed["loss_sum"], summed["correct"], summed["count"]]))
-            host = torch.stack(sums).cpu().numpy() if sums else np.zeros((0, 3), np.float32)
-            out = []
-            for subset, (loss_sum, correct, count) in zip(subsets, host):
-                results[tuple(sorted(int(w) for w in subset))] = (float(loss_sum), float(correct), float(count))
-                out.append(float(correct / np.maximum(count, np.float32(1.0))))
-            self.round_subsets[round_number] = self.round_subsets.get(round_number, 0) + len(subsets)
-            self.subset_seconds[round_number] = self.subset_seconds.get(round_number, 0.0) + time.monotonic() - t0
-            return out
-
-        return metric_many
+        """The engine's batch metric over the stack (:class:`SubsetMetrics`)."""
+        return self._subsets.metric_many(stack, weights, round_number)
 
     def _engine_kwargs(self) -> dict:
         return shapley.sv_engine_kwargs(

@@ -3,13 +3,18 @@ of the JAX package's ``server/aggregation_server.py``, synchronous rounds
 only): send the initial model, gather every worker's message each round,
 aggregate, evaluate the aggregate on the test split, append a row to
 ``server/round_record.json`` and save ``aggregated_model/round_N.npz`` in
-the JAX package's keys and layouts.  Buffered aggregation, resume, the
-population store and the fault plan are refused (``training.py``).
+the JAX package's keys and layouts.  With ``need_init_performance`` (the
+Shapley servers) the initial model is evaluated and recorded as round 0.
+Buffered aggregation, resume, the population store and the fault plan
+are refused (``training.py``); a server whose ``_buffered_capable`` is
+False raises the JAX package's ``ValueError`` on ``aggregation_mode:
+buffered``.
 
 Telemetry (``util/telemetry.py``) speaks the SPMD sessions' schema, as the
 JAX server does: an ``upload`` event a worker message, a ``round_barrier``
 span (first upload to the last worker in), and a ``round`` span a record
-row (its offset the row's ``trace_offset``), all on the server thread
+row (its offset the row's ``trace_offset``; ``init_eval`` for round 0's
+row), all on the server thread
 from host state it owns.  The ``profile_rounds`` window opens at the first
 upload of its first round and closes after its last round's record.  The
 server loop closes the recorder only on its clean path, so each record is
@@ -24,6 +29,7 @@ import numpy as np
 from ..algorithm.aggregation_algorithm import AggregationAlgorithm
 from ..message import Message, ParameterMessage, ParameterMessageBase, Params
 from ..models.convert import from_jax, to_jax
+from ..util.buffered import BufferedSettings
 from ..util.checkpoint import atomic_json_dump
 from ..util.model_cache import ModelCache
 from ..util.telemetry import TraceRecorder
@@ -32,8 +38,18 @@ from .server import Server
 
 
 class AggregationServer(Server):
+    #: whether the server could run ``aggregation_mode: buffered``: the
+    #: servers that own their rounds (Shapley sampling, the graph
+    #: exchanges) refuse the knob with the JAX package's ValueError
+    _buffered_capable = True
+
     def __init__(self, algorithm: AggregationAlgorithm, **kwargs: Any) -> None:
         super().__init__(**kwargs)
+        if BufferedSettings.from_config(self.config) is not None and not self._buffered_capable:
+            raise ValueError(
+                "algorithm_kwargs.aggregation_mode=buffered is unsupported here:"
+                f" {type(self).__name__} owns its own round/phase progression — drop the knob for this server"
+            )
         self._model_cache = ModelCache()
         self._round_number = 1
         self._worker_flag: set[int] = set()
@@ -42,6 +58,7 @@ class AggregationServer(Server):
         self.__algorithm.set_config(self.config)
         self.__stat: dict[int, dict] = {}
         self._compute_stat = True
+        self.need_init_performance = False
         self.__plateau = 0
         self.__best_acc = 0.0
         self.__max_acc = 0.0
@@ -131,7 +148,10 @@ class AggregationServer(Server):
             return
         assert isinstance(result, ParameterMessage)
         initial = "init" in result.other_data
-        if self._compute_stat and not initial:
+        if self.need_init_performance and initial:
+            # the row keyed 0 (the Shapley engines' round-0 metric)
+            self.__record_compute_stat(result.parameter, keep_performance_logger=False, stat_key=0)
+        elif self._compute_stat and not initial:
             self.__record_compute_stat(result.parameter)
             self._maybe_early_stop(result)
         elif result.end_training and not initial:
@@ -166,9 +186,11 @@ class AggregationServer(Server):
     def _annotate_stat(self, round_stat: dict) -> None:
         """Subclass hook: extra fields on each round record."""
 
-    def __record_compute_stat(self, parameter_dict: Params) -> None:
+    def __record_compute_stat(
+        self, parameter_dict: Params, keep_performance_logger: bool = True, stat_key: int | None = None
+    ) -> None:
         self.tester.set_visualizer_prefix(f"round: {self._round_number},")
-        metric = self.get_metric(parameter_dict)
+        metric = self.get_metric(parameter_dict, keep_performance_logger=keep_performance_logger)
         round_stat = {f"test_{k}": v for k, v in metric.items()}
         now = time.monotonic()
         round_stat["round_seconds"] = now - self.__round_start
@@ -177,7 +199,7 @@ class AggregationServer(Server):
         self.__round_start = now
         self.__round_start_bytes = (self.received_bytes, self.sent_bytes)
         self._annotate_stat(round_stat)
-        key = self._get_stat_key()
+        key = self._get_stat_key() if stat_key is None else stat_key
         assert key not in self.__stat
         if self._trace.enabled:
             fields = {
@@ -187,7 +209,10 @@ class AggregationServer(Server):
                 "received_mb": round_stat["received_mb"],
                 "sent_mb": round_stat["sent_mb"],
             }
-            round_stat["trace_offset"] = self._trace.span_record("round", round_stat["round_seconds"], **fields)
+            # round 0's row is not a round: a kind of its own
+            round_stat["trace_offset"] = self._trace.span_record(
+                "round" if key else "init_eval", round_stat["round_seconds"], **fields
+            )
         self.__stat[key] = round_stat
         # the spans first, so a durable row never cross-links a line a
         # resumed recorder would number again

@@ -1,8 +1,8 @@
 """Server base: the central event loop (the port's copy of the JAX
 package's ``server/server.py``).  It sweeps the workers for pending
 messages, feeds each to ``_process_worker_data``, sends results to the
-selected workers (``None`` to the others) and owns the central test
-``Inferencer``."""
+selected workers (``None`` to the others) or a message of its own to each
+worker, and owns the central test ``Inferencer``."""
 
 import json
 import os
@@ -108,14 +108,21 @@ class Server(Executor):
         pass
 
     def _send_result(self, result: Message) -> None:
+        """``result`` to the selected workers (``None`` to the others), or,
+        where its ``other_data`` holds ``worker_result``, each worker its
+        own message."""
         self._before_send_result(result=result)
-        selected = self._select_workers()
-        get_logger().debug("choose workers %s", selected)
-        if selected:
-            self._endpoint.broadcast(data=result, worker_ids=selected)
-        unselected = set(range(self.worker_number)) - selected
-        if unselected:
-            self._endpoint.broadcast(data=None, worker_ids=unselected)
+        if "worker_result" in result.other_data:
+            for worker_id, data in result.other_data["worker_result"].items():
+                self._endpoint.send(worker_id=worker_id, data=data)
+        else:
+            selected = self._select_workers()
+            get_logger().debug("choose workers %s", selected)
+            if selected:
+                self._endpoint.broadcast(data=result, worker_ids=selected)
+            unselected = set(range(self.worker_number)) - selected
+            if unselected:
+                self._endpoint.broadcast(data=None, worker_ids=unselected)
         self._after_send_result(result=result)
 
     def _select_workers(self) -> set[int]:

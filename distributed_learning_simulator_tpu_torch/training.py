@@ -15,13 +15,19 @@ executors:
   (``share_feature`` forced on) and fed_aas (``parallel/spmd_gnn.py``);
 * ``executor: sequential``: the threaded executor, the server and every
   worker on a thread of their own exchanging messages through in-memory
-  endpoints: ``fed_avg``, ``fed_paq``, ``fed_obd`` (NNADQ), ``fed_obd_sq``,
-  ``fed_dropout_avg``, ``single_model_afd`` and ``sign_SGD`` (the methods
-  ``method/`` registers).  fed_avg, fed_paq, fed_dropout_avg,
+  endpoints: every method the SPMD sessions run (the methods ``method/``
+  registers): ``fed_avg``, ``fed_paq``, ``fed_obd`` (NNADQ),
+  ``fed_obd_sq``, ``fed_dropout_avg``, ``single_model_afd``, ``sign_SGD``,
+  the three Shapley-value methods (``method/shapley_value``: the subset
+  metrics through the SPMD session's evaluator, K1 once a subset and once
+  a round) and graph FL (``fed_gnn``, ``fed_gcn``, ``fed_aas``: the
+  boundary exchange through the server, a barrier of every worker a
+  message-passing stage).  fed_avg, fed_paq, fed_dropout_avg,
   single_model_afd, and the FedOBD pair at ``second_phase_epoch: 1``, draw
-  what their SPMD sessions draw.  A failure on any thread sets the task's
-  abort event, every blocking loop unwinds, and ``train`` re-raises the
-  first error after joining the threads.
+  what their SPMD sessions draw; the Shapley and graph workers train the
+  trainer's own shuffled stream, as the JAX roles do.  A failure on any
+  thread sets the task's abort event, every blocking loop unwinds, and
+  ``train`` re-raises the first error after joining the threads.
 
 It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
 and raises where no GPU is visible.  What the port does not run yet raises
@@ -29,9 +35,11 @@ and raises where no GPU is visible.  What the port does not run yet raises
 ``aggregation_mode: buffered`` run on the SPMD FedAvg session (fed_avg,
 fed_paq); the other SPMD sessions take only the kill schedule and the
 supervisor's knobs (``parallel/spmd.py``).  The threaded executor refuses
-the Shapley values, graph FL, the fault plan, buffered aggregation,
-resume and ``watchdog_seconds`` (ROADMAP.md Queue 1 item 5, part 2), and
-``float64_parity`` and the population store (item 7).
+the fault plan, buffered aggregation, resume, ``watchdog_seconds`` and
+``parallel_number`` (ROADMAP.md Queue 1 item 5, part 2), and
+``float64_parity`` and the population store (item 7); on the Shapley and
+graph servers ``aggregation_mode: buffered`` raises the JAX package's
+``ValueError``.
 
 :func:`train_with_recovery` is the supervisor: attempt ``k`` runs in
 ``<save_dir>_retry<k>`` and resumes from the newest attempt directory that
@@ -86,6 +94,16 @@ _GRAPH_METHODS = ("fed_gnn", "fed_gcn", "fed_aas")
 THREADED_ALGORITHM_KWARGS = frozenset(
     {"global_model_path", "random_client_number", "early_stop", "second_phase_epoch", "dropout_rate", "topk_ratio"}
 )
+_SHAPLEY_KWARGS = frozenset({"choose_best_subset", "sv_kwargs", "part_number", "vp_size"})
+_GRAPH_KWARGS = frozenset({"share_feature", "batch_number", "edge_drop_rate", "num_neighbor"})
+#: what else each method's threaded roles read
+_THREADED_METHOD_KWARGS = {
+    **{name: _SHAPLEY_KWARGS for name in ("GTG_shapley_value", "multiround_shapley_value", "Hierarchical_shapley_value")},
+    **{name: _GRAPH_KWARGS for name in ("fed_gnn", "fed_gcn", "fed_aas")},
+}
+#: the buffered knobs, which a server that cannot buffer refuses itself
+#: with the JAX package's ValueError
+_BUFFERED_KWARGS = frozenset({"aggregation_mode", "buffer_size", "staleness_alpha"})
 #: the ROADMAP item of each algorithm_kwarg the threaded executor refuses
 #: (any other: item 5, part 2)
 _THREADED_KWARG_ITEMS = {"float64_parity": "item 7", "population_store": "item 7"}
@@ -169,11 +187,14 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
             )
     elif not CentralizedAlgorithmFactory.has_algorithm(algorithm):
         raise NotImplementedError(
-            f"method {algorithm!r} on the threaded executor is not ported yet ({_PART_2}: the Shapley"
-            f" values and graph FL); it runs {sorted(CentralizedAlgorithmFactory.config)}"
+            f"method {algorithm!r} on the threaded executor is not ported yet;"
+            f" it runs {sorted(CentralizedAlgorithmFactory.config)}"
         )
     else:
-        unsupported = sorted(set(config.algorithm_kwargs) - THREADED_ALGORITHM_KWARGS)
+        accepted = THREADED_ALGORITHM_KWARGS | _THREADED_METHOD_KWARGS.get(algorithm, frozenset())
+        if not getattr(CentralizedAlgorithmFactory.config[algorithm].server_cls, "_buffered_capable", True):
+            accepted |= _BUFFERED_KWARGS
+        unsupported = sorted(set(config.algorithm_kwargs) - accepted)
         if unsupported:
             items = [f"{k}: {_THREADED_KWARG_ITEMS.get(k, 'item 5, part 2')}" for k in unsupported]
             raise NotImplementedError(
@@ -344,10 +365,13 @@ def run_task(ctx: TaskContext) -> dict:
     if ctx.errors:
         raise ctx.errors[0]
     result = {"performance": ctx.server.performance_stat}
+    algorithm = getattr(ctx.server, "algorithm", None)
+    if getattr(algorithm, "sv_algorithm", None) is not None:
+        result["sv"], result["sv_S"] = algorithm.shapley_values, algorithm.shapley_values_S
     get_logger().info(
         "threaded training done on %s (%d records)", ctx.model_ctx.device, len(result["performance"])
     )
-    return result
+    return _remap_sv(result, ctx.practitioners)
 
 
 def _remap_sv(result: dict, practitioners) -> dict:

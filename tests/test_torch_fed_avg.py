@@ -176,7 +176,9 @@ def test_unported_paths_raise(tmp_path, monkeypatch):
     base = _fields(tmp_path, "refused")
     obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
     for change in (
-        {"distributed_algorithm": "GTG_shapley_value", "executor": "sequential"},
+        # the Shapley values run threaded; resume on the threaded roles does not
+        {"distributed_algorithm": "GTG_shapley_value", "executor": "sequential",
+         "algorithm_kwargs": {"resume_dir": "earlier"}},
         {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2, "population_store": "streamed"}},
         {"executor": "sequential", "algorithm_kwargs": {"aggregation_mode": "buffered"}},
         {"executor": "sequential", "algorithm_kwargs": {"float64_parity": True}},
