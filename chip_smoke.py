@@ -108,7 +108,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    rounds, ``batch_number`` 2, ``num_neighbor`` 4, the models' dropout 0:
    records and every round's npz within ``GNN_TOL``,
    ``graph_worker_stat.json`` equal field for field, no kernel,
-   ``check_threaded_gnn_task_against_cpu``);
+   ``check_threaded_gnn_task_against_cpu``); then fault tolerance: a
+   threaded LeNet5 FedAvg task (4 workers, 3 rounds, ``dropout_rate`` and
+   ``corrupt_rate`` 0.25, stragglers at 0 s, ``update_guard``,
+   ``min_client_quorum`` 1) card against CPU, its ``rejected_updates`` and
+   ``dropped_clients`` equal, test loss within ``THREADED_LOSS_TOL``, and a
+   planted lost quorum that must raise (``check_threaded_faults_against_cpu``);
+   and the FedOBD and sign_SGD tasks again under dropout, corruption and
+   the update guard, their rejections equal and K1 as without faults
+   (``check_spmd_fault_tasks_against_cpu``);
 4. the main paths, each with the launch counters set to 0 just before and
    read just after: ``train()`` on the dense-shape configuration (FedAvg,
    CIFAR-10, ViT-small at full width, 10 clients x 512 samples, batch 128,
@@ -154,7 +162,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    files (``SIGN_SGD_FILES``) at 1 local epoch, K1 once a step
    (``round x epoch x n_batches``), and the eight Shapley-value files
    (``SHAPLEY_FILES``: GTG, hierarchical, multi-round) at 1 local epoch
-   for 1 round (the two LeNet5 files 2), each round's subsets and their
+   for 1 round (the two LeNet5 files 2; four DenseNet-40 files on the
+   test splits of ``SHAPLEY_TEST_SPLITS``), each round's subsets and their
    seconds printed, K1 once a subset and once a round (no profiled GTG
    round, for the script's time: its numbers stand in ``PERF.md``); then
    (4h) the eight graph files
@@ -179,18 +188,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``conf/{fed_paq,fed_obd,fed_dropout_avg,smafd,sign_sgd}/imdb.yaml``
    under ``executor: sequential`` at full width (``THREADED_FILES``: 1
    round of 1 local epoch, fed_obd's 1 tuning epoch), each record's phase,
-   time, test loss and wire MB printed, no kernel launched; then (4k) the
+   time, test loss and wire MB printed, no kernel launched; and
+   ``fed_avg/mnist_buffered.yaml`` under ``executor: sequential`` at full
+   width for 4 rounds, killed after round 2 and recovered by
+   ``train_with_recovery`` (``run_threaded_buffered_recovery``: rounds 1-2's
+   flush columns equal to 4i's replay and round 1 within
+   ``BUFFERED_REPLAY_TOL`` of it, the resume from ``round_2.npz`` bit for
+   bit, the drained rows after it, K1 once a non-empty flush, each flush's
+   K1 mean within ``FLUSH_TOL`` of the plain f32 weighted sum of the same
+   uploads on the card, the card's memory printed around the killed
+   attempt); then (4k) the
    shipped ``conf/gtg_sv/mnist.yaml``, ``hierarchical_sv/mnist.yaml`` and
-   ``multiround_sv/cifar10.yaml`` (``THREADED_SV_FILES``) and
+   ``multiround_sv/cifar10.yaml`` (``THREADED_SV_FILES``; the latter on the
+   test split of ``SHAPLEY_TEST_SPLITS``) and
    ``conf/fed_gnn/cs.yaml``, ``fed_gcn/cs.yaml`` and ``fed_aas/cora.yaml``
    (``THREADED_GNN_FILES``) under ``executor: sequential`` at full width,
    1 round of 1 local epoch each: the round's seconds, the Shapley files'
    subsets and their seconds (K1 exactly ``subsets + 1``, the SV dict over
    every worker, ``shapley_values.json``), the graph files' exchanges and
    communicated MB (``batch_number`` exchanges a worker on fed_gnn and
-   fed_gcn, none on fed_aas; no K1), no other kernel; and a profiled
-   threaded ``fed_gnn/cs.yaml`` run (50 worker threads, an exchange barrier
-   a batch);
+   fed_gcn, none on fed_aas; no K1), no other kernel (the profiled
+   threaded ``fed_gnn/cs.yaml`` run went for the script's time: its
+   numbers stand in ``PERF.md``);
 5. the script's wall time by phase and in all, one JSON line with every
    kernel's numbers, then, as the last line, ``{"ok": true, "device": {...}}``.
 
@@ -2251,9 +2270,9 @@ class CodecSteps:
                 self.steps[(aggregate, slot, leaf.jax_key)] = float(step)
             return out, bits
 
-        def noted_aggregate(session, g, weights, key, phase_two):
+        def noted_aggregate(session, g, weights, key, phase_two, trains=None):
             self.weights[session._aggregates] = weights.copy()
-            return run_aggregate(session, g, weights, key, phase_two)
+            return run_aggregate(session, g, weights, key, phase_two, trains)
 
         def noted_paq(session, row, start, aggregate, slot):
             for leaf in session._jax_leaves:
@@ -2339,6 +2358,18 @@ def flipped_elements(got: dict, want: dict, steps: CodecSteps, aggregate: int, a
     return masks
 
 
+def obd_task_config(save_dir: str, extra: dict | None = None, **algorithm_kwargs):
+    """Phase 3's FedOBD task: ``conf/fed_obd/cifar10.yaml`` cut to 2
+    clients x 16 samples, 2 local epochs, 1 round and 1 tuning epoch;
+    ``extra`` more dotted overrides."""
+    overrides = {"round": 1, "epoch": 2, "worker_number": 2, "batch_size": 16,
+                 "algorithm_kwargs.second_phase_epoch": 1}
+    overrides.update({f"dataset_kwargs.{k}": v for k, v in {"train_size": 32, "val_size": 16, "test_size": 32}.items()})
+    overrides.update(extra or {})
+    overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
+    return shipped_config(SPMD_OBD_RUNS[0][0], save_dir, **overrides)
+
+
 def check_obd_task_against_cpu(workdir: str) -> None:
     """``conf/fed_obd/cifar10.yaml`` (DenseNet-40, f32, NNADQ at weight
     0.01, block dropout 0.9) cut to 2 clients x 16 samples, 2 local epochs,
@@ -2365,15 +2396,7 @@ def check_obd_task_against_cpu(workdir: str) -> None:
     from distributed_learning_simulator_tpu_torch.models import convert
     from distributed_learning_simulator_tpu_torch.training import build_session, train
 
-    sizes = {"train_size": 32, "val_size": 16, "test_size": 32}
-
-    def make_config(save_dir: str, **algorithm_kwargs):
-        overrides = {"round": 1, "epoch": 2, "worker_number": 2, "batch_size": 16,
-                     "algorithm_kwargs.second_phase_epoch": 1}
-        overrides.update({f"dataset_kwargs.{k}": v for k, v in sizes.items()})
-        overrides.update({f"algorithm_kwargs.{k}": v for k, v in algorithm_kwargs.items()})
-        return shipped_config(SPMD_OBD_RUNS[0][0], save_dir, **overrides)
-
+    make_config = obd_task_config
     init = os.path.join(workdir, "obd_init.npz")
     session = build_session(make_config(os.path.join(workdir, "obd_init")), device="cpu")
     np.savez(init, **convert.to_jax(session.engine.init_params(0)))
@@ -2852,6 +2875,24 @@ SHAPLEY_FILES = (
     ("multiround_sv/cifar10.yaml", 1),
     ("multiround_sv/cifar100.yaml", 1),
 )
+#: the test splits cut for the script's time (1024 for CIFAR-10 and 2048
+#: for CIFAR-100 as shipped), which every subset metric evaluates: the
+#: multi-round files evaluate their 201 subsets at 10 players whatever the
+#: metrics, and GTG's CIFAR-10 files 186 of their 214 at 256 samples;
+#: ``gtg_sv/cifar100.yaml`` stays as shipped, since on 256 samples its
+#: metrics truncate GTG after 1 subset.  Phase 4k's threaded
+#: ``multiround_sv/cifar10.yaml`` takes its entry too
+SHAPLEY_TEST_SPLITS = {
+    "gtg_sv/cifar10.yaml": 256,
+    "hierarchical_sv/cifar10.yaml": 256,
+    "multiround_sv/cifar10.yaml": 256,
+    "multiround_sv/cifar100.yaml": 256,
+}
+
+
+def shapley_test_split(name: str) -> dict:
+    """``name``'s cut of ``SHAPLEY_TEST_SPLITS`` as a config override."""
+    return {"dataset_kwargs.test_size": SHAPLEY_TEST_SPLITS[name]} if name in SHAPLEY_TEST_SPLITS else {}
 
 
 def _cut_task(name: str, workers: int, test_size: int, **overrides):
@@ -3330,11 +3371,12 @@ def run_sign_sgd_files(workdir: str) -> tuple[dict[str, int], dict]:
 
 def run_shapley_files(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on each of ``SHAPLEY_FILES`` at full width, as shipped but
-    for the rounds named there and 1 local epoch (the engines' own settings
-    as shipped), the launch counters set to 0 just before each and read
-    just after: each round's subsets evaluated, the seconds they took and
-    the round's seconds, the peak memory, the SV dicts over every worker
-    each round, both JSON records written, and K1's launches checked
+    for the rounds named there, 1 local epoch and the test splits of
+    ``SHAPLEY_TEST_SPLITS`` (the engines' own settings as shipped), the
+    launch counters set to 0 just before each and read just after: each
+    round's subsets evaluated, the seconds they took and the round's
+    seconds, the peak memory, the SV dicts over every worker each round,
+    both JSON records written, and K1's launches checked
     exactly (once a subset and once a round's aggregate); no other kernel.
     Returns the launches of all runs and the records."""
     import numpy as np
@@ -3344,7 +3386,8 @@ def run_shapley_files(workdir: str) -> tuple[dict[str, int], dict]:
 
     total, records = {}, {}
     for name, rounds in SHAPLEY_FILES:
-        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds, epoch=1)
+        config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), round=rounds, epoch=1,
+                                **shapley_test_split(name))
         torch.cuda.empty_cache()
         _reset_launches()
         torch.cuda.reset_peak_memory_stats()
@@ -3701,9 +3744,9 @@ def check_threaded_gnn_task_against_cpu(workdir: str) -> None:
 def run_threaded_sv_gnn_files(workdir: str, card: str) -> tuple[dict[str, int], dict]:
     """``build_task`` + ``run_task`` on each of ``THREADED_SV_FILES`` and
     ``THREADED_GNN_FILES`` at full width, as shipped but for 1 round of
-    ``THREADED_EPOCHS`` local epoch, the launch counters set to 0 just
-    before each run and read just after: the round's seconds and, for the
-    Shapley files, its subsets and their seconds (K1 exactly ``subsets +
+    ``THREADED_EPOCHS`` local epoch (and ``SHAPLEY_TEST_SPLITS``), the
+    launch counters set to 0 just before each run and read just after: the
+    round's seconds and, for the Shapley files, its subsets and their seconds (K1 exactly ``subsets +
     1``, the SV dict over every worker, ``shapley_values.json`` written),
     for the graph files the exchanges and the MB each worker communicated
     (``graph_worker_stat.json``; fed_gnn and fed_gcn ``batch_number``
@@ -3717,7 +3760,7 @@ def run_threaded_sv_gnn_files(workdir: str, card: str) -> tuple[dict[str, int], 
     total, records = {}, {}
     for name in THREADED_SV_FILES + THREADED_GNN_FILES:
         config = shipped_config(name, os.path.join(workdir, name.replace("/", "_")[:-5]), executor="sequential",
-                                round=1, epoch=THREADED_EPOCHS)
+                                round=1, epoch=THREADED_EPOCHS, **shapley_test_split(name))
         t0 = time.monotonic()
         ctx = build_task(config)
         setup = time.monotonic() - t0
@@ -3765,20 +3808,6 @@ def run_threaded_sv_gnn_files(workdir: str, card: str) -> tuple[dict[str, int], 
         del ctx, out
         torch.cuda.empty_cache()
     return total, records
-
-
-def profile_threaded_gnn_round(workdir: str, records: dict) -> None:
-    """Where a threaded ``fed_gnn/cs.yaml`` round's time goes (50 worker
-    threads, 10 batches, an exchange barrier of all 50 a batch), under
-    ``torch.profiler``: ``run_task`` of a fresh task, its setup outside."""
-    from distributed_learning_simulator_tpu_torch.training import build_task, run_task
-
-    name = THREADED_GNN_FILES[0]
-    ctx = build_task(shipped_config(name, os.path.join(workdir, "tgnn_profile"), executor="sequential", round=1,
-                                    epoch=THREADED_EPOCHS))
-    _profiled(lambda: run_task(ctx), " (threaded fed_gnn Coauthor_CS: 50 workers x 10 batches, an exchange each)",
-              f"4k's run took {records[name]['run_s']:.3f} s", "one run_task (init, index exchange, round, eval)",
-              host_ops=10)
 
 
 # ------------------------------------------------- BERT and the round machinery
@@ -4270,12 +4299,13 @@ def measure_checkpoint_cost(workdir: str) -> dict:
     return {"file": BERT_FILE, "runs": runs}
 
 
-def run_buffered_file(workdir: str) -> dict[str, int]:
+def run_buffered_file(workdir: str) -> tuple[dict[str, int], dict]:
     """``train()`` on ``fed_avg/mnist_buffered.yaml`` as shipped but for
     ``BUFFERED_ROUNDS`` of its 20 rounds (LeNet5, buffered with
     stragglers), the launch counters set to 0 just
     before and read just after: each record's flush columns printed, K1
-    exactly ``n_chunks x (depth + 1)`` every round."""
+    exactly ``n_chunks x (depth + 1)`` every round.  Returns the launches
+    and the replay for 4j: its records and its ``round_1.npz``."""
     import numpy as np
 
     from distributed_learning_simulator_tpu_torch.training import build_session, train
@@ -4299,6 +4329,343 @@ def run_buffered_file(workdir: str) -> dict[str, int]:
     check(any(row["stale_updates"] for row in perf.values()), f"{BUFFERED_FILE}: no stale update merged")
     others = [kid for kid, n in launches.items() if n and kid != "K1"]
     check(not others, f"{BUFFERED_FILE}: kernels off this path launched: {others}")
+    return launches, {"records": perf, "round_1": _round_params(config.save_dir, 1)}
+
+
+# ------------------------------------------------ fault tolerance (slice 21)
+#: the phase-3 threaded FedAvg fault task's plan: seed 3 drops and corrupts
+#: clients every round and leaves 2, 1 and 2 of the 4 standing; the
+#: stragglers sleep 0 s
+THREADED_FAULTS = {"seed": 3, "dropout_rate": 0.25, "corrupt_rate": 0.25, "straggler_rate": 0.25,
+                   "straggler_delay_seconds": 0.0, "update_guard": True}
+#: the record columns a fault task's card and CPU runs must carry equal
+FAULT_COLUMNS = ("rejected_updates", "dropped_clients")
+#: a threaded FedAvg record's test loss, card against CPU (relative)
+THREADED_LOSS_TOL = 1e-5
+
+
+def threaded_fault_task(save_dir: str, **algorithm_kwargs):
+    """A small threaded LeNet5/MNIST FedAvg task (4 workers x 64 samples,
+    3 rounds) under :data:`THREADED_FAULTS`, ``min_client_quorum`` 1."""
+    from distributed_learning_simulator_tpu_torch.config import DistributedTrainingConfig
+
+    return DistributedTrainingConfig(
+        dataset_name="MNIST",
+        model_name="LeNet5",
+        distributed_algorithm="fed_avg",
+        executor="sequential",
+        worker_number=4,
+        batch_size=16,
+        round=3,
+        epoch=1,
+        learning_rate=0.05,
+        dataset_kwargs={"train_size": 256, "val_size": 16, "test_size": 64},
+        fault_tolerance=dict(THREADED_FAULTS),
+        algorithm_kwargs={"min_client_quorum": 1, **algorithm_kwargs},
+        save_dir=save_dir,
+        log_file=os.path.join(save_dir, "train.log"),
+    )
+
+
+def check_threaded_faults_against_cpu(workdir: str) -> None:
+    """The threaded FedAvg fault task (:func:`threaded_fault_task`) on the
+    card and on the CPU from one init: every record's ``rejected_updates``
+    and ``dropped_clients`` equal, its test loss within
+    ``THREADED_LOSS_TOL``, the final parameters within the phase's 1e-3,
+    and no kernel launched (the synchronous server streams uploads into its
+    accumulator).  A planted fault: ``min_client_quorum`` 2 above round 2's
+    one survivor must raise ``QuorumLostError`` on the card."""
+    import numpy as np
+
+    from distributed_learning_simulator_tpu_torch.training import train
+    from distributed_learning_simulator_tpu_torch.util.faults import QuorumLostError
+
+    init = _port_init(workdir, "tfaults", threaded_fault_task)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = threaded_fault_task(os.path.join(workdir, f"tfaults_{device}"), global_model_path=init)
+        if device == "cuda":
+            _reset_launches()
+        perf = train(config, device=device)["performance"]
+        if device == "cuda":
+            launches = _read_launches()
+        runs[device] = (perf, _round_params(config.save_dir, config.round))
+    (gpu, gpu_params), (cpu, cpu_params) = runs["cuda"], runs["cpu"]
+    worst, beyond = _params_apart(gpu_params, cpu_params)
+    loss = max(abs(gpu[r]["test_loss"] - cpu[r]["test_loss"]) / abs(cpu[r]["test_loss"]) for r in cpu)
+    print(
+        f"small task (threaded LeNet5 FedAvg, dropout, corruption, guard) card vs CPU: test loss"
+        f" {[round(gpu[r]['test_loss'], 6) for r in sorted(gpu)]} vs {[round(cpu[r]['test_loss'], 6) for r in sorted(cpu)]}"
+        f" (rel {loss:.2g}); final parameters max |diff| {worst:.3g}, {beyond} elements beyond 1e-5; "
+        + "; ".join(f"round {r}: " + ", ".join(f"{k} {cpu[r][k]}" for k in FAULT_COLUMNS) for r in sorted(cpu))
+        + f"; launches {launches}"
+    )
+    check(sorted(gpu) == sorted(cpu) == [1, 2, 3], f"threaded fault task records {sorted(gpu)}")
+    for r in cpu:
+        for key in FAULT_COLUMNS:
+            check(gpu[r][key] == cpu[r][key], f"threaded fault task round {r} {key}: {gpu[r][key]} vs {cpu[r][key]}")
+    check(sum(cpu[r]["rejected_updates"] for r in cpu) > 0 and sum(cpu[r]["dropped_clients"] for r in cpu) > 0,
+          f"threaded fault task: no fault took effect {cpu}")
+    check(loss <= THREADED_LOSS_TOL and worst <= 1e-3, "threaded fault task: card and CPU disagree")
+    check(not any(launches.values()), f"threaded fault task: kernels launched {launches}")
+    raised = None
+    try:
+        train(threaded_fault_task(os.path.join(workdir, "tfaults_quorum"), global_model_path=init,
+                                  min_client_quorum=2), device="cuda")
+    except QuorumLostError as exc:
+        raised = str(exc)
+    print(f"  planted: min_client_quorum 2 on the card raised {raised!r}")
+    check(raised is not None and raised.startswith("round 2:"), "threaded fault task: the lost quorum did not raise")
+    check(np.isfinite(gpu[3]["test_loss"]), "threaded fault task: the last round is not finite")
+
+
+def check_spmd_fault_tasks_against_cpu(workdir: str) -> None:
+    """Phase 3's small FedOBD and sign_SGD tasks again, under the fault
+    plan, card against CPU by ``train()`` from one init:
+
+    * FedOBD (:func:`obd_task_config`): a corrupt client in round 1 and a
+      dropped one in the tuning epoch, ``update_guard`` on: the phases and
+      ``rejected_updates`` equal, every record's test loss within the
+      task's 1e-2, and K1 exactly as without faults (a dropped or rejected
+      client still trains and fills its row: the fault weighs it 0);
+    * sign_SGD (``conf/sign_sgd/cifar10.yaml`` cut to 3 clients, 1 epoch of
+      batch 8): one client dropped and one corrupt, the vote guard on:
+      ``rejected_updates`` equal (one a step), the test loss within 1e-2,
+      and K1 once a step."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.training import build_session, train
+
+    faults = {"fault_tolerance.corrupt_schedule": "{1: [1]}", "fault_tolerance.dropout_schedule": "{2: [0]}",
+              "fault_tolerance.update_guard": True}
+    init = os.path.join(workdir, "obd_faults_init.npz")
+    session = build_session(obd_task_config(os.path.join(workdir, "obd_faults_init")), device="cpu")
+    np.savez(init, **convert.to_jax(session.engine.init_params(0)))
+    chunk = session.chunk_size()
+    runs = {}
+    for device in ("cuda", "cpu"):
+        config = obd_task_config(os.path.join(workdir, f"obd_faults_{device}"), faults, global_model_path=init)
+        if device == "cuda":
+            _reset_launches()
+        runs[device] = train(config, device=device)["performance"]
+        if device == "cuda":
+            launches = _read_launches()
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    rel = max(abs(gpu[k]["test_loss"] - row["test_loss"]) / abs(row["test_loss"]) for k, row in cpu.items())
+    k1 = expected_obd_k1(len(cpu), session.n_slots, chunk)
+    print(f"small task (DenseNet-40 fed_obd, corrupt then dropped client, guard) card vs CPU: test loss"
+          f" {[round(gpu[k]['test_loss'], 6) for k in sorted(gpu)]} vs {[round(cpu[k]['test_loss'], 6) for k in sorted(cpu)]}"
+          f" (rel {rel:.2g}); rejected_updates {[gpu[k]['rejected_updates'] for k in sorted(gpu)]} vs"
+          f" {[cpu[k]['rejected_updates'] for k in sorted(cpu)]}; launches {launches} (K1 {k1} without faults)")
+    check([r["phase"] for _, r in sorted(gpu.items())] == [r["phase"] for _, r in sorted(cpu.items())]
+          == ["block_dropout_rounds", "epoch_tune"], f"OBD fault task phases {gpu}")
+    check([gpu[k]["rejected_updates"] for k in sorted(gpu)] == [cpu[k]["rejected_updates"] for k in sorted(cpu)]
+          == [1.0, 0.0], "OBD fault task: rejected_updates disagree")
+    check(rel <= 1e-2, "OBD fault task: card and CPU losses disagree")
+    check(launches["K1"] == k1, f"OBD fault task: K1 {launches['K1']}, want {k1}")
+
+    make = _cut_task(SIGN_SGD_FILES[0], 3, 32, epoch=1, batch_size=8, **{
+        "fault_tolerance.dropout_schedule": "{1: [0]}", "fault_tolerance.corrupt_schedule": "{1: [2]}",
+        "fault_tolerance.update_guard": True})
+    runs = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            _reset_launches()
+        session = build_session(make(os.path.join(workdir, f"sign_faults_{device}")), device=device)
+        runs[device] = session.run()["performance"][1]
+        if device == "cuda":
+            launches = _read_launches()
+            steps = session.config.epoch * session.n_batches
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    rel = abs(gpu["test_loss"] - cpu["test_loss"]) / abs(cpu["test_loss"])
+    print(f"small task (DenseNet-40 sign_SGD, 3 clients: one dropped, one corrupt, guard) card vs CPU: test loss"
+          f" {gpu['test_loss']:.6f} vs {cpu['test_loss']:.6f} (rel {rel:.2g}); rejected_updates"
+          f" {gpu['rejected_updates']} vs {cpu['rejected_updates']} over {steps} steps; launches {launches}")
+    check(gpu["rejected_updates"] == cpu["rejected_updates"] == float(steps), "sign_SGD fault task: rejections")
+    check(rel <= 1e-2, "sign_SGD fault task: card and CPU disagree")
+    check(launches["K1"] == steps, f"sign_SGD fault task: K1 {launches['K1']}, want one a step ({steps})")
+    check(not torch.backends.cudnn.allow_tf32, "sign_SGD fault task: f32 convolutions ran in TF32")
+
+
+#: 4j's threaded buffered run: ``fed_avg/mnist_buffered.yaml`` as shipped
+#: but for these rounds, killed after ``BUFFERED_KILL`` and recovered
+THREADED_BUFFERED_ROUNDS, BUFFERED_KILL = 4, 2
+#: the threaded run's round 1 against 4i's SPMD replay of the same file,
+#: on the card (max |difference|): one cohort, summed in other orders
+BUFFERED_REPLAY_TOL = 1e-5
+#: each threaded flush's K1 mean against the plain f32 weighted sum of the
+#: same uploads on the card (max |difference| over the sum's largest
+#: |element|): at most 6 rows summed in another order, a few f32 roundings
+#: (about 3.6e-7 at worst); a wrong weight or a lost row is off by far more
+FLUSH_TOL = 1e-6
+
+
+def cuda_tensors() -> set[int]:
+    """The storages of the CUDA tensors Python can reach, once the
+    collector has run (their data pointers)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    found = set()
+    for obj in gc.get_objects():
+        try:
+            if torch.is_tensor(obj) and obj.is_cuda:
+                found.add(obj.untyped_storage().data_ptr())
+        except Exception:  # noqa: BLE001 -- an object that cannot say
+            continue
+    return found
+
+
+def flush_against_plain(flush_average, uploads, weights) -> tuple[dict, float]:
+    """``flush_average(uploads, weights)`` (the threaded server's K1 flush)
+    and its max |difference| from the plain f32 weighted sum
+    ``(w[:, None] * stack).sum(0)`` of the same uploads and normalised
+    weights on their device, over the sum's largest |element|."""
+    import numpy as np
+    import torch
+
+    from distributed_learning_simulator_tpu_torch.ops.pytree import ParamVecLayout
+
+    layout = ParamVecLayout.of(uploads[0].parameter)
+    stack = torch.stack([layout.flatten(u.parameter) for u in uploads])
+    w = torch.tensor(np.asarray([x / sum(weights) for x in weights], np.float32), device=stack.device)
+    plain = (w[:, None] * stack).sum(0)
+    got = layout.flatten(flush_average(uploads, weights))
+    return layout.split(got), float((got - plain).abs().max() / plain.abs().max())
+
+
+def run_threaded_buffered_recovery(workdir: str, card: str, replay: dict) -> dict[str, int]:
+    """``fed_avg/mnist_buffered.yaml`` under ``executor: sequential`` at full
+    width (LeNet5, 10 workers, 8 selected, ``buffer_size`` 6, its straggler
+    plan, the stragglers' real sleeps), as shipped but for
+    ``THREADED_BUFFERED_ROUNDS`` rounds, under ``train_with_recovery`` with
+    ``kill_after_rounds`` [``BUFFERED_KILL``], the launch counters set to 0
+    just before and read just after:
+
+    * rounds 1-2's flush columns equal to 4i's SPMD replay of the file
+      (``replay``: its rows and its ``round_1.npz``), and round 1's
+      parameters within ``BUFFERED_REPLAY_TOL`` of the replay's (round 2's
+      cohort differs: the threaded server selects one round behind the
+      session, ``util/buffered.py::threaded_uploaders``, the JAX rule);
+    * the resumed attempt starts from ``round_2.npz`` bit for bit;
+    * the rows after the kill follow the drain rule: the schedule's cohorts
+      less every origin before the resumed round (the JAX package's
+      ``tests/test_async_aggregation.py``);
+    * K1 exactly once a flush that merged an upload, over both attempts,
+      and each flush's K1 mean within ``FLUSH_TOL`` (relative to its
+      largest element) of the plain f32 sum ``(w[:, None] * stack).sum(0)``
+      of the same uploads and normalised weights on the card;
+    * the killed attempt's threads all ended before the resume, and once
+      the run ends and the collector runs no CUDA tensor that Python can
+      reach is left over from it (:func:`cuda_tensors`); the card's
+      allocated memory printed before the run, after the killed attempt
+      (its error still holds the attempt's objects) and at the end (what
+      stays allocated is PyTorch's per-thread cuBLAS workspaces, which no
+      Python object holds and which depend on the threads that ran)."""
+    import threading
+
+    import numpy as np
+
+    import torch
+
+    from distributed_learning_simulator_tpu_torch import training
+    from distributed_learning_simulator_tpu_torch.models import convert
+    from distributed_learning_simulator_tpu_torch.server.aggregation_server import AggregationServer
+    from distributed_learning_simulator_tpu_torch.util.buffered import (
+        BufferedSettings,
+        compute_arrival_schedule,
+        threaded_uploaders,
+    )
+    from distributed_learning_simulator_tpu_torch.util.faults import FaultPlan
+
+    config = shipped_config(BUFFERED_FILE, os.path.join(workdir, "threaded_buffered"), executor="sequential",
+                            round=THREADED_BUFFERED_ROUNDS, **{
+                                "fault_tolerance.kill_after_rounds": f"[{BUFFERED_KILL}]",
+                                "fault_tolerance.restart_backoff_seconds": 0})
+    held = cuda_tensors()
+    starts, memory, alive, flushes = [], {"before": torch.cuda.memory_allocated()}, [], []
+    get_init, flush_average, train = AggregationServer._get_init_model, AggregationServer._flush_average, training.train
+
+    def noted_init(server):
+        params = get_init(server)
+        starts.append({k: v.detach().cpu().clone() for k, v in params.items()})
+        return params
+
+    def noted_flush(uploads, weights):
+        params, err = flush_against_plain(flush_average, uploads, weights)
+        flushes.append((len(uploads), err))
+        return params
+
+    def noted_train(*args, **kwargs):
+        try:
+            return train(*args, **kwargs)
+        except Exception:
+            torch.cuda.synchronize()
+            memory["after the killed attempt"] = torch.cuda.memory_allocated()
+            alive.extend(t.name for t in threading.enumerate() if t.name.startswith(("server", "worker")))
+            raise
+
+    AggregationServer._get_init_model = noted_init
+    AggregationServer._flush_average = staticmethod(noted_flush)
+    training.train = noted_train
+    _reset_launches()
+    t0 = time.monotonic()
+    try:
+        result = training.train_with_recovery(config)
+    finally:
+        AggregationServer._get_init_model = get_init
+        AggregationServer._flush_average = staticmethod(flush_average)
+        training.train = train
+    wall = time.monotonic() - t0
+    launches = _read_launches()
+    left = cuda_tensors() - held
+    torch.cuda.synchronize()
+    memory["at the end"] = torch.cuda.memory_allocated()
+    perf = result["performance"]
+    print(f"main path {BUFFERED_FILE} threaded ({config.worker_number} workers, {THREADED_BUFFERED_ROUNDS} rounds, killed"
+          f" after round {BUFFERED_KILL}, {result['recovery']['restarts']} restart): {wall:.2f} s ({card}); launches"
+          f" {launches}; flushes merged {[n for n, _ in flushes]}, K1 against the plain f32 sum"
+          f" {[f'{e:.3g}' for _, e in flushes]} (relative, FLUSH_TOL {FLUSH_TOL}); card memory allocated "
+          + ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in memory.items())
+          + f"; CUDA tensors of the run left after it: {len(left)}")
+    for r, row in sorted(perf.items()):
+        print(f"  round {r}: flush_cohort {row['flush_cohort']} stale_updates {row['stale_updates']} buffer_depth"
+              f" {row['buffer_depth']}; test loss {row['test_loss']:.4f} (replay: "
+              + (", ".join(f"{replay['records'][r][k]}" for k in ("flush_cohort", "stale_updates", "buffer_depth"))
+                 if r in replay["records"] else "-") + ")")
+        check(np.isfinite(row["test_loss"]), f"threaded {BUFFERED_FILE} record {row}")
+    columns = ("flush_cohort", "stale_updates", "buffer_depth")
+    check(result["recovery"]["restarts"] == 1 and sorted(perf) == list(range(1, THREADED_BUFFERED_ROUNDS + 1)),
+          f"threaded {BUFFERED_FILE}: recovery {result['recovery']}, records {sorted(perf)}")
+    for r in range(1, BUFFERED_KILL + 1):
+        for key in columns:
+            check(perf[r][key] == replay["records"][r][key],
+                  f"threaded {BUFFERED_FILE} round {r} {key}: {perf[r][key]} vs the replay's {replay['records'][r][key]}")
+    first = _round_params(result["recovery"]["attempt_dirs"][0], 1)
+    worst, _ = _params_apart(first, replay["round_1"])
+    print(f"  round 1 against the SPMD replay's: max |diff| {worst:.3g}")
+    check(worst <= BUFFERED_REPLAY_TOL, f"threaded {BUFFERED_FILE}: round 1 {worst} from the replay's")
+    killed = convert.from_jax(_round_params(result["recovery"]["attempt_dirs"][0], BUFFERED_KILL))
+    check(len(starts) == 2 and all(torch.equal(starts[1][k], v) for k, v in killed.items()),
+          f"threaded {BUFFERED_FILE}: the resumed attempt does not start from round_{BUFFERED_KILL}.npz")
+    schedule = compute_arrival_schedule(BufferedSettings.from_config(config), FaultPlan.from_config(config),
+                                        config.worker_number, config.round, threaded_uploaders(config))
+    floor = BUFFERED_KILL + 1
+    for r in range(floor, config.round + 1):
+        want = (len(schedule.live_cohort(r, floor)), schedule.stale_count(r, floor),
+                schedule.buffer_depth_after(r, floor))
+        check(tuple(perf[r][k] for k in columns) == want, f"threaded {BUFFERED_FILE} round {r}: not drained {want}")
+    merged = sum(1 for row in perf.values() if row["flush_cohort"] > 0)
+    check(launches["K1"] == len(flushes) == merged, f"threaded {BUFFERED_FILE}: K1 {launches['K1']}, flushes"
+          f" {flushes}, {merged} non-empty")
+    check(all(e <= FLUSH_TOL for _, e in flushes), f"threaded {BUFFERED_FILE}: K1 flushes off the plain sum {flushes}")
+    check(not [kid for kid, n in launches.items() if n and kid != "K1"], f"threaded {BUFFERED_FILE}: {launches}")
+    check(not alive, f"threaded {BUFFERED_FILE}: the killed attempt's threads still run: {alive}")
+    check(not left, f"threaded {BUFFERED_FILE}: {len(left)} CUDA tensors of the run still reachable")
     return launches
 
 
@@ -4636,6 +5003,12 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
         check_threaded_shapley_task_against_cpu(d)
         check_threaded_gnn_task_against_cpu(d)
     mark("3 threaded GTG, fed_gnn")
+    with phase_dir(workdir) as d:
+        check_threaded_faults_against_cpu(d)
+    mark("3 threaded fault task")
+    with phase_dir(workdir) as d:
+        check_spmd_fault_tasks_against_cpu(d)
+    mark("3 SPMD fault tasks (fed_obd, sign_SGD)")
 
     # 4. the main path, with telemetry on (its trace checked)
     with phase_dir(workdir) as d:
@@ -4719,7 +5092,8 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     launches["K4"] += bert_launches["K4"]
     mark("4i bert_agnews (killed, recovered, round 2 profiled)")
     with phase_dir(workdir) as d:
-        launches["K1"] += run_buffered_file(d)["K1"]
+        buffered_launches, replay = run_buffered_file(d)
+    launches["K1"] += buffered_launches["K1"]
     mark("4i mnist_buffered")
 
     # 4j. the shipped imdb files of the threaded executor's methods (no
@@ -4727,16 +5101,16 @@ def _phases(kernels_only: bool, workdir: str, card: str, started: float, marks: 
     with phase_dir(workdir) as d:
         run_threaded_files(d, card)
     mark("4j threaded imdb files")
+    with phase_dir(workdir) as d:
+        launches["K1"] += run_threaded_buffered_recovery(d, card, replay)["K1"]
+    mark("4j threaded mnist_buffered (killed, recovered)")
 
     # 4k. the shipped Shapley and graph files on the threaded executor (K1:
     # a subset's average and a round's aggregate; none on the graph files)
-    # and a profiled fed_gnn run
     with phase_dir(workdir) as d:
-        threaded_launches, threaded_records = run_threaded_sv_gnn_files(d, card)
+        threaded_launches, _ = run_threaded_sv_gnn_files(d, card)
         launches["K1"] += threaded_launches["K1"]
-        mark("4k threaded Shapley, graph files")
-        profile_threaded_gnn_round(d, threaded_records)
-    mark("4k profile")
+    mark("4k threaded Shapley, graph files")
 
     # 5. the record
     src = f"{PACKAGE}/csrc"

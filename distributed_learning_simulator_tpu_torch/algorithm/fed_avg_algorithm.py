@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..message import Message, ParameterMessage
-from ..ops.pytree import ParamVecLayout, flat_stack_weighted_sum
+from ..ops.pytree import ParamVecLayout, flat_stack_weighted_sum, k1_stack
 from .aggregation_algorithm import AggregationAlgorithm, check_finite
 
 
@@ -84,9 +84,7 @@ class FedAVGAlgorithm(AggregationAlgorithm):
         if self.stack is None:
             self._vec_layout = layout = ParamVecLayout.of(data.parameter)
             workers = self._config.worker_number
-            row_stride = -(-layout.size // 64) * 64  # rows on 128-byte boundaries for K1
-            device = next(iter(data.parameter.values())).device
-            self.stack = torch.zeros(workers, row_stride, dtype=torch.float32, device=device)[:, : layout.size]
+            self.stack = k1_stack(workers, layout.size, next(iter(data.parameter.values())).device)
             self.stack_sizes = np.zeros(workers, np.float32)
         self.stack[worker_id] = self._vec_layout.flatten(data.parameter)
         self.stack_sizes[worker_id] = data.dataset_size

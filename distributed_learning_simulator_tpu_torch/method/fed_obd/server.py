@@ -7,7 +7,15 @@ broadcasts ride the same codec as uploads (``quant_broadcast``: QSGD for
 fed_obd_sq, NNADQ for fed_obd): each is encoded once for all its
 receivers.  With ``second_phase_epoch == 1`` the ``k``-th aggregate's QSGD
 broadcast draws the FedOBD session's broadcast draws of aggregate ``k -
-1``, each leaf by its position (``set_quant_key``)."""
+1``, each leaf by its position (``set_quant_key``).
+
+A resume (``algorithm_kwargs.resume_dir``) restores the record and then
+replays the phase driver over the recorded phases
+(``driver.py::replay_resume``, the SPMD session's replay): a superseded
+tail is dropped and training goes on from the last kept aggregate, and
+the initial broadcast tells the workers when they resume into phase 2.
+The phase driver owns the rounds, so ``aggregation_mode: buffered``
+raises the JAX package's ``ValueError``."""
 
 from typing import Any
 
@@ -18,10 +26,13 @@ from ...ops.quantization import SessionKey
 from ...server.aggregation_server import AggregationServer
 from ...topology.quantized_endpoint import QuantServerEndpoint
 from ...utils.logging import get_logger
-from .driver import ObdRoundDriver
+from ...util.resume import load_round_checkpoint
+from .driver import EPOCH_TUNE, PHASE_TWO_KEY, ObdRoundDriver, replay_resume
 
 
 class FedOBDServer(AggregationServer):
+    _buffered_capable = False
+
     def __init__(self, **kwargs: Any) -> None:
         kwargs.setdefault("algorithm", FedAVGAlgorithm())
         super().__init__(**kwargs)
@@ -34,6 +45,37 @@ class FedOBDServer(AggregationServer):
     def _annotate_stat(self, round_stat: dict) -> None:
         if self._last_phase_name:
             round_stat["phase"] = self._last_phase_name
+
+    def _try_resume(self):
+        """The base resume, then the driver fast-forwarded over the recorded
+        phases; round, parameters and the broadcast count follow the kept
+        prefix."""
+        resumed = super()._try_resume()
+        if resumed is None:
+            return None
+        stats = self.performance_stat
+        total = len([k for k in stats if k > 0])
+        kept_keys, phase1_kept = replay_resume(self._driver, stats)
+        for stale in [k for k in stats if k > 0 and k not in kept_keys]:
+            del stats[stale]
+        # each kept aggregate was broadcast once: the keyed broadcasts go on from there
+        self._bcast_count = len(kept_keys)
+        self._round_number = phase1_kept + 1
+        if kept_keys and len(kept_keys) < total:
+            kept = load_round_checkpoint(self.config.algorithm_kwargs["resume_dir"], kept_keys[-1])
+            if kept is not None:
+                resumed = kept
+        get_logger().info(
+            "resume: fed_obd driver fast-forwarded to %s (round -> %d)",
+            self._driver.phase.name if self._driver.phase else "finished",
+            self._round_number,
+        )
+        return resumed
+
+    def _init_annotations(self) -> dict:
+        """A resume into phase 2 tells the new workers on the initial
+        broadcast (they never saw the switch)."""
+        return {PHASE_TWO_KEY: True} if self._driver.phase is EPOCH_TUNE else {}
 
     def _select_workers(self) -> set[int]:
         phase = self._driver.phase

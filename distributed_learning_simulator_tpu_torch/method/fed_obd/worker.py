@@ -82,6 +82,10 @@ class FedOBDWorker(AggregationWorker):
     def _load_result_from_server(self, result: Message) -> None:
         if PHASE_TWO_KEY in result.other_data:
             assert isinstance(result, ParameterMessage)
+            if result.is_initial and "round" in result.other_data:
+                # a resume into phase 2: the round first, as the tuning
+                # phase's round budget counts from it
+                self._round_num = result.other_data["round"]
             self._enter_epoch_tune()
         super()._load_result_from_server(result=result)
 

@@ -36,6 +36,9 @@ class SignSGDAlgorithm(AggregationAlgorithm):
 
 
 class GradientServer(Server):
+    #: the JAX gradient server reads no fault plan, quorum, resume or buffer
+    _takes_fault_plan = False
+
     def __init__(self, algorithm: AggregationAlgorithm, **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._algorithm = algorithm

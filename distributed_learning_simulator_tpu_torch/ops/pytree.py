@@ -67,6 +67,13 @@ def _numel(shape: tuple[int, ...]) -> int:
     return int(np.prod(shape)) if shape else 1
 
 
+def k1_stack(rows: int, size: int, device) -> torch.Tensor:
+    """A zeroed f32 ``[rows, size]`` stack for K1, each row starting on a
+    128-byte boundary (a view into a ``[rows, size padded to 64]`` buffer)."""
+    row_stride = -(-size // 64) * 64
+    return torch.zeros(rows, row_stride, dtype=torch.float32, device=device)[:, :size]
+
+
 def flat_stack_weighted_sum(stacked: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """``w @ [K, D]`` accumulated in f32 through kernel K1
     (:func:`~.weighted_accum.weighted_accum`).

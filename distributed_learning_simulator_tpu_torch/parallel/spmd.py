@@ -54,9 +54,15 @@ over the chunk's rows with the bucket's masked weights.  Bucket 0 and the
 head of a ``[depth, D]`` f32 pending ring form the flush; the other
 buckets refill the ring, shifted once a round.  A flush of weight 0 keeps
 the old master.  A depth-0 schedule runs the synchronous round, bit for
-bit.  Only this class (fed_avg, fed_paq) takes buffered aggregation and
-the fault plan; the other sessions refuse them, but for the plan's kill
-schedule and restart knobs.
+bit.  Only this class (fed_avg, fed_paq) takes buffered aggregation.
+
+Every session folds the fault plan into its weight rows and enforces the
+quorum, as its JAX twin does; the update guard is gated per class
+(:meth:`SpmdFedAvgSession._class_update_guard_reason`): this class, FedOBD
+and sign_SGD run it, the sparse and Shapley sessions raise the JAX
+session's ``ValueError``.  ``client_faults_nonfatal`` belongs to the
+threaded executor: the JAX sessions take it and ignore it, and the port
+refuses it (ROADMAP.md R18).
 
 Round checkpoints and resume follow the JAX session.  The round's new
 master is queued to ``aggregated_model/round_N.npz`` (the JAX package's
@@ -359,17 +365,10 @@ class SpmdFedAvgSession:
                 f"fault_tolerance.update_guard is unsupported here: {reason} — drop the knob for this session"
             )
         plan = self._fault_plan
-        # the other sessions take the kill schedule and the supervisor's knobs only
-        partial = plan is not None and not plan.only_recovery
-        if (partial or self._min_quorum) and type(self) is not SpmdFedAvgSession:
-            raise NotImplementedError(
-                f"fault_tolerance (beyond kill_after_rounds and the restart knobs) and min_client_quorum"
-                f" on {type(self).__name__} are not ported yet (ROADMAP.md, Queue 1 item 7)"
-            )
         if plan is not None and plan.client_faults_nonfatal:
             raise NotImplementedError(
-                "fault_tolerance.client_faults_nonfatal is the threaded executor's, which is not ported"
-                " yet (ROADMAP.md, Queue 1 item 5)"
+                "fault_tolerance.client_faults_nonfatal demotes the threaded executor's crashed workers; an SPMD"
+                " session has none, and the JAX session ignores the knob (ROADMAP.md R18)"
             )
         self._buffered = BufferedSettings.from_config(config)
         self._arrival_schedule = None
@@ -715,6 +714,7 @@ class SpmdFedAvgSession:
         ``delays`` (the buffered replay) each slot's row goes to the bucket
         of the flush it lands at, ``delays[slot]`` flushes from now."""
         engine = self.engine
+        self._round_weight_row = weights  # the host row the uploads see (SMAFD's residuals)
         start = global_vec.to(self.model_ctx.compute_dtype)  # once per round
         work = torch.empty_like(start)
         mb = self.chunk_size()

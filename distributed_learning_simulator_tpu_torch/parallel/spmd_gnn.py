@@ -77,6 +77,8 @@ from .watchdog import DeadlineWatchdog
 SUPPORTED_ALGORITHM_KWARGS = frozenset(
     {"share_feature", "batch_number", "edge_drop_rate", "num_neighbor", "resume_dir"}
 )
+#: the round machinery's knobs, which the JAX graph sessions read nowhere
+_JAX_IGNORES = frozenset({"min_client_quorum", "aggregation_mode", "buffer_size", "staleness_alpha"})
 
 
 class SpmdFedGNNSession:
@@ -90,6 +92,12 @@ class SpmdFedGNNSession:
     def __init__(self, config, dataset_collection, model_ctx, engine, practitioners, share_feature=None) -> None:
         kwargs = config.algorithm_kwargs
         unsupported = sorted(set(kwargs) - self.supported_algorithm_kwargs)
+        ignored = [k for k in unsupported if k in _JAX_IGNORES]
+        if ignored:
+            raise NotImplementedError(
+                f"algorithm_kwargs {ignored}: the JAX graph sessions take them and ignore them, and the port"
+                " refuses them (ROADMAP.md R18)"
+            )
         if unsupported:
             raise NotImplementedError(
                 f"algorithm_kwargs {unsupported} are not ported yet on the graph sessions"

@@ -49,8 +49,19 @@ which trains the next aggregate from the restored exact average, the port
 codes the restored average again (the codec's draws are keyed by the
 aggregate), so the first resumed aggregate trains from the broadcast an
 uninterrupted run would have sent: a resume is the uninterrupted run, bit
-for bit.  Of the fault plan the session takes only the kill, fired where
-the JAX session fires it.
+for bit.
+
+The fault plan folds into each aggregate's weight row as in the JAX
+session (phase 1 keyed by the round, phase 2 by the aggregate's key): a
+dropped client weighs 0 and a corrupt one NaN, but both still train (a
+lost upload, not a missed round), so under a selection a slot's phase-2
+seed is the state of its last participation that counted, and its
+upload's bits do not count.  The update guard checks each client's coded
+upload against the broadcast on the device (finite, and within
+``max_update_norm``) and zeroes a rejected client's weight; the
+survivors' total divides the sum, a round that rejects everyone keeps the
+broadcast, and the row's ``rejected_updates`` meets the post-guard quorum.
+The kill fires where the JAX session fires it.
 
 Telemetry follows the JAX session's phase loop: per aggregate a
 ``dispatch_call`` span under the JAX phase program's name (``phase1[dense]``,
@@ -79,6 +90,7 @@ from ..models.dropout import dropout_generator
 from ..ops.pytree import flat_stack_weighted_sum
 from ..ops.quantization import nnadq_quantize_dequantize_leaves, qsgd_quantize_dequantize_leaves
 from ..util.checkpoint import jax_views, rows_from_jax
+from ..util.faults import apply_fault_plan
 from ..util.resume import load_resume_state, load_round_checkpoint
 from ..utils.logging import get_logger
 from .spmd import SUPPORTED_ALGORITHM_KWARGS, SpmdFedAvgSession, scan_local_epochs_carry
@@ -97,7 +109,7 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
 
     @classmethod
     def _class_update_guard_reason(cls) -> str | None:
-        return None  # the JAX session guards its phases (here: not ported, item 7)
+        return None  # the JAX session guards its phases
 
     def __init__(self, *args, codec: str = "nnadq", **kwargs) -> None:
         super().__init__(*args, **kwargs)
@@ -204,15 +216,24 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         bcast, leaf_bits = self._code(exact, aggregate, None, every)
         return bcast, self._message_bits(leaf_bits, every)
 
-    def run_aggregate(self, g: torch.Tensor, weights: np.ndarray, key: int, phase_two: bool):
-        """One aggregate from the f32 broadcast ``g``: every slot of weight
-        above 0 trains (phase 1: ``epoch`` epochs from a fresh optimizer;
-        phase 2: one epoch from its carried state) and uploads, K1 sums the
-        uploads a chunk at a time, and the exact average is coded for the
-        next broadcast.  Returns ``(exact, broadcast, upload bits,
-        broadcast bits)``, the bits as f32 scalars on the device."""
+    def run_aggregate(self, g: torch.Tensor, weights: np.ndarray, key: int, phase_two: bool, trains=None):
+        """One aggregate from the f32 broadcast ``g``: every slot of
+        ``trains`` (default: weight not 0) trains (phase 1: ``epoch`` epochs
+        from a fresh optimizer; phase 2: one epoch from its carried state)
+        and uploads with its entry of ``weights`` (the fault plan's row: 0
+        dropped, NaN corrupt), K1 sums the uploads a chunk at a time, and
+        the exact average is coded for the next broadcast.  Under the
+        update guard a rejected upload weighs 0 and the survivors' total
+        divides the sum (a round that rejects everyone keeps ``g``).
+        Returns ``(exact, broadcast, upload bits, broadcast bits)``, the
+        bits as f32 scalars on the device."""
         engine, config = self.engine, self.config
         aggregate = self._aggregates
+        if trains is None:
+            trains = weights != 0
+        # a phase-1 slot's state seeds its phase 2 only from a participation
+        # that counted (the JAX session's masked merge under a selection)
+        merge = not phase_two and self._selection_active
         start = g.to(self.model_ctx.compute_dtype)  # once per aggregate
         work = torch.empty_like(start)
         mb = self.chunk_size()
@@ -221,16 +242,18 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         rows = torch.empty(mb, row_stride, device=self.device)[:, :size]
         acc = torch.zeros_like(g)
         upload_bits = torch.zeros((), device=self.device)
-        w = torch.from_numpy(weights).to(self.device)
+        w = torch.from_numpy(weights).to(self.device, copy=True)  # the guard writes to it
+        if self._update_guard:
+            self._rejected = torch.zeros((), device=self.device)
         epochs = 1 if phase_two else config.epoch
         for c0 in range(0, self.n_slots, mb):
             for j in range(mb):
                 slot = c0 + j
-                if weights[slot] == 0:  # contributes exactly 0
+                if not trains[slot]:  # contributes exactly 0
                     rows[j].zero_()
                     continue
                 work.copy_(start)
-                self._opt_states[slot], _ = scan_local_epochs_carry(
+                state, _ = scan_local_epochs_carry(
                     engine,
                     epochs,
                     work,
@@ -239,10 +262,20 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                     self._opt_states[slot] if phase_two else None,
                     generator=dropout_generator(config.seed, key, slot, self.device),
                 )
+                if not merge or weights[slot] > 0:
+                    self._opt_states[slot] = state
                 with torch.no_grad():
-                    upload_bits += self._obd_upload(rows[j], work, g, phase_two, aggregate, slot)
+                    bits = self._obd_upload(rows[j], work, g, phase_two, aggregate, slot)
+                    if weights[slot] > 0:  # a dropped or corrupt upload's bits do not count
+                        upload_bits += bits
+                    if self._update_guard:
+                        self._guard(rows[j], g, w, slot)
             acc += flat_stack_weighted_sum(rows, w[c0 : c0 + mb])
-        exact = acc / max(float(weights.sum()), 1e-12)
+        if self._update_guard:
+            total = w.sum()
+            exact = torch.where(total > 0, acc / torch.clamp(total, min=1e-12), g)
+        else:
+            exact = acc / max(float(weights.sum()), 1e-12)
         bcast, bcast_bits = self._broadcast(exact, aggregate)
         self._aggregates += 1
         return exact, bcast, upload_bits, bcast_bits
@@ -253,6 +286,17 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         weights = np.asarray(self._dataset_sizes, np.float32).copy()
         weights[self.config.worker_number :] = 0.0
         return weights
+
+    def _aggregate_weights(self, key: int, phase_two: bool) -> tuple[np.ndarray, np.ndarray]:
+        """The aggregate's fault-folded weight row (its quorum enforced) and
+        the slots that train: phase 1 the selected ones, phase 2 every
+        worker, whatever the plan dropped (a dropped client trained and
+        lost its upload)."""
+        base = self._all_weights() if phase_two else self._base_weight_row(key)
+        folded = apply_fault_plan(
+            self._fault_plan, self._min_quorum, key, None, base.copy(), self.config.worker_number
+        )
+        return folded, base > 0
 
     def run(self) -> dict:
         """The phases off :class:`ObdRoundDriver`: phase-1 keys are the
@@ -288,11 +332,11 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                 trace.maybe_profile_start(keys[0], keys[-1])
                 chunk_start = time.monotonic()
                 for key in keys:
-                    weights = self._all_weights() if phase_two else self._base_weight_row(key)
+                    weights, trains = self._aggregate_weights(key, phase_two)
                     round_start = time.monotonic()
                     exact, train_vec, upload_bits, bcast_bits = self._watchdog.call(
-                        lambda g=train_vec, w=weights, k=key: trace.dispatch(
-                            program, self.run_aggregate, (g, w, k, phase_two), cost_args=(g, w, self._data)
+                        lambda g=train_vec, w=weights, k=key, t=trains: trace.dispatch(
+                            program, self.run_aggregate, (g, w, k, phase_two, t), cost_args=(g, w, self._data)
                         ),
                         phase=label,
                         round_number=key,
@@ -305,11 +349,16 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
                     trace.event("host_sync", round=key)
                     trace.hbm_watermark(key)
                     trace.count("rounds")
-                    self._trace_fault_event(key, 0, selected=range(config.worker_number) if phase_two else None)
+                    rejected = int(self._rejected) if self._update_guard else 0  # ready: the evaluation synced
+                    self._trace_fault_event(
+                        key, rejected, selected=range(config.worker_number) if phase_two else None
+                    )
                     self._record_obd(
                         key, metric, float(upload_bits), float(bcast_bits), exact if key == keys[-1] else None,
                         save_dir, spec.name, time.monotonic() - round_start,
+                        rejected=rejected if self._update_guard else None,
                     )
+                    self._post_guard_quorum(key, int((weights != 0).sum()), rejected)
                     improved = self._has_improvement() if driver.early_stop else True
                     decision = driver.after_aggregate(improved=improved, check_acc=spec.check_acc)
                 if h > 1:
@@ -430,9 +479,12 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
         ]
         get_logger().info("restored phase-2 optimizer states (aggregate %d)", expect_key)
 
-    def _record_obd(self, key, metric, upload_bits, bcast_bits, exact, save_dir, phase_name, round_seconds) -> None:
+    def _record_obd(
+        self, key, metric, upload_bits, bcast_bits, exact, save_dir, phase_name, round_seconds, rejected=None
+    ) -> None:
         """The aggregate's row (its ``phase`` lets a resume replay the
-        driver) and, with ``exact`` (None mid-horizon), its checkpoint."""
+        driver; ``rejected_updates`` under the guard) and, with ``exact``
+        (None mid-horizon), its checkpoint."""
         mb = 1 / 8e6
         extra = {
             "received_mb": upload_bits * mb,
@@ -440,6 +492,8 @@ class SpmdFedOBDSession(SpmdFedAvgSession):
             "round_seconds": round_seconds,
             "phase": phase_name,
         }
+        if rejected is not None:
+            extra["rejected_updates"] = float(rejected)
         self._record(key, metric, exact, save_dir, extra)
         if upload_bits:
             # wire bits over full-precision full-model bits per selected client

@@ -14,7 +14,10 @@ FedAvg session, with the JAX round program's data flow:
    K1 over the stack with ``w = mask * weights`` (``weights`` the round's
    selection row: the selected workers' dataset sizes), divided by
    ``max(sum(w), 1e-12)``: the sum first, the division second, as in the
-   JAX subset program.  Its metric is ``correct / max(count, 1)`` in f32
+   JAX subset program (under a fault plan the row has the FedAvg
+   session's fold: a dropped worker 0, a corrupt one NaN, which poisons
+   every subset as in JAX; the round's aggregate below ignores the plan,
+   as the JAX one does).  Its metric is ``correct / max(count, 1)`` in f32
    on the test set, taken ``SUBSET_EVAL_BATCH`` samples at a time: a
    subset metric is inference only, and the port's models have no batch
    statistics, so each sample's prediction (hence ``correct``) does not
@@ -211,7 +214,8 @@ class SpmdShapleySession(SpmdFedAvgSession):
         records, the aggregate and its record; returns the new global."""
         config = self.config
         start = time.monotonic()
-        weights = self._base_weight_row(round_number)
+        # the fault plan reaches the subset metrics' weights (and the quorum), as in JAX
+        weights = self._select_weights(round_number)
         stack = self._watchdog.call(
             lambda: self.train_stack(global_vec, round_number), phase="round", round_number=round_number
         )

@@ -25,7 +25,7 @@ is in the JAX program; the engine's ``train_step`` would skip the batch
 without advancing anything, so the session does not go through it.  The
 record row has the JAX keys (test metrics, and ``train_loss_per_epoch`` /
 ``train_accuracy_per_epoch`` summed over the slots, masked by the vote
-weights only under selection) plus ``round_seconds``;
+weights only under selection or injection) plus ``round_seconds``;
 ``server/best_global_model.npz`` is rewritten whenever the test accuracy
 improves.  The initial parameters are ``engine.init_params(seed)``, as in
 JAX (which reads no ``global_model_path``).  ``round_horizon`` H > 1 runs
@@ -34,6 +34,14 @@ JAX, the session writes no round checkpoints and takes no ``resume_dir``: a
 scheduled kill (``kill_after_rounds``) fires right after its round's record
 lands, and ``train_with_recovery`` restarts the run from round 1.
 ``watchdog_seconds`` guards each round and its evaluation.
+
+The fault plan folds into the 0/1 vote weights as in the JAX session (a
+dropped client 0, a corrupt one NaN, the quorum checked before the
+round), and with it the training metrics are weighted by the votes.  The
+update guard masks a slot out of one step's vote where its gradient or
+its weight is not finite and counts it; the row's ``rejected_updates``
+sums the round's steps.  (The vote has no round delta, so there is no norm
+check.)
 
 Telemetry follows the JAX session's recorder and loop: a ``dispatch_call``
 span around each round under the JAX program's name (``run[dense]``, or
@@ -54,6 +62,7 @@ import torch
 from ..models.convert import to_jax
 from ..models.dropout import dropout_generator
 from ..ops.pytree import flat_stack_weighted_sum
+from ..util.faults import apply_fault_plan
 from ..utils.logging import get_logger
 from ..utils.selection import select_workers
 from .spmd import SpmdFedAvgSession
@@ -63,7 +72,7 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
     """Majority-vote sign-SGD: one K1 vote over the slots' gradient signs
     at every optimizer step."""
 
-    supported_algorithm_kwargs = frozenset({"random_client_number", "round_horizon"})
+    supported_algorithm_kwargs = frozenset({"random_client_number", "round_horizon", "min_client_quorum"})
     _uses_val_policy = False
 
     @classmethod
@@ -72,7 +81,7 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
 
     @classmethod
     def _class_update_guard_reason(cls) -> str | None:
-        return None  # the JAX session guards its votes (here: not ported, item 7)
+        return None  # the JAX session guards its votes
 
     def __init__(self, config, *args, **kwargs) -> None:
         mode = str(config.algorithm_kwargs.get("aggregation_mode") or "synchronous").lower()
@@ -87,6 +96,10 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
         self.n_batches = len(self._counts[0])
         k = config.algorithm_kwargs.get("random_client_number")
         self._selection_active = k is not None and int(k) < config.worker_number
+        # the training metrics are weighted by the votes where the cohort
+        # varies round to round (selection or injection), as in JAX
+        injecting = self._fault_plan is not None and self._fault_plan.injection_active
+        self._mask_metrics = self._selection_active or injecting
 
     def round_weights(self, round_number: int) -> np.ndarray:
         """``[n_slots]`` 0/1 vote weights: the workers with data, under
@@ -102,7 +115,9 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
             mask = np.zeros(self.n_slots, np.float32)
             mask[sorted(selected)] = 1.0
             weights = weights * mask
-        return weights
+        return apply_fault_plan(
+            self._fault_plan, self._min_quorum, round_number, None, weights, self.config.worker_number
+        )
 
     def new_votes(self, size: int) -> torch.Tensor:
         """The ``[n_slots, size]`` bf16 vote stack, zeroed, its rows on
@@ -114,18 +129,34 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
         """Step index ``i``'s direction ``sign(sum_c w_c * sign(grad_c))`` at
         ``params``: each participating slot's gradient sign in its row of
         ``votes``, then one K1 launch.  Adds the slots' training metrics to
-        ``summed`` (``[loss_sum, correct, count]``) when given."""
+        ``summed`` (``[loss_sum, correct, count]``) when given.  Under the
+        update guard a slot whose gradient or weight is not finite votes
+        with weight 0 at this step and adds 1 to the round's rejections
+        (on the device)."""
+        guard = self._update_guard
+        if guard:
+            w = w.clone()  # this step's vote weights
         for slot in range(self.n_slots):
             if weights[slot] == 0:
                 continue  # its row stays 0 and its vote weighs 0
+            grad = None
             if self._counts[slot][i] <= 0:
                 votes[slot].zero_()  # a zero gradient: no vote
+            else:
+                batch = {k: v[slot, i] for k, v in self._data.items()}
+                metrics, grad = self.engine.loss_and_grad(params, batch, generators[slot])
+            if guard:
+                ok = torch.isfinite(w[slot])
+                if grad is not None:
+                    ok = ok & torch.isfinite(grad).all()
+                self._rejected += torch.where(ok, 0.0, 1.0)  # a participating slot: its weight is not 0
+                w[slot] = torch.where(ok, w[slot], 0.0)
+            if grad is None:
                 continue
-            batch = {k: v[slot, i] for k, v in self._data.items()}
-            metrics, grad = self.engine.loss_and_grad(params, batch, generators[slot])
             votes[slot].copy_(grad.sign_())
             if summed is not None:
-                summed += torch.stack([metrics["loss"] * metrics["count"], metrics["correct"], metrics["count"]])
+                row = torch.stack([metrics["loss"] * metrics["count"], metrics["correct"], metrics["count"]])
+                summed += row * w[slot] if self._mask_metrics else row
         return torch.sign(flat_stack_weighted_sum(votes, w))
 
     def update(self, params: torch.Tensor, velocity: torch.Tensor, direction: torch.Tensor, lr) -> None:
@@ -142,6 +173,8 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
         velocity = torch.zeros_like(params)
         votes = self.new_votes(params.numel())
         w = torch.from_numpy(weights).to(self.device)
+        if self._update_guard:
+            self._rejected = torch.zeros((), device=self.device)
         generators = {
             slot: dropout_generator(self.config.seed, round_number, slot, self.device)
             for slot in range(self.n_slots)
@@ -201,7 +234,11 @@ class SpmdSignSGDSession(SpmdFedAvgSession):
                 "train_accuracy_per_epoch": (sums[:, 1] / count).tolist(),
                 "round_seconds": time.monotonic() - start,
             }
-            self._trace_fault_event(round_number, 0)
+            rejected = 0
+            if self._update_guard:
+                # the vote guard's rejections over the round's steps
+                rejected = extra["rejected_updates"] = float(self._rejected)
+            self._trace_fault_event(round_number, rejected)
             self._note_round(round_number, metric, save_dir, extra)
             if round_number == boundary and horizon > 1:
                 trace.span_record(

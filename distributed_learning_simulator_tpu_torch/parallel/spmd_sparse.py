@@ -24,7 +24,8 @@ client loop (its ``_upload`` hook builds a trained client's f32 row):
   magnitude at least its k-th largest (ties admitted); what it did not
   send stays in its residual, and an unselected slot keeps its residual.
   The new global is ``sum_c w_c * (g + sent_c) / max(sum_c w_c, 1e-12)``
-  through K1.
+  through K1.  A client the fault plan drops or corrupts (weight 0 or
+  NaN) keeps its residual.
 
 SMAFD checkpoints its residuals with every round
 (``aggregated_model/err_state.npz``: each leaf's ``[n_slots, *shape]``
@@ -136,6 +137,7 @@ class SpmdSMAFDSession(SpmdFedAvgSession):
         for i, leaf in enumerate(self._jax_leaves):
             leaf_of[leaf.start : leaf.stop] = i
         self._leaf_of = leaf_of.to(self.device)
+        self._round_weight_row = None  # the round's host weight row (run_round sets it)
 
     def _err_path(self, base_dir: str) -> str:
         return os.path.join(base_dir, "aggregated_model", "err_state.npz")
@@ -206,5 +208,7 @@ class SpmdSMAFDSession(SpmdFedAvgSession):
             keep = torch.from_numpy(self.keep_leaves(aggregate, slot).astype(np.float32)).to(self.device)
             torch.index_select(keep, 0, self._leaf_of, out=self._keep)
         sent = row * self._keep
-        torch.sub(row, sent, out=err)
+        if self._round_weight_row is None or self._round_weight_row[slot] > 0:
+            torch.sub(row, sent, out=err)
+        # else a corrupt (NaN-weighted) upload: the slot keeps its residual, as in JAX
         torch.add(g, sent, out=row)

@@ -2,7 +2,15 @@
 package's ``server/server.py``).  It sweeps the workers for pending
 messages, feeds each to ``_process_worker_data``, sends results to the
 selected workers (``None`` to the others) or a message of its own to each
-worker, and owns the central test ``Inferencer``."""
+worker, and owns the central test ``Inferencer``.
+
+A worker the task has demoted to a permanent dropout (a crashed thread
+or a stalled one, under ``fault_tolerance.client_faults_nonfatal``) can
+never upload again: the loop takes its ``None`` in its place, once the
+worker's last queued message, if any, has been taken.  In buffered mode
+(``_greedy_sweep``) the loop drains every queued message of every worker
+a sweep, and synthesises a dropped worker's ``None`` only when the next
+flush waits on it."""
 
 import json
 import os
@@ -18,6 +26,15 @@ from ..utils.selection import select_workers
 
 
 class Server(Executor):
+    #: buffered mode: drain every queued message a sweep, not one a worker
+    #: a cycle (that cadence is the synchronous round barrier)
+    _greedy_sweep = False
+    #: whether the server runs the fault plan, the update guard and the
+    #: round knobs (``min_client_quorum``, ``resume_dir``, buffered mode);
+    #: where its JAX twin takes them and ignores them, ``training.py``
+    #: refuses them (ROADMAP.md R18)
+    _takes_fault_plan = True
+
     def __init__(self, task_id, endpoint, config=None, task_context=None, **kwargs: Any) -> None:
         name = "server" if task_id is None else f"server of {task_id}"
         super().__init__(config=config, name=name, task_context=task_context)
@@ -73,8 +90,24 @@ class Server(Executor):
                 if not worker_set:
                     worker_set = self._active_workers()
                 progressed = False
-                for worker_id in sorted(worker_set):
+                dropped = self._dropped_workers() & worker_set
+                if self._greedy_sweep:
+                    # only the workers the next flush waits on: the drain
+                    # below takes real messages as fast as they come
+                    dropped &= self.pending_workers()
+                for worker_id in sorted(dropped):
                     if self._endpoint.has_data(worker_id):
+                        continue  # its last upload first
+                    self._process_worker_data(worker_id, None)
+                    if not self._greedy_sweep:
+                        worker_set.remove(worker_id)
+                    progressed = True
+                for worker_id in sorted(worker_set):
+                    if self._greedy_sweep:
+                        while not self._stopped() and self._endpoint.has_data(worker_id):
+                            self._process_worker_data(worker_id, self._endpoint.get(worker_id))
+                            progressed = True
+                    elif self._endpoint.has_data(worker_id):
                         self._process_worker_data(worker_id, self._endpoint.get(worker_id))
                         worker_set.remove(worker_id)
                         progressed = True
@@ -97,6 +130,16 @@ class Server(Executor):
 
     def _server_exit(self) -> None:
         pass
+
+    def _dropped_workers(self) -> set[int]:
+        """The workers demoted to permanent dropouts under
+        ``fault_tolerance.client_faults_nonfatal``."""
+        return set(getattr(self._task_context, "dropped_workers", None) or ())
+
+    def pending_workers(self) -> set[int]:
+        """The workers the loop still waits on (the aggregation servers say
+        which)."""
+        return set()
 
     def _process_worker_data(self, worker_id: int, data: Message | None) -> None:
         raise NotImplementedError
@@ -122,14 +165,19 @@ class Server(Executor):
                 self._endpoint.broadcast(data=result, worker_ids=selected)
             unselected = set(range(self.worker_number)) - selected
             if unselected:
-                self._endpoint.broadcast(data=None, worker_ids=unselected)
+                self._endpoint.broadcast(data=self._unselected_message(result), worker_ids=unselected)
         self._after_send_result(result=result)
 
+    def _unselected_message(self, result: Message) -> Message | None:
+        """What a worker left out of ``result``'s broadcast receives: ``None``."""
+        return None
+
     def _select_workers(self) -> set[int]:
-        """Random client selection, deterministic in (seed, round)."""
+        """Random client selection, deterministic in (seed, round): the round
+        counter's, or ``_selection_round`` where a server sets one."""
         return select_workers(
             self.config.seed,
-            getattr(self, "_round_number", 0),
+            getattr(self, "_selection_round", None) or getattr(self, "_round_number", 0),
             self.worker_number,
             self.config.algorithm_kwargs.get("random_client_number"),
         )

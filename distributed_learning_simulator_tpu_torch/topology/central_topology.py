@@ -8,6 +8,10 @@ before and decode after the count, so it sees wire sizes.  Each endpoint
 holds the link's random source (``random`` in ``endpoint_kwargs``,
 ``ops/quantization.py::CodecRandom``): the codecs draw from it, and so do
 the upload transforms of FedDropoutAvg and SMAFD.
+
+Every send, and every receipt of a message that is not ``None``, adds one
+to the topology's ``activity`` counter, which the threaded executor's
+stall watchdog (``training.py::_watchdog_loop``) reads.
 """
 
 import queue
@@ -46,6 +50,11 @@ class CentralTopology:
         self.server_wakeup = threading.Event()
         self._to_server = {w: _Channel(notify=self.server_wakeup) for w in range(worker_num)}
         self._to_worker = {w: _Channel() for w in range(worker_num)}
+        #: messages moved so far; the stall watchdog reads it
+        self.activity = 0
+
+    def record_activity(self) -> None:
+        self.activity += 1  # a racy increment still changes the value
 
 
 class ClientEndpoint:
@@ -57,10 +66,14 @@ class ClientEndpoint:
         self.random = random if random is not None else CodecRandom()
 
     def send(self, data: Any) -> None:
+        self._topology.record_activity()
         self._topology._to_server[self.worker_id].put(data)
 
     def get(self, timeout: float | None = None) -> Any:
-        return self._topology._to_worker[self.worker_id].get(timeout=timeout)
+        data = self._topology._to_worker[self.worker_id].get(timeout=timeout)
+        if data is not None:
+            self._topology.record_activity()
+        return data
 
     def has_data(self) -> bool:
         return self._topology._to_worker[self.worker_id].has_data()
@@ -89,11 +102,15 @@ class ServerEndpoint:
         data = self._topology._to_server[worker_id].get(timeout=timeout)
         if isinstance(data, Message):
             self.received_bytes += get_message_size(data)
+        if data is not None:
+            # a drain is progress too: a phase that only pulls must not trip the watchdog
+            self._topology.record_activity()
         return data
 
     def send(self, worker_id: int, data: Any) -> None:
         if isinstance(data, Message):
             self.sent_bytes += get_message_size(data)
+        self._topology.record_activity()
         self._topology._to_worker[worker_id].put(data)
 
     def broadcast(self, data: Any, worker_ids: set[int] | None = None) -> None:

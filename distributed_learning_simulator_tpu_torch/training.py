@@ -31,15 +31,26 @@ executors:
 
 It runs on CUDA unless ``device="cpu"`` is passed (or set in the config),
 and raises where no GPU is visible.  What the port does not run yet raises
-``NotImplementedError`` naming the ROADMAP item.  ``fault_tolerance`` and
-``aggregation_mode: buffered`` run on the SPMD FedAvg session (fed_avg,
-fed_paq); the other SPMD sessions take only the kill schedule and the
-supervisor's knobs (``parallel/spmd.py``).  The threaded executor refuses
-the fault plan, buffered aggregation, resume, ``watchdog_seconds`` and
-``parallel_number`` (ROADMAP.md Queue 1 item 5, part 2), and
-``float64_parity`` and the population store (item 7); on the Shapley and
-graph servers ``aggregation_mode: buffered`` raises the JAX package's
-``ValueError``.
+``NotImplementedError`` naming the ROADMAP item.
+
+``fault_tolerance`` runs on every executor where the JAX package runs it.
+The SPMD sessions fold the plan into their weight rows, each taking or
+refusing the update guard and ``aggregation_mode: buffered`` as its JAX
+twin does (``parallel/spmd.py``).  The threaded executor runs the plan at
+the upload (the worker) and the guard, quorum, kills, resume and buffered
+flushes at the server (``server/aggregation_server.py``); under
+``fault_tolerance.client_faults_nonfatal`` a worker that crashes, or that
+the stall watchdog (``watchdog_seconds``) finds holding a round up, becomes
+a permanent dropout instead of ending the task; ``parallel_number`` bounds
+the workers training at once.  The threaded executor refuses
+``float64_parity``, the population store and any other knob its roles do
+not read (item 7); on the Shapley, graph and FedOBD servers
+``aggregation_mode: buffered`` raises the JAX package's ``ValueError``.
+Where a JAX role takes a knob and ignores it, the port refuses it
+(ROADMAP.md R18): the fault plan on the graph sessions (beyond the kill
+schedule and the supervisor's knobs) and on threaded sign_SGD,
+``client_faults_nonfatal`` and ``parallel_number`` on the SPMD sessions,
+and resume, the quorum and buffered aggregation on threaded sign_SGD.
 
 :func:`train_with_recovery` is the supervisor: attempt ``k`` runs in
 ``<save_dir>_retry<k>`` and resumes from the newest attempt directory that
@@ -104,10 +115,9 @@ _THREADED_METHOD_KWARGS = {
 #: the buffered knobs, which a server that cannot buffer refuses itself
 #: with the JAX package's ValueError
 _BUFFERED_KWARGS = frozenset({"aggregation_mode", "buffer_size", "staleness_alpha"})
-#: the ROADMAP item of each algorithm_kwarg the threaded executor refuses
-#: (any other: item 5, part 2)
-_THREADED_KWARG_ITEMS = {"float64_parity": "item 7", "population_store": "item 7"}
-_PART_2 = "ROADMAP.md Queue 1 item 5, part 2"
+#: what the threaded AggregationServer reads besides the roles' kwargs
+_THREADED_SERVER_KWARGS = frozenset({"resume_dir", "min_client_quorum"})
+_R18 = "ROADMAP.md R18: the JAX package takes it and ignores it"
 
 
 def _session_fed_avg(config, args):
@@ -179,7 +189,9 @@ def resolve_executor(config: DistributedTrainingConfig) -> str:
 
 def _refuse_unported(config: DistributedTrainingConfig) -> None:
     algorithm = config.distributed_algorithm
-    if resolve_executor(config) == "spmd":
+    spmd = resolve_executor(config) == "spmd"
+    faultless = False
+    if spmd:
         if algorithm not in SPMD_SESSION_BUILDERS:
             raise NotImplementedError(
                 f"method {algorithm!r} under the SPMD executor is not ported yet (ROADMAP.md);"
@@ -192,33 +204,34 @@ def _refuse_unported(config: DistributedTrainingConfig) -> None:
         )
     else:
         accepted = THREADED_ALGORITHM_KWARGS | _THREADED_METHOD_KWARGS.get(algorithm, frozenset())
-        if not getattr(CentralizedAlgorithmFactory.config[algorithm].server_cls, "_buffered_capable", True):
-            accepted |= _BUFFERED_KWARGS
+        # a server whose JAX twin ignores the plan and the round knobs refuses them
+        faultless = not CentralizedAlgorithmFactory.config[algorithm].server_cls._takes_fault_plan
+        if not faultless:
+            # the servers refuse what they cannot buffer themselves (the JAX ValueError)
+            accepted |= _BUFFERED_KWARGS | _THREADED_SERVER_KWARGS
         unsupported = sorted(set(config.algorithm_kwargs) - accepted)
         if unsupported:
-            items = [f"{k}: {_THREADED_KWARG_ITEMS.get(k, 'item 5, part 2')}" for k in unsupported]
-            raise NotImplementedError(
-                f"algorithm_kwargs are not ported yet on the threaded executor (ROADMAP.md Queue 1, {items})"
-            )
+            ignored = _BUFFERED_KWARGS | _THREADED_SERVER_KWARGS if faultless else frozenset()
+            items = [f"{k}: {_R18 if k in ignored else 'ROADMAP.md Queue 1 item 7'}" for k in unsupported]
+            raise NotImplementedError(f"algorithm_kwargs are not ported yet on the threaded executor ({items})")
     layouts = [k for k in _LAYOUT_KWARGS if int(config.model_kwargs.get(k, 0) or 0) > 1]
-    spmd = resolve_executor(config) == "spmd"
-    # the SPMD sessions gate fault_tolerance per class (parallel/spmd.py);
-    # the graph sessions take (and, as the JAX ones, ignore) the kill
-    # schedule and the supervisor's knobs; the threaded executor none of it
+    # the SPMD sessions gate the rest of fault_tolerance per class
+    # (parallel/spmd.py); where a JAX role ignores the plan, the port refuses it
     plan = FaultPlan.from_config(config)
     if spmd and algorithm in _GRAPH_METHODS:
         faults_refused = plan is not None and not plan.only_recovery
+    elif faultless:
+        faults_refused = plan is not None and (plan.injection_active or plan.update_guard)
     else:
-        faults_refused = plan is not None and not spmd
+        faults_refused = spmd and plan is not None and plan.client_faults_nonfatal
     refused = {
         "model_kwargs": (layouts, "ROADMAP.md Queue 1 item 8"),
-        "fault_tolerance": (faults_refused, _PART_2),
-        "watchdog_seconds": (bool(config.watchdog_seconds) and not spmd, _PART_2),
-        "parallel_number": (bool(config.parallel_number), _PART_2),
+        "fault_tolerance": (faults_refused, _R18),
+        "parallel_number": (bool(config.parallel_number) and spmd, _R18),
     }
     named = [f"{k} ({item})" for k, (v, item) in refused.items() if v]
     if named:
-        raise NotImplementedError(f"{named} are not ported yet")
+        raise NotImplementedError(f"{named} are refused on the port")
 
 
 @dataclasses.dataclass
@@ -292,6 +305,12 @@ class TaskContext:
     errors: list = dataclasses.field(default_factory=list)
     server: Any = None
     workers: list = dataclasses.field(default_factory=list)
+    #: workers demoted to permanent dropouts (crashed, or stalled past the
+    #: watchdog) under ``client_faults_nonfatal``: the server takes their
+    #: ``None`` every round
+    dropped_workers: set = dataclasses.field(default_factory=set)
+    #: ``parallel_number``: at most this many workers train at once (None: any)
+    train_slots: Any = None
 
     def aborted(self) -> bool:
         return self.abort_event.is_set()
@@ -316,6 +335,7 @@ def build_task(
         engine=p.engine,
         topology=CentralTopology(p.config.worker_number),
         practitioners=sorted(p.practitioners, key=lambda q: q.worker_id),
+        train_slots=threading.BoundedSemaphore(p.config.parallel_number) if p.config.parallel_number > 0 else None,
     )
 
 
@@ -338,12 +358,25 @@ def _spawn(ctx: TaskContext) -> None:
             )
         )
 
+    nonfatal = bool(dict(config.fault_tolerance or {}).get("client_faults_nonfatal"))
+
     def run(executor) -> None:
         try:
             executor.start()
         except TaskAbortedError:
             get_logger().debug("%s aborted", executor.name)
-        except BaseException as exc:  # noqa: BLE001 -- re-raised by _harvest
+        except BaseException as exc:  # noqa: BLE001 -- re-raised by run_task
+            worker_id = getattr(executor, "worker_id", None)
+            if nonfatal and worker_id is not None and isinstance(exc, Exception):
+                # a crashed worker becomes a permanent dropout; the server's
+                # faults stay fatal (nobody aggregates without it)
+                get_logger().warning(
+                    "%s failed (%s: %s) — demoted to a dropout (fault_tolerance.client_faults_nonfatal)",
+                    executor.name, type(exc).__name__, exc,
+                )
+                ctx.dropped_workers.add(worker_id)
+                ctx.topology.server_wakeup.set()
+                return
             get_logger().exception("%s failed", executor.name)
             ctx.errors.append(exc)
             ctx.abort_event.set()
@@ -353,6 +386,56 @@ def _spawn(ctx: TaskContext) -> None:
         ctx.threads.append(threading.Thread(target=run, args=(executor,), name=executor.name, daemon=True))
     for thread in ctx.threads:
         thread.start()
+    if config.watchdog_seconds > 0:
+        # not one of ctx.threads: run_task does not join it
+        threading.Thread(
+            target=_watchdog_loop, args=(ctx, config.watchdog_seconds), name="watchdog", daemon=True
+        ).start()
+
+
+def _watchdog_loop(ctx: TaskContext, stall_seconds: float, poll: float = 0.0) -> None:
+    """The threaded executor's stall watchdog: when no message moves for
+    ``stall_seconds`` (``topology.activity`` stands still), it demotes the
+    workers the server's round waits on to dropouts under
+    ``client_faults_nonfatal`` and keeps watching, and otherwise (or with
+    no worker left to blame) ends the task with a ``TimeoutError``.  Long
+    local training between messages is normal, so it watches message
+    progress and puts no deadline on any one wait."""
+    poll = poll or min(10.0, max(0.5, stall_seconds / 10.0))
+    last_activity = ctx.topology.activity
+    stall_start = time.monotonic()
+    nonfatal = bool(dict(ctx.config.fault_tolerance or {}).get("client_faults_nonfatal"))
+    while not ctx.aborted() and any(t.is_alive() for t in ctx.threads):
+        time.sleep(poll)
+        if ctx.topology.activity != last_activity:
+            last_activity = ctx.topology.activity
+            stall_start = time.monotonic()
+            continue
+        stalled = time.monotonic() - stall_start
+        if stalled <= stall_seconds:
+            continue
+        pending_fn = getattr(ctx.server, "pending_workers", None)
+        if nonfatal and pending_fn is not None:
+            pending = set(pending_fn()) - set(ctx.dropped_workers)
+            if pending:
+                get_logger().warning(
+                    "watchdog: no message progress for %.0fs; demoting stalled workers %s to dropouts"
+                    " (fault_tolerance.client_faults_nonfatal)",
+                    stalled, sorted(pending),
+                )
+                ctx.dropped_workers.update(pending)
+                ctx.topology.server_wakeup.set()
+                stall_start = time.monotonic()
+                continue
+        waiting = [t.name for t in ctx.threads if t.is_alive()]
+        get_logger().error(
+            "watchdog: no message progress for %.0fs (threshold %.0fs); aborting task — executors still running: %s",
+            stalled, stall_seconds, waiting,
+        )
+        ctx.errors.append(TimeoutError(f"watchdog: message fabric stalled {stalled:.0f}s; live executors: {waiting}"))
+        ctx.abort_event.set()
+        ctx.topology.server_wakeup.set()
+        return
 
 
 def run_task(ctx: TaskContext) -> dict:

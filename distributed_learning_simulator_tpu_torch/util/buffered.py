@@ -23,8 +23,9 @@ items, stale ones first (oldest origin, then worker id), then on-time ones
 by worker id; the overflow rolls to the next flush one round staler; a
 dropped client's update never lands; items landing past the run's last
 round are dropped.  A resumed run counts only the items trained after
-the resume (``live_cohort``).  The threaded executor's side (the JAX
-package's ``threaded_uploaders``) is not ported.
+the resume (``live_cohort``).  The threaded executor follows the same
+schedule under its own participation rule (:func:`threaded_uploaders`),
+on the servers of :data:`BUFFERED_THREADED_ALGORITHMS`.
 """
 
 from __future__ import annotations
@@ -74,6 +75,19 @@ class BufferedSettings:
         if alpha < 0:
             raise ValueError(f"algorithm_kwargs.staleness_alpha must be >= 0, got {alpha}")
         return cls(buffer_size=buffer_size, staleness_alpha=alpha)
+
+
+#: the threaded servers whose aggregation is a FedAvg merge that a
+#: staleness discount can weight
+BUFFERED_THREADED_ALGORITHMS = ("fed_avg", "fed_paq")
+
+
+def threaded_buffered_reason(algorithm: str) -> str | None:
+    """Why the threaded executor cannot run ``aggregation_mode: buffered``
+    for ``algorithm`` (None: it can), in the JAX package's words."""
+    if algorithm not in BUFFERED_THREADED_ALGORITHMS:
+        return f"the {algorithm!r} aggregation semantics are not a staleness-weightable FedAvg merge"
+    return None
 
 
 def staleness_discount(staleness: int, alpha: float) -> float:
@@ -195,11 +209,28 @@ def selection_uploaders(config) -> Callable[[int], tuple[int, ...]]:
     return uploaders
 
 
+def threaded_uploaders(config) -> Callable[[int], tuple[int, ...]]:
+    """The threaded executor's participation rule.  Its server selects at
+    send time with its current round counter, and the initial broadcast
+    and round 1's result both select with round 1, so collection round
+    ``o``'s uploaders are ``select_workers(seed, max(1, o - 1))``: one round
+    behind :func:`selection_uploaders` under partial participation, the
+    same under full participation."""
+
+    def uploaders(round_number: int) -> tuple[int, ...]:
+        return selection_uploaders(config)(max(1, round_number - 1))
+
+    return uploaders
+
+
 __all__ = [
     "ArrivalSchedule",
+    "BUFFERED_THREADED_ALGORITHMS",
     "BufferedSettings",
     "FlushItem",
     "compute_arrival_schedule",
     "selection_uploaders",
     "staleness_discount",
+    "threaded_buffered_reason",
+    "threaded_uploaders",
 ]

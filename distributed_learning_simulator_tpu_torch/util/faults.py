@@ -37,8 +37,15 @@ kill to the next durable boundary and a resumed run, which starts past the
 killed round, never meets it again; sign_SGD, which writes no round
 checkpoints, raises at once (:meth:`FaultPlan.maybe_kill`).  ``auto_resume``,
 ``max_restarts`` and ``restart_backoff_seconds`` are the supervisor's
-(``training.py::train_with_recovery``).  ``client_faults_nonfatal`` belongs
-to the threaded executor, which runs no fault plan yet.
+(``training.py::train_with_recovery``).
+
+On the threaded executor the plan acts at the upload boundary
+(``worker/aggregation_worker.py::_inject_upload_faults``): a straggler
+sleeps its own seeded delay, a dropped worker sends ``None``, a corrupt
+one NaN-fills its upload (:meth:`FaultPlan.poison_params`), and the
+server guards and counts what arrives.  ``client_faults_nonfatal``
+belongs to that executor: a crashed or stalled worker becomes a
+permanent dropout.
 """
 
 import dataclasses
@@ -49,7 +56,9 @@ from collections.abc import Mapping
 from typing import Any
 
 import numpy as np
+import torch
 
+from ..models.convert import _jax_key
 from ..utils.logging import get_logger
 
 
@@ -220,12 +229,18 @@ class FaultPlan:
             return 1
         return max(1, math.ceil(self._delay_multiplier(round_number, worker_id) - 1e-9))
 
-    def straggler_sleep(self, round_number: int, worker_number: int) -> None:
-        """The lock-step round ends when its slowest upload arrives: one
-        host sleep for the slowest straggler."""
+    def straggler_sleep(self, round_number: int, worker_number: int, worker_id: int | None = None) -> None:
+        """The host's straggler delay.  With ``worker_id`` (the threaded
+        executor): that worker's own seeded delay, if it straggles this
+        round.  Without (the lock-step SPMD round, which ends when its
+        slowest upload arrives): one sleep for the slowest straggler."""
         if self.straggler_delay_seconds <= 0:
             return
         straggling = self.straggling_clients(round_number, worker_number)
+        if worker_id is not None:
+            if worker_id in straggling:
+                time.sleep(self.straggler_delay(round_number, worker_id, worker_number))
+            return
         if straggling:
             time.sleep(max(self.straggler_delay(round_number, w, worker_number) for w in straggling))
 
@@ -257,6 +272,16 @@ class FaultPlan:
             raise SimulatedPreemption(
                 f"fault plan: simulated process kill after round {armed} (fired at durable round {durable_round})"
             )
+
+    def poison_params(self, params: dict) -> dict:
+        """The threaded executor's corruption: the upload's tensor whose JAX
+        key sorts first (the JAX package's choice) replaced in the dict by
+        a NaN-filled one on its own device, so no tensor the worker still
+        holds changes; the server's update guard must reject it."""
+        if params:
+            name = min(params, key=lambda k: _jax_key(k, params[k].ndim)[0])
+            params[name] = torch.full_like(params[name], float("nan"))
+        return params
 
     @property
     def only_recovery(self) -> bool:

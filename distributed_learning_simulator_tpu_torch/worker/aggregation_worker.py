@@ -9,7 +9,14 @@ SPMD session's stream unless the role says otherwise
 armed so hands its reserved
 :class:`~..ops.quantization.SessionKey` to an endpoint that takes one
 (``set_quant_key``): the two executors then draw the same codec values.
-The fault plan stays refused (``training.py``)."""
+
+The fault plan acts at the upload (:meth:`AggregationWorker._inject_upload_faults`):
+a straggling worker sleeps its own seeded delay, a dropped one sends
+``None`` and waits for the round's result as a worker that uploaded, and a
+corrupt one NaN-fills its upload for the server's guard.  A resumed
+server's initial broadcast carries its round, and the worker jumps
+there; a worker it leaves out gets the round in a bare ``Message`` and
+then answers as to ``None``."""
 
 import os
 from typing import Any
@@ -17,6 +24,7 @@ from typing import Any
 from ..engine.engine import summarize_metrics
 from ..message import DeltaParameterMessage, Message, ParameterMessage, ParameterMessageBase
 from ..ml_type import ExecutorHookPoint, MachineLearningPhase, StopExecutingException
+from ..util.faults import FaultPlan
 from ..util.model_cache import ModelCache
 from ..utils.logging import get_logger
 from .client import Client
@@ -51,6 +59,8 @@ class AggregationWorker(Client):
         self._send_parameter_diff = True
         self._model_cache = ModelCache()
         self._keep_model_hook: KeepModelHook | None = None
+        # the seeded draws the SPMD sessions fold into their weight rows
+        self._fault_plan = FaultPlan.from_config(self.config)
 
     def _before_training(self) -> None:
         super()._before_training()
@@ -94,7 +104,33 @@ class AggregationWorker(Client):
 
         self.trainer.append_named_hook(self._aggregation_time, "aggregation", aggregation_impl)
 
+    def _inject_upload_faults(self, sent_data: Message) -> Message | None:
+        """The round's fault plan at the upload: a straggler sleeps, a
+        dropped upload becomes ``None`` (the worker trained, the upload was
+        lost), a corrupt one is NaN-poisoned.  Returns what to send."""
+        plan = self._fault_plan
+        if plan is None or not plan.injection_active:
+            return sent_data
+        n, round_number = self.config.worker_number, self._round_num
+        plan.straggler_sleep(round_number, n, worker_id=self.worker_id)
+        if self.worker_id in plan.dropped_clients(round_number, n):
+            get_logger().warning("fault plan: worker %s drops round %s upload", self.worker_id, round_number)
+            return None
+        if self.worker_id in plan.corrupt_clients(round_number, n):
+            get_logger().warning("fault plan: worker %s corrupts round %s upload", self.worker_id, round_number)
+            match sent_data:
+                case DeltaParameterMessage():
+                    plan.poison_params(sent_data.delta_parameter)
+                case ParameterMessage():
+                    plan.poison_params(sent_data.parameter)
+        return sent_data
+
     def _aggregation(self, sent_data: Message, **kwargs: Any) -> None:
+        sent_data = self._inject_upload_faults(sent_data)
+        if sent_data is None:  # a lost upload: stay in step with the server
+            self.send_data_to_server(None)
+            self._get_result_from_server()
+            return
         key = self.trainer.reserved_quant_key
         if key is not None and hasattr(self._endpoint, "set_quant_key"):
             self._endpoint.set_quant_key(key, fold_indices=self._quant_fold_indices())
@@ -138,6 +174,8 @@ class AggregationWorker(Client):
         if result.end_training:
             self._force_stop = True
             raise StopExecutingException()
+        if getattr(result, "is_initial", False) and "round" in result.other_data:
+            self._round_num = result.other_data["round"]  # the server resumed: jump to its round
         model_path = os.path.join(self.config.save_dir, "aggregated_model", f"round_{self._round_num}.npz")
         match result:
             case ParameterMessage():
@@ -162,6 +200,10 @@ class AggregationWorker(Client):
         the round, answer ``None`` and wait again."""
         while True:
             result = self._get_data_from_server()
+            if type(result) is Message and "round" in result.other_data:
+                # left out of a resumed run's initial broadcast: its round, then as None
+                self._round_num = result.other_data["round"]
+                result = None
             if result is None:
                 get_logger().debug("%s skips round %s", self.name, self._round_num)
                 self._round_num += 1

@@ -2,7 +2,12 @@
 of the JAX package's ``worker/worker.py``).  A worker runs
 ``trainer.train()`` once a round until its round counter passes
 ``config.round`` or it is stopped; its role's hooks fire from the
-trainer's hook points."""
+trainer's hook points.
+
+``parallel_number`` bounds how many workers train at once: a worker takes
+one of the task's ``train_slots`` (a semaphore) before it trains and
+gives it back while it waits on the server (``worker/client.py``), so a
+round barrier over every worker never waits on a slot held by a waiter."""
 
 import dataclasses
 import json
@@ -24,6 +29,8 @@ class Worker(Executor):
         self._endpoint = endpoint
         self._round_num = 0
         self._force_stop = False
+        self._holds_slot = False
+        self._slot_deferred = False  # a slot owed after an unselected round
 
     @property
     def worker_id(self) -> int:
@@ -62,21 +69,42 @@ class Worker(Executor):
     def _stopped(self) -> bool:
         return self._round_num > self.config.round or self._force_stop
 
+    def _train_slots(self):
+        return getattr(self._task_context, "train_slots", None)
+
+    def _acquire_slot(self) -> None:
+        slots = self._train_slots()
+        if slots is None or self._holds_slot:
+            return
+        while not slots.acquire(timeout=0.5):
+            self._raise_if_aborted()
+        self._holds_slot = True
+
+    def _release_slot(self) -> None:
+        slots = self._train_slots()
+        if slots is not None and self._holds_slot:
+            self._holds_slot = False
+            slots.release()
+
     def start(self) -> None:
         first_training = True
         self._round_num = 1
         self._force_stop = False
         with self._get_execution_context():
-            while not self._stopped():
-                if first_training:
-                    self._before_training()
-                    first_training = False
-                    if self._stopped():
-                        break
-                self.trainer.set_visualizer_prefix(f"round: {self._round_num},")
-                self._before_round()
-                self.trainer.train()
-                self._round_num += 1
+            try:
+                while not self._stopped():
+                    if first_training:
+                        self._before_training()
+                        first_training = False
+                        if self._stopped():
+                            break
+                    self.trainer.set_visualizer_prefix(f"round: {self._round_num},")
+                    self._before_round()
+                    self._acquire_slot()
+                    self.trainer.train()
+                    self._round_num += 1
+            finally:
+                self._release_slot()
             get_logger().debug("finish %s", self.name)
             self._endpoint.close()
             self._after_training()

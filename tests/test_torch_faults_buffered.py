@@ -19,9 +19,11 @@ aggregation (``util/buffered.py``) and ``client_chunk: auto``
 * a calibration hit under the port's key, a loud miss on the JAX
   package's key for the same shape, and ``auto`` bit-equal to the chunk it
   resolves to;
-* the other sessions refuse buffered aggregation and the guard, with the
-  JAX package's ``ValueError`` where it refuses them and
-  ``NotImplementedError`` where it runs them.
+* the other sessions refuse buffered aggregation and the guard with the
+  JAX package's ``ValueError`` where it refuses them; where it runs a
+  fault path (FedOBD's and sign_SGD's guard, FedDropoutAvg's dropout, the
+  threaded plan) the port runs it against the JAX package, and where a JAX
+  session takes a knob and ignores it the port raises (ROADMAP R18).
 """
 
 import dataclasses
@@ -424,16 +426,62 @@ def test_guard_is_refused_with_the_jax_error(tmp_path, algorithm):
         ("sign_SGD", {}, {"update_guard": True}, "auto"),
         ("fed_dropout_avg", {"dropout_rate": 0.3}, {"dropout_rate": 0.5}, "auto"),
         ("fed_avg", {}, {"client_faults_nonfatal": True}, "auto"),
-        # auto_resume runs on the SPMD sessions (tests/test_torch_recovery.py), not on the threaded executor
         ("fed_avg", {}, {"auto_resume": True}, "sequential"),
         ("fed_avg", {}, {"dropout_rate": 0.5}, "sequential"),
         ("fed_gnn", {}, {"dropout_rate": 0.5}, "auto"),
     ],
     ids=["fed_obd_guard", "sign_sgd_guard", "sparse_dropout", "nonfatal", "auto_resume", "threaded", "graph"],
 )
-def test_unported_fault_paths_raise(tmp_path, algorithm, kwargs, fault_tolerance, executor):
-    """Where the JAX package runs these, the port names the ROADMAP item."""
+def test_unported_fault_paths_raise(tmp_path, init_npz, algorithm, kwargs, fault_tolerance, executor):
+    """Each fault path where the JAX package runs it: the port runs it and
+    its records hold against the JAX package's (``EXACT`` columns equal,
+    test loss at rtol 1e-4; sign_SGD from the JAX init at the whole-run
+    bound ``RUN_RTOL`` of ``tests/test_torch_sign_sgd.py``; FedDropoutAvg
+    with the JAX session's keep masks).  Where a JAX session takes the
+    knob and ignores it (``client_faults_nonfatal`` on an SPMD session, the
+    plan on the graph sessions), the port raises naming ROADMAP R18."""
     extra = {"dataset_name": "Coauthor_CS", "model_name": "TwoGCN"} if algorithm == "fed_gnn" else {}
-    _, tc = _other_configs(tmp_path, algorithm, kwargs, fault_tolerance=fault_tolerance, executor=executor, **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_train(tc, device="cpu")
+    jc, tc = _other_configs(tmp_path, algorithm, kwargs, fault_tolerance=fault_tolerance, executor=executor, **extra)
+    if algorithm == "fed_gnn" or "client_faults_nonfatal" in fault_tolerance:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md R18"):
+            torch_train(tc, device="cpu")
+        return
+    rtol = 1e-4
+    if algorithm == "sign_SGD":  # the session's init is the JAX engine's
+        from distributed_learning_simulator_tpu_torch.models import convert
+
+        from test_torch_sign_sgd import RUN_RTOL
+
+        rtol = RUN_RTOL
+        session = build_session(tc, device="cpu")
+        with np.load(init_npz) as blob:
+            init = {k: blob[k] for k in blob.files}
+        session.engine.init_params = lambda seed: convert.from_jax(init)
+        port_run = session.run
+    else:
+        for config in (jc, tc):
+            config.algorithm_kwargs["global_model_path"] = init_npz
+        if algorithm == "fed_dropout_avg":
+            from test_torch_sparse import JaxSparseRandom
+
+            tc.endpoint_kwargs = {"worker": {"random": JaxSparseRandom(jc.seed, jc.worker_number)}}
+
+        def port_run():
+            return torch_train(tc, device="cpu")
+
+    # a plan can lose a whole round: then both raise the same QuorumLostError after the same records
+    errors = []
+    for run, lost in ((lambda: jax_train(jc), jfaults.QuorumLostError), (port_run, tfaults.QuorumLostError)):
+        try:
+            run()
+            errors.append(None)
+        except lost as exc:
+            errors.append(str(exc))
+    assert errors[1] == errors[0]
+    jrec, trec = ({} if errors[0] and "round 1:" in errors[0] else _records(c) for c in (jc, tc))
+    assert sorted(trec) == sorted(jrec) and (jrec or errors[0])
+    for r, want in jrec.items():
+        for key in EXACT:
+            if key in want:
+                assert trec[r][key] == want[key], (r, key)
+        np.testing.assert_allclose(trec[r]["test_loss"], want["test_loss"], rtol=rtol, err_msg=r)

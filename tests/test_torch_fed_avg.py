@@ -23,7 +23,9 @@ from distributed_learning_simulator_tpu.engine.hyper_parameter import HyperParam
 from distributed_learning_simulator_tpu.models.registry import create_model_context as j_create_model
 from distributed_learning_simulator_tpu.training import train as jax_train
 from distributed_learning_simulator_tpu_torch import config as tconfig
+from distributed_learning_simulator_tpu_torch import training
 from distributed_learning_simulator_tpu_torch.training import train as torch_train
+from distributed_learning_simulator_tpu_torch.util.faults import SimulatedPreemption
 
 ROUNDS = 2
 
@@ -175,19 +177,27 @@ def test_client_chunking_does_not_change_the_round(tmp_path, init_npz):
 def test_unported_paths_raise(tmp_path, monkeypatch):
     base = _fields(tmp_path, "refused")
     obd = {"second_phase_epoch": 1, "dropout_rate": 0.5}
+    # the threaded round machinery runs (tests/test_torch_threaded_faults.py
+    # holds it against the JAX package): a resume of a directory with
+    # nothing in it and buffered aggregation build, a kill fires
     for change in (
-        # the Shapley values run threaded; resume on the threaded roles does not
         {"distributed_algorithm": "GTG_shapley_value", "executor": "sequential",
          "algorithm_kwargs": {"resume_dir": "earlier"}},
-        {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2, "population_store": "streamed"}},
         {"executor": "sequential", "algorithm_kwargs": {"aggregation_mode": "buffered"}},
+    ):
+        training.build_task(tconfig.DistributedTrainingConfig(**{**base, **change}), device="cpu")
+    config = tconfig.DistributedTrainingConfig(
+        **{**base, "executor": "sequential", "fault_tolerance": {"kill_after_rounds": [1]}}
+    )
+    with pytest.raises(SimulatedPreemption, match="after round 1"):
+        torch_train(config, device="cpu")
+    for change in (
+        {"distributed_algorithm": "fed_obd", "algorithm_kwargs": {**obd, "round_horizon": 2, "population_store": "streamed"}},
         {"executor": "sequential", "algorithm_kwargs": {"float64_parity": True}},
         {"algorithm_kwargs": {"round_horizon": 2, "selection_gather": True}},
         {"algorithm_kwargs": {"population_store": "streamed"}},
         {"extra_hyper_parameters": {"donate_buffers": True}},
         {"extra_hyper_parameters": {"remat_policy": "save_only_these_names"}},
-        # the kill runs on the SPMD sessions (tests/test_torch_recovery.py), not on the threaded executor
-        {"executor": "sequential", "fault_tolerance": {"kill_after_rounds": [1]}},
         {
             "model_name": "TransformerClassificationModel",
             "dataset_name": "imdb",

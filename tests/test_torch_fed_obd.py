@@ -517,7 +517,7 @@ def test_obd_session_raises_without_cuda_unless_cpu_is_asked(tmp_path, monkeypat
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "round_horizon": 2,
                               "population_store": "streamed"}},
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "selection_gather": True}},
-        # resume runs (tests/test_torch_resume.py); of the fault plan FedOBD takes only the kill
+        # resume runs (tests/test_torch_resume.py), and so does the fault plan
         {"algorithm_kwargs": {"second_phase_epoch": 1, "dropout_rate": 0.5, "resume_dir": "x"},
          "fault_tolerance": {"dropout_rate": 0.5}},
         {"fault_tolerance": {"update_guard": True}},
@@ -525,6 +525,27 @@ def test_obd_session_raises_without_cuda_unless_cpu_is_asked(tmp_path, monkeypat
     ids=["round_horizon", "selection_gather", "resume", "fault_tolerance"],
 )
 def test_unported_obd_options_raise(tmp_path, change):
+    """What FedOBD's session still refuses raises; the fault plan, which it
+    now runs (a resume of a directory with nothing in it is a fresh run),
+    is held against the JAX session from its init: the guard as every
+    trajectory here; the seeded dropout (aggregates of one or two
+    clients) by its phases, wire MB and accuracies, and its test losses at
+    rtol 1e-3: a level flip in the broadcast of such an aggregate moves
+    the next aggregate's loss by up to 2.5e-4 (ROADMAP R10)."""
+    if "fault_tolerance" in change:
+        jc, tc, jres, tres, steps = _run_both(tmp_path, "fed_obd", fault_tolerance=change["fault_tolerance"])
+        if "update_guard" in change["fault_tolerance"]:
+            _assert_trajectories_match(jc, tc, jres, tres, steps, OBD_PHASES)
+            return
+        assert sorted(tres) == sorted(jres) == list(range(1, len(OBD_PHASES) + 1))
+        for key, want in jres.items():
+            got = tres[key]
+            assert got["phase"] == want["phase"] == OBD_PHASES[key - 1]
+            assert got["test_accuracy"] == want["test_accuracy"]
+            np.testing.assert_allclose(got["test_loss"], want["test_loss"], rtol=1e-3)
+            np.testing.assert_allclose(got["received_mb"], want["received_mb"], rtol=1e-6)
+            np.testing.assert_allclose(got["sent_mb"], want["sent_mb"], rtol=1e-6)
+        return
     config = tconfig.DistributedTrainingConfig(**{**_fields(tmp_path, "refused", "fed_obd"), **change})
     with pytest.raises(NotImplementedError):
         training.train(config, device="cpu")

@@ -19,8 +19,10 @@ JAX init through the weight bridge, on LeNet5/MNIST at
   order, the uploads part, and the session's evaluator and engine on the
   threaded stack give the threaded values (the one-line reason below);
 * K1 counted through its wrapper: once a subset and once a round;
-* the JAX package's ``ValueError`` on ``aggregation_mode: buffered``, the
-  refusals of item 5 part 2, and raising without CUDA.
+* the JAX package's ``ValueError`` on ``aggregation_mode: buffered``; the
+  round machinery (a kill, a resume, the watchdog, ``parallel_number``)
+  against the JAX package on a GTG server, ``sv_batch_chunk``'s refusal
+  (item 7), and raising without CUDA.
 """
 
 import dataclasses
@@ -41,12 +43,14 @@ from distributed_learning_simulator_tpu.method.shapley_value import shapley_valu
 from distributed_learning_simulator_tpu.ml_type import MachineLearningPhase as JPhase
 from distributed_learning_simulator_tpu.models.registry import create_model_context as j_create_model
 from distributed_learning_simulator_tpu.training import train as jax_train
+from distributed_learning_simulator_tpu.util import faults as jfaults
 from distributed_learning_simulator_tpu_torch import config as tconfig
 from distributed_learning_simulator_tpu_torch import shapley as tshapley
 from distributed_learning_simulator_tpu_torch import training
 from distributed_learning_simulator_tpu_torch.method.shapley_value import shapley_value_algorithm as tsva
 from distributed_learning_simulator_tpu_torch.models import convert
 from distributed_learning_simulator_tpu_torch.ops import pytree
+from distributed_learning_simulator_tpu_torch.util import faults as tfaults
 from tools.tracedump import load_trace
 
 #: an upload, relative to its leaf's largest value; a test loss, relative
@@ -332,9 +336,36 @@ def test_buffered_raises_the_jax_value_error(tmp_path, algorithm):
     ids=["fault_plan", "resume", "watchdog", "parallel_number", "sv_batch_chunk"],
 )
 def test_round_machinery_stays_refused(tmp_path, fields):
-    config = tconfig.DistributedTrainingConfig(**_fields(tmp_path, "refused", "gtg", **fields))
-    with pytest.raises(NotImplementedError, match="item 5, part 2"):
-        training.train(config, device="cpu")
+    """The threaded round machinery on a Shapley server, against the JAX
+    package on the same config: a kill after round 1 raises the JAX
+    package's ``SimulatedPreemption`` after the same records; a resume of a
+    directory with nothing to resume, the watchdog and ``parallel_number``
+    run the task as JAX runs it (records' accuracies equal, test losses at
+    ``LOSS_RTOL``).  ``sv_batch_chunk`` stays refused (ROADMAP item 7)."""
+    if "sv_batch_chunk" in fields.get("algorithm_kwargs", {}):
+        config = tconfig.DistributedTrainingConfig(**_fields(tmp_path, "refused", "gtg", **fields))
+        with pytest.raises(NotImplementedError, match="item 7"):
+            training.train(config, device="cpu")
+        return
+    extra = dict(fields)
+    jc, tc = _configs(tmp_path, "gtg", _jax_init(tmp_path, "gtg"), **{k: v for k, v in extra.items()
+                                                                      if k != "algorithm_kwargs"})
+    for config in (jc, tc):
+        config.algorithm_kwargs.update(extra.get("algorithm_kwargs", {}))
+    if "fault_tolerance" in extra:
+        with pytest.raises(jfaults.SimulatedPreemption) as want:
+            jax_train(jc)
+        with pytest.raises(tfaults.SimulatedPreemption) as got:
+            training.train(tc, device="cpu")
+        assert str(got.value) == str(want.value)
+    else:
+        jax_train(jc)
+        training.train(tc, device="cpu")
+    jrec, trec = _records(jc), _records(tc)
+    assert sorted(trec) == sorted(jrec)
+    for key, want_row in jrec.items():
+        np.testing.assert_allclose(trec[key]["test_loss"], want_row["test_loss"], rtol=LOSS_RTOL, err_msg=key)
+        assert trec[key]["test_accuracy"] == want_row["test_accuracy"], key
 
 
 def test_raises_without_cuda_unless_cpu(tmp_path, monkeypatch):
